@@ -1,0 +1,308 @@
+// Banded NW forward in per-lane diagonal coordinates (Hopper, sm_90a).
+//
+// Replaces the JAX package's Pallas kernel
+// racon_tpu/ops/pallas/band_kernel.py::_kernel (entry fw_dirs_band), and
+// is held bitwise against the plain PyTorch version
+// racon_tpu_torch/ops/band.py::fw_dirs_band_plain.
+//
+// Design: one block per lane (job); each thread owns SPT consecutive band
+// slots x; the Lq query rows run in a loop inside the block. The lane's
+// pre-shifted target window tband[b, 0 : W+Lq) and its query column are
+// staged in shared memory once. Per row:
+//   - diag neighbour = slot x of the previous row, up neighbour = slot
+//     x+1 of the previous row (both in shared memory, sentinel at x = W);
+//   - the left-gap chain is an inclusive prefix max over x of
+//     tmp - j*gap (with the NEG floor of the reference's shift-max
+//     ladder): a per-thread serial prefix, a warp shuffle scan and one
+//     shared-memory pass across warps;
+//   - the UP-chain metadata (U, C) and the k-step predecessor hops
+//     (N, N2, N3) follow the reference's three-shift propagation; the
+//     "LEFT" hop reads slot x-1 of this row, exchanged across threads
+//     through shared memory.
+// Output layout is the plain twin's "band" layout [Lq, B, W]: a lane's
+// row is W contiguous bytes, written as SPT-wide vector stores.
+//
+// Bound at the main-path shape (B=4096, Lq=640, W=256, k=4): the planes
+// write B*Lq*W*(1+1+2) bytes ~ 2.7 GB (~0.8 ms at 3.35 TB/s), and the
+// integer work is ~40 operations per cell over 671 M cells. The two are
+// of the same order; the design keeps every score and metadata word in
+// shared memory or registers so device memory sees only the planes.
+//
+// Arithmetic: scores are int32 with NEG = -2^30. P + sub can reach
+// exactly 2*NEG = -2^31 (a masked cell below a masked cell); that sum is
+// formed in 64 bits so no signed overflow can occur, and the clamp to
+// NEG precedes the "- j*gap" exactly as in the reference.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kNeg = -(1 << 30);
+constexpr int kDiag = 0;
+constexpr int kUp = 1;
+constexpr int kLeft = 2;
+constexpr int kUSat = 11;
+constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ constexpr int uc_boundary(int k) {
+  // (N3 << 18 | N2 << 12 | N << 6 | U << 2 | C) with every field LEFT/0.
+  return k >= 4 ? ((((kLeft << 6) | kLeft) << 6 | kLeft) << 6) | kLeft
+                : (kLeft << 6) | kLeft;
+}
+
+template <int SPT>
+struct Vec;
+template <>
+struct Vec<1> {
+  static __device__ void put8(uint8_t* p, const int* v) { p[0] = (uint8_t)v[0]; }
+  static __device__ void put16(uint16_t* p, const int* v) { p[0] = (uint16_t)v[0]; }
+};
+template <>
+struct Vec<4> {
+  static __device__ void put8(uint8_t* p, const int* v) {
+    uint32_t w = (uint32_t)(v[0] & 0xff) | ((uint32_t)(v[1] & 0xff) << 8) |
+                 ((uint32_t)(v[2] & 0xff) << 16) | ((uint32_t)(v[3] & 0xff) << 24);
+    *reinterpret_cast<uint32_t*>(p) = w;
+  }
+  static __device__ void put16(uint16_t* p, const int* v) {
+    uint2 w;
+    w.x = (uint32_t)(v[0] & 0xffff) | ((uint32_t)(v[1] & 0xffff) << 16);
+    w.y = (uint32_t)(v[2] & 0xffff) | ((uint32_t)(v[3] & 0xffff) << 16);
+    *reinterpret_cast<uint2*>(p) = w;
+  }
+};
+
+template <int SPT, int K>
+__global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
+                                const uint8_t* __restrict__ qT,
+                                const int32_t* __restrict__ klo,
+                                const int32_t* __restrict__ lq,
+                                uint8_t* __restrict__ cells,
+                                uint8_t* __restrict__ nxt,
+                                uint16_t* __restrict__ nxt2,
+                                int32_t* __restrict__ hlast, int B, int Lq,
+                                int W, int match, int mismatch, int gap) {
+  extern __shared__ int32_t smem[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int PW = W + Lq;
+  int32_t* P = smem;                 // W + 1 scores of the previous row
+  int32_t* UC = P + (W + 1);         // W + 1 packed metadata words
+  int32_t* wmax = UC + (W + 1);      // 32 warp totals of the scan
+  int32_t* edge = wmax + 32;         // 3 * nthr last-slot exchanges
+  uint8_t* tb = reinterpret_cast<uint8_t*>(edge + 3 * nthr);  // PW
+  uint8_t* qs = tb + PW;             // Lq
+
+  const int BND = uc_boundary(K);
+  const int kl = klo[b];
+  const int lqb = lq[b];
+  for (int y = tid; y < PW; y += nthr) tb[y] = tband[(size_t)b * PW + y];
+  for (int r = tid; r < Lq; r += nthr) qs[r] = qT[(size_t)r * B + b];
+
+  const int x0 = tid * SPT;
+  int hl[SPT];
+#pragma unroll
+  for (int s = 0; s < SPT; ++s) {
+    const int x = x0 + s;
+    const int j0 = kl + x;
+    hl[s] = j0 >= 0 ? j0 * gap : kNeg;
+    if (x < W) {
+      P[x] = hl[s];
+      UC[x] = BND;
+    }
+  }
+  if (tid == 0) {
+    P[W] = kNeg;
+    UC[W] = BND;
+  }
+  __syncthreads();
+
+  for (int i = 1; i <= Lq; ++i) {
+    const int qb = qs[i - 1];
+    long long dg[SPT];
+    int upv[SPT], f[SPT], ucp[SPT], ucup[SPT], jc[SPT];
+    int tot = kNeg;
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) {
+      const int x = x0 + s;
+      jc[s] = i + kl + x;
+      if (x < W) {
+        int sub = (tb[i - 1 + x] == qb) ? match : mismatch;
+        if (jc[s] < 1) sub = kNeg;
+        dg[s] = (long long)P[x] + sub;
+        upv[s] = P[x + 1] + gap;
+        long long t = dg[s] > upv[s] ? dg[s] : (long long)upv[s];
+        if (jc[s] == 0) t = (long long)i * gap;
+        if (t < kNeg) t = kNeg;
+        const int fv = (int)t - jc[s] * gap;
+        tot = fv > tot ? fv : tot;
+        ucp[s] = UC[x];
+        ucup[s] = UC[x + 1];
+      } else {
+        dg[s] = 0;
+        upv[s] = 0;
+        ucp[s] = BND;
+        ucup[s] = BND;
+      }
+      f[s] = tot;  // thread-local inclusive prefix max
+    }
+    // Block-wide exclusive prefix max of the per-thread totals.
+    int incl = tot;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl = v > incl ? v : incl;
+    }
+    int excl = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) excl = kNeg;
+    if (lane == 31) wmax[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) excl = wmax[w] > excl ? wmax[w] : excl;
+
+    int h[SPT], d[SPT], U[SPT], C[SPT], un[SPT], N[SPT];
+    bool isup[SPT];
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) {
+      const int F = f[s] > excl ? f[s] : excl;
+      const int hv = jc[s] >= 0 ? F + jc[s] * gap : kNeg;
+      h[s] = hv;
+      d[s] = ((long long)hv == dg[s]) ? kDiag : (hv == upv[s] ? kUp : kLeft);
+      isup[s] = d[s] == kUp;
+      const int uu = ((ucup[s] >> 2) & 0xF) + 1;
+      U[s] = isup[s] ? (uu < kUSat ? uu : kUSat) : 0;
+      C[s] = isup[s] ? (ucup[s] & 3) : d[s];
+      un[s] = (U[s] << 2) + C[s];
+      if (i == lqb) hl[s] = hv;
+    }
+    const size_t row = ((size_t)(i - 1) * B + b) * W + x0;
+    const bool active = x0 < W;
+    {
+      int pk[SPT];
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) pk[s] = d[s] + (C[s] << 2) + (U[s] << 4);
+      if (active) Vec<SPT>::put8(cells + row, pk);
+    }
+    int uc_new[SPT];
+    if (K >= 2) {
+      edge[tid] = un[SPT - 1];
+      __syncthreads();
+      int left = tid > 0 ? edge[tid - 1] : kLeft;
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) {
+        N[s] = isup[s] ? ((ucup[s] >> 6) & 0x3F)
+                       : (d[s] == kDiag ? (ucp[s] & 0x3F) : left);
+        left = un[s];
+      }
+      if (active) Vec<SPT>::put8(nxt + row, N);
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) uc_new[s] = (N[s] << 6) + un[s];
+    } else {
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) uc_new[s] = un[s];
+    }
+    if (K >= 4) {
+      int N2[SPT], N3[SPT];
+      edge[nthr + tid] = N[SPT - 1];
+      __syncthreads();
+      int left = tid > 0 ? edge[nthr + tid - 1] : kLeft;
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) {
+        N2[s] = isup[s] ? ((ucup[s] >> 12) & 0x3F)
+                        : (d[s] == kDiag ? ((ucp[s] >> 6) & 0x3F) : left);
+        left = N[s];
+      }
+      edge[2 * nthr + tid] = N2[SPT - 1];
+      __syncthreads();
+      left = tid > 0 ? edge[2 * nthr + tid - 1] : kLeft;
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) {
+        N3[s] = isup[s] ? ((ucup[s] >> 18) & 0x3F)
+                        : (d[s] == kDiag ? ((ucp[s] >> 12) & 0x3F) : left);
+        left = N2[s];
+      }
+      int pk[SPT];
+#pragma unroll
+      for (int s = 0; s < SPT; ++s) {
+        pk[s] = (N3[s] << 8) + N2[s];
+        uc_new[s] += (N3[s] << 18) + (N2[s] << 12);
+      }
+      if (active) Vec<SPT>::put16(nxt2 + row, pk);
+    }
+    // Every read of P/UC for this row happened before the scan's sync.
+#pragma unroll
+    for (int s = 0; s < SPT; ++s) {
+      const int x = x0 + s;
+      if (x < W) {
+        P[x] = h[s];
+        UC[x] = uc_new[s];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int s = 0; s < SPT; ++s) {
+    const int x = x0 + s;
+    if (x < W) hlast[(size_t)b * W + x] = hl[s];
+  }
+}
+
+template <int SPT, int K>
+cudaError_t launch(const uint8_t* tband, const uint8_t* qT,
+                   const int32_t* klo, const int32_t* lq, uint8_t* cells,
+                   uint8_t* nxt, uint16_t* nxt2, int32_t* hlast, int B,
+                   int Lq, int W, int match, int mismatch, int gap,
+                   cudaStream_t stream) {
+  const int slots = (W + SPT - 1) / SPT;
+  const int nthr = ((slots + 31) / 32) * 32;
+  const size_t shm = sizeof(int32_t) * (2 * (W + 1) + 32 + 3 * nthr) +
+                     (size_t)(W + Lq) + (size_t)Lq;
+  if (shm > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        band_fwd_kernel<SPT, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shm);
+    if (e != cudaSuccess) return e;
+  }
+  band_fwd_kernel<SPT, K><<<B, nthr, shm, stream>>>(
+      tband, qT, klo, lq, cells, nxt, nxt2, hlast, B, Lq, W, match,
+      mismatch, gap);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int racon_band_fwd(const void* tband, const void* qT,
+                              const void* klo, const void* lq, void* cells,
+                              void* nxt, void* nxt2, void* hlast, int B,
+                              int Lq, int W, int match, int mismatch,
+                              int gap, int nxt_k, void* stream) {
+  auto* t = static_cast<const uint8_t*>(tband);
+  auto* q = static_cast<const uint8_t*>(qT);
+  auto* k = static_cast<const int32_t*>(klo);
+  auto* l = static_cast<const int32_t*>(lq);
+  auto* c = static_cast<uint8_t*>(cells);
+  auto* n = static_cast<uint8_t*>(nxt);
+  auto* n2 = static_cast<uint16_t*>(nxt2);
+  auto* hl = static_cast<int32_t*>(hlast);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = (W % 4) == 0;
+  if ((vec ? W / 4 : W) > 1024 || B <= 0 || Lq <= 0 || W <= 0)
+    return (int)cudaErrorInvalidValue;
+#define RACON_BAND_LAUNCH(S, K)                                             \
+  launch<S, K>(t, q, k, l, c, n, n2, hl, B, Lq, W, match, mismatch, gap, st)
+  cudaError_t e;
+  if (vec) {
+    e = nxt_k >= 4 ? RACON_BAND_LAUNCH(4, 4)
+                   : (nxt_k >= 2 ? RACON_BAND_LAUNCH(4, 2)
+                                 : RACON_BAND_LAUNCH(4, 1));
+  } else {
+    e = nxt_k >= 4 ? RACON_BAND_LAUNCH(1, 4)
+                   : (nxt_k >= 2 ? RACON_BAND_LAUNCH(1, 2)
+                                 : RACON_BAND_LAUNCH(1, 1));
+  }
+#undef RACON_BAND_LAUNCH
+  return (int)e;
+}
