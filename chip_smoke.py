@@ -9,15 +9,24 @@ any failure exits non-zero and prints no result):
               together) and the host C++ aligner, from this checkout;
 2. kernels    each kernel against its plain PyTorch version on the card,
               bitwise, at the main path's shapes; kernel and plain times
-              from CUDA events;
+              from CUDA events: band_fwd (K1) at the consensus shape,
+              band_tile_fwd (K3) at the overlap tile shape from a previous
+              tile's frontier, flat_fwd (K2), and col_walk (W1) on a
+              stitched overlap chunk (tiled, int32) and at the consensus
+              shape (k=4, int16);
 3. small      the CLI on a ~20 kb synthetic input with --device cuda and
-              --device cpu: the FASTA must be byte-identical;
+              --device cpu: the FASTA must be byte-identical (the cuda run
+              aligns the overlaps on the card, untiled; the cpu run with
+              the host aligner);
 4. main       the main path at full size through the CLI entry point: a
               1 Mbp synthetic draft (20 contigs x 50 kb), 10 kb reads at
-              30x, PAF overlaps aligned on the host, w=500. Launch counts
-              reset just before and read just after; band_fwd must have
-              launched. Polished edit distance to the truth must be at
-              most a third of the draft's;
+              30x, PAF overlaps aligned on the card (tiled route), w=500.
+              Launch counts reset just before and read just after;
+              band_fwd, band_tile_fwd and col_walk must have launched and
+              the overlap aligner must have handled jobs on the card. The
+              host phases are split from the logger's phase lines.
+              Polished edit distance to the truth must be at most a third
+              of the draft's;
 5. flat path  the band-off route (RACON_TPU_NO_BAND=1, the full-width
               forward) through the CLI on a 100 kb input, with its own
               launch counts; flat_fwd must have launched.
@@ -45,9 +54,18 @@ import numpy as np
 # figure counts 128 lanes and an FMA as two operations).
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
-# Integer operations per DP cell, counted from the kernel sources.
+# Integer operations per DP cell, counted from the kernel sources (the
+# tiled entry runs the same row body as band_fwd).
 OPS_PER_CELL = {("band_fwd", 4): 50, ("band_fwd", 2): 40,
                 ("band_fwd", 1): 30, ("flat_fwd", 0): 25}
+REPLACES = {
+    "band_fwd": "racon_tpu/ops/pallas/band_kernel.py:96",
+    "band_tile_fwd": "racon_tpu/ops/pallas/band_kernel.py:428",
+    "flat_fwd": "racon_tpu/ops/pallas/flat_kernel.py:31",
+    "col_walk": "racon_tpu/ops/colwalk.py:66",
+}
+SOURCE = {"band_fwd": "band_fwd.cu", "band_tile_fwd": "band_fwd.cu",
+          "flat_fwd": "flat_fwd.cu", "col_walk": "col_walk.cu"}
 
 
 def fail(msg: str) -> None:
@@ -85,6 +103,28 @@ def time_ms(fn, reps: int = 5) -> float:
     return float(np.median(ts))
 
 
+def timed_once(fn):
+    """(result, ms) of one call (CUDA events): for the plain versions,
+    whose single run takes seconds."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by) from bytes over HBM and int32 ops over the
+    int32 throughput."""
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    o_ms = ops / INT32_OPS_S * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
 def max_abs_err(ref, out) -> int:
     import torch
     err = 0
@@ -120,7 +160,116 @@ def band_inputs(device, B, Lq, W, seed=1):
     tband[(rel < 0) | (rel >= lt[:, None])] = 7
     qT = rng.integers(0, 4, (Lq, B)).astype(np.uint8)
     return (torch.from_numpy(tband).to(device), torch.from_numpy(qT).to(device),
-            klo.to(device), torch.from_numpy(lq).to(device))
+            klo.to(device), torch.from_numpy(lq).to(device),
+            torch.from_numpy(lt).to(device))
+
+
+def overlap_chunk(device, B=64, L=9900, W=1536, T=2048, seed=3):
+    """A tiled overlap chunk as the main path builds it: B lanes of ~10 kb
+    targets and 8%-error reads of them, padded to Lq = LA = 10240, with
+    the band origin of the tiled route's first tile."""
+    import torch
+    from racon_tpu_torch.ops.encode import encode_bases
+    from racon_tpu_torch.ops.ovl_align import tiled_origin
+    from racon_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(seed)
+    ts = [_BASES[rng.integers(0, 4, L)] for _ in range(B)]
+    qs = [mutate(rng, tt, 0.08)[0] for tt in ts]
+    Lq = -(-max(len(qq) for qq in qs) // T) * T
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lq), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    for b, (tt, qq) in enumerate(zip(ts, qs)):
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        t[b, :L] = encode_bases(tt.tobytes())
+        lq[b], lt[b] = len(qq), L
+    lq_t, lt_t = torch.from_numpy(lq), torch.from_numpy(lt)
+    klo = tiled_origin(lq_t, lt_t, W)[0]
+    return dict(q=torch.from_numpy(q).to(device), t=torch.from_numpy(t).to(
+        device), lq=lq_t.to(device), lt=lt_t.to(device), klo=klo.to(device),
+        B=B, Lq=Lq, W=W, T=T)
+
+
+def phase_overlap_kernels(device, B=64, L=9900, W=1536, T=2048,
+                          timed=True):
+    """K3 at the main-path tile (64 lanes, T=2048, W=1536, k=2) from a
+    previous tile's frontier, then W1 over the stitched 5-tile planes
+    (LA = 10240, tiled, int32); both bitwise against their plain
+    versions."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.band import (band_targets,
+                                          fw_dirs_band_tile_plain,
+                                          row0_scores, uc_boundary)
+    from racon_tpu_torch.ops.colwalk import chain_len, col_walk
+    c = overlap_chunk(device, B, L, W, T)
+    Lq = c["Lq"]
+    k = 2
+    sc = dict(match=0, mismatch=-1, gap=-1, W=W, nxt_k=k)
+    qT = c["q"].t().contiguous()
+    base = torch.arange(B, dtype=torch.int64, device=device) * Lq
+    planes = (torch.empty((Lq, B, W), dtype=torch.uint8, device=device),
+              torch.empty((Lq, B, W), dtype=torch.uint8, device=device),
+              None)
+    prev = row0_scores(c["klo"], W, -1)
+    front = (prev, torch.full((B, W), uc_boundary(k), dtype=torch.int32,
+                              device=device), prev.clone())
+
+    def tile_args(ti):
+        tb = band_targets(c["t"].reshape(-1), base, c["klo"], c["lt"],
+                          W + T, origin=ti * T)
+        return (tb, qT[ti * T:(ti + 1) * T], c["klo"], c["lq"], ti * T)
+
+    recs = {}
+    for ti in range(Lq // T):
+        args = tile_args(ti)
+        out = kernels.fw_dirs_band_tile(*args, *front, out=planes, **sc)
+        if ti == 1:
+            # Tile 1 starts from tile 0's frontier, as on the main path.
+            ref, plain_ms = timed_once(lambda: fw_dirs_band_tile_plain(
+                *args, *front, **sc))
+            err = max_abs_err(ref, out)
+            del ref
+            ms = time_ms(lambda: kernels.fw_dirs_band_tile(
+                *args, *front, out=planes, **sc)) if timed else None
+            cells = B * T * W
+            bms, by = bound(B * (W + T) + T * B + 8 * B + 24 * B * W +
+                            2 * cells, cells * OPS_PER_CELL[("band_fwd", k)])
+            recs["band_tile_fwd"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by)
+            emit("kernels", kernel="band_tile_fwd", nxt_k=k, shape=[B, T, W],
+                 i0=ti * T, **recs["band_tile_fwd"])
+            if err:
+                fail(f"band_tile_fwd disagrees with its plain version "
+                     f"(max_abs_err={err})")
+        front = out[3:]
+    klos = c["klo"][None, :].repeat(Lq // T, 1).contiguous()
+    zeros = torch.zeros_like(c["lq"])
+    wk = dict(LA=Lq, layout="band", nxt=planes[1], tile_klo=klos,
+              tile_len=T, emit=torch.int32)
+    ref, plain_ms = timed_once(lambda: col_walk(planes[0], c["lq"], c["lt"],
+                                                None, zeros, **wk))
+    out = kernels.col_walk_kernel(planes[0], c["lq"], c["lt"], None, zeros,
+                                  **wk)
+    names = ("ins_len", "qstart", "op_c", "qi_c", "sat")
+    err = max_abs_err([ref[n] for n in names], [out[n] for n in names])
+    del ref, out
+    ms = time_ms(lambda: kernels.col_walk_kernel(
+        planes[0], c["lq"], c["lt"], None, zeros, **wk)) if timed else None
+    chain = chain_len(Lq, k)
+    bms, by = bound(B * chain * 2 + B * (Lq + 2) * 16 + 16 * B +
+                    4 * klos.numel(), 0)
+    recs["col_walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bms, bound_by=by)
+    emit("kernels", kernel="col_walk", case="overlap", nxt_k=k,
+         shape=[B, Lq, W], LA=Lq, emit="int32", chain_len=chain,
+         **recs["col_walk"])
+    if err:
+        fail(f"col_walk (overlap) disagrees with its plain version "
+             f"(max_abs_err={err})")
+    return recs
 
 
 def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640,
@@ -130,9 +279,10 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640,
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.band import fw_dirs_band_plain
     from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
+    from racon_tpu_torch.ops.colwalk import chain_len, col_walk
     sc = dict(match=5, mismatch=-4, gap=-8)
     recs = {}
-    args = band_inputs(device, B, Lq, W)
+    *args, lt = band_inputs(device, B, Lq, W)
     for k in (4, 2):
         def run_k():
             return kernels.fw_dirs_band(*args, W=W, nxt_k=k, **sc)
@@ -142,6 +292,32 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640,
         out = run_k()
         ref = run_p()
         err = max_abs_err(ref, out)
+        if k == 4:
+            # W1 at the consensus shape (k=4, int16) on these planes.
+            rng = np.random.default_rng(4)
+            t_off = torch.from_numpy(rng.integers(0, 48, B).astype(
+                np.int32)).to(device)
+            LA = int(lt.max().item()) + 48
+            wk = dict(LA=LA, layout="band", nxt=out[1], nxt2=out[2])
+            wref, wplain = timed_once(lambda: col_walk(
+                out[0], args[3], lt, args[2], t_off, **wk))
+            wout = kernels.col_walk_kernel(out[0], args[3], lt, args[2],
+                                           t_off, **wk)
+            names = ("ins_len", "qstart", "op_c", "qi_c", "sat")
+            werr = max_abs_err([wref[n] for n in names],
+                               [wout[n] for n in names])
+            wms = time_ms(lambda: kernels.col_walk_kernel(
+                out[0], args[3], lt, args[2], t_off, **wk)) if timed else None
+            chain = chain_len(LA, 4)
+            bms, by = bound(B * chain * 4 + B * (LA + 2) * 8 + 16 * B, 0)
+            emit("kernels", kernel="col_walk", case="consensus", nxt_k=4,
+                 shape=[B, Lq, W], LA=LA, emit="int16", chain_len=chain,
+                 max_abs_err=werr, ms=wms, plain_ms=wplain, bound_ms=bms,
+                 bound_by=by)
+            if werr:
+                fail(f"col_walk (consensus) disagrees with its plain "
+                     f"version (max_abs_err={werr})")
+            del wref, wout
         del out, ref
         ms = time_ms(run_k) if timed else None
         plain_ms = time_ms(run_p, reps=1) if timed else None
@@ -213,25 +389,39 @@ def fasta_records(blob: bytes):
 
 
 def phase_small(device, tmp):
+    from racon_tpu_torch.ops import kernels, ovl_align
     from racon_tpu_torch.utils.synth import write_dataset
     ds = write_dataset(os.path.join(tmp, "small"), seed=5, contig_len=20000,
                        read_len=5000, coverage=20)
     p = ds["paths"]
     argv = [p["reads"], p["overlaps"], p["draft"], "-t", "8"]
+    kernels.reset_launches()
+    ovl_align.reset_stats()
     rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
+    launches = dict(kernels.LAUNCHES)
+    ovl = dict(ovl_align.STATS)
     rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
     if rc_g or rc_c:
         fail(f"small CLI run failed: {err_g[-2000:]} {err_c[-2000:]}")
     same = out_g == out_c and len(out_g) > 0
     emit("small", bytes=len(out_g), identical=same, wall_s_gpu=wall_g,
-         wall_s_cpu=wall_c)
+         wall_s_cpu=wall_c, launches=launches, ovl=ovl)
     if not same:
         fail("small run: --device cuda and --device cpu FASTA differ")
+    if ovl["device_jobs"] <= 0:
+        fail("small run: no overlap was aligned on the card")
 
 
 def consensus_seconds(err: str) -> float:
     m = re.findall(r"generated consensus ([0-9.]+) s", err)
     return float(m[-1]) if m else float("nan")
+
+
+def phase_seconds(err: str) -> dict:
+    """Seconds of each logger phase line (``[...] <phase> <s> s``)."""
+    return {name: float(sec) for name, sec in re.findall(
+        r"^\[racon_tpu_torch::Polisher::\w+\] ([a-z ]+?) ([0-9.]+) s$",
+        err, flags=re.M)}
 
 
 def routed(err: str):
@@ -245,7 +435,7 @@ def routed(err: str):
 def phase_main(device, tmp, n_contigs=20, contig_len=50000,
                read_len=10000, coverage=30):
     import torch
-    from racon_tpu_torch.ops import device_poa, kernels
+    from racon_tpu_torch.ops import device_poa, kernels, ovl_align
     from racon_tpu_torch.utils.synth import edit_distance, write_dataset
     t0 = time.perf_counter()
     ds = write_dataset(os.path.join(tmp, "main"), seed=7,
@@ -260,9 +450,11 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     clock = device_poa.set_stage_clock(True)
+    ovl_align.reset_stats()
     kernels.reset_launches()
     rc, out, err, wall = run_cli(argv)
     launches = dict(kernels.LAUNCHES)
+    ovl = dict(ovl_align.STATS)
     stages = clock.ms()
     device_poa.set_stage_clock(False)
     if rc:
@@ -277,16 +469,23 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
         ed_draft += edit_distance(d, t)
         ed_pol += edit_distance(pol, t)
     cons_s = consensus_seconds(err)
+    phases = phase_seconds(err)
     flagged, host = routed(err)
     emit("main", draft_bp=sum(len(d) for d in ds["drafts"]),
          windows=n_windows, synth_s=synth_s, wall_s=wall,
          consensus_s=cons_s, windows_per_s=n_windows / cons_s,
-         windows_per_s_end_to_end=n_windows / wall, stage_ms=stages,
-         max_memory_allocated=peak, launches=launches,
-         redo_windows=flagged, host_windows=host,
+         windows_per_s_end_to_end=n_windows / wall,
+         align_s=phases.get("aligned overlaps"), phase_s=phases,
+         ovl=ovl, stage_ms=stages, max_memory_allocated=peak,
+         launches=launches, redo_windows=flagged, host_windows=host,
          ed_draft=ed_draft, ed_polished=ed_pol)
-    if launches["band_fwd"] <= 0:
-        fail("main run: band_fwd never launched")
+    for name in ("band_fwd", "band_tile_fwd", "col_walk"):
+        if launches[name] <= 0:
+            fail(f"main run: {name} never launched")
+    if ovl["device_jobs"] <= 0:
+        fail("main run: no overlap was aligned on the card")
+    if "aligned overlaps" not in phases:
+        fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
         fail(f"main run: polished ED {ed_pol} > draft ED {ed_draft} / 3")
     return launches
@@ -337,6 +536,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0)
 
     recs = phase_kernels("cuda")
+    recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
@@ -349,12 +549,10 @@ def main() -> int:
             continue
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"racon_tpu_torch/csrc/{name}.cu",
-            "replaces": ("racon_tpu/ops/pallas/band_kernel.py:96"
-                         if name == "band_fwd" else
-                         "racon_tpu/ops/pallas/flat_kernel.py:31"),
-            "launches": (main_launches if name == "band_fwd"
-                         else flat_launches)[name],
+            "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
+            "replaces": REPLACES[name],
+            "launches": (flat_launches if name == "flat_fwd"
+                         else main_launches)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

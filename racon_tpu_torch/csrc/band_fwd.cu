@@ -1,13 +1,21 @@
 // Banded NW forward in per-lane diagonal coordinates (Hopper, sm_90a).
 //
-// Replaces the JAX package's Pallas kernel
-// racon_tpu/ops/pallas/band_kernel.py::_kernel (entry fw_dirs_band), and
-// is held bitwise against the plain PyTorch version
-// racon_tpu_torch/ops/band.py::fw_dirs_band_plain.
+// Two entry points share one kernel body (template flag TILED):
+//
+// - racon_band_fwd (K1) replaces the JAX package's Pallas kernel
+//   racon_tpu/ops/pallas/band_kernel.py::_kernel (entry fw_dirs_band); it
+//   is held bitwise against racon_tpu_torch/ops/band.py::fw_dirs_band_plain.
+// - racon_band_tile_fwd (K3) replaces band_kernel.py::_kernel_tile (entry
+//   fw_dirs_band_tile): one T-row query tile whose DP frontier (scores,
+//   packed metadata and the hlast capture, int32[B, W] each) is loaded from
+//   its inputs instead of the row-0 fill and written out at the end. Rows
+//   are numbered from the global origin i0, and the tile writes rows
+//   [i0, i0+T) of the caller's stitched [Lq, B, W] planes in place. Held
+//   bitwise against ops/band.py::fw_dirs_band_tile_plain.
 //
 // Design: one block per lane (job); each thread owns SPT consecutive band
-// slots x; the Lq query rows run in a loop inside the block. The lane's
-// pre-shifted target window tband[b, 0 : W+Lq) and its query column are
+// slots x; the query rows run in a loop inside the block. The lane's
+// pre-shifted target window tband[b, 0 : W+rows) and its query column are
 // staged in shared memory once. Per row:
 //   - diag neighbour = slot x of the previous row, up neighbour = slot
 //     x+1 of the previous row (both in shared memory, sentinel at x = W);
@@ -22,11 +30,15 @@
 // Output layout is the plain twin's "band" layout [Lq, B, W]: a lane's
 // row is W contiguous bytes, written as SPT-wide vector stores.
 //
-// Bound at the main-path shape (B=4096, Lq=640, W=256, k=4): the planes
-// write B*Lq*W*(1+1+2) bytes ~ 2.7 GB (~0.8 ms at 3.35 TB/s), and the
-// integer work is ~40 operations per cell over 671 M cells. The two are
-// of the same order; the design keeps every score and metadata word in
-// shared memory or registers so device memory sees only the planes.
+// Bound. K1 at its main-path shape (B=4096, Lq=640, W=256, k=4): the
+// planes write B*Lq*W*(1+1+2) bytes ~ 2.7 GB (~0.8 ms at 3.35 TB/s), and
+// the integer work is ~40 operations per cell over 671 M cells; the two
+// are of the same order. K3 at its main-path tile (B=64, T=2048, W=1536,
+// k=2): 2.0e8 cells at 2 bytes a cell is 0.12 ms of HBM, 40 operations a
+// cell 0.48 ms of int32 throughput, so it is bound by operations. The design
+// keeps every score and metadata word in shared memory or registers so
+// device memory sees only the planes; at 64 lanes K3 fills at most 64 of
+// the 132 SMs (one block per lane), the first thing to fix.
 //
 // Arithmetic: scores are int32 with NEG = -2^30. P + sub can reach
 // exactly 2*NEG = -2^31 (a masked cell below a masked cell); that sum is
@@ -73,7 +85,19 @@ struct Vec<4> {
   }
 };
 
-template <int SPT, int K>
+// Frontier of a tile launch (TILED): inputs after row i0, outputs after
+// row i0 + rows; all int32[B, W].
+struct Frontier {
+  const int32_t* pin;
+  const int32_t* ucin;
+  const int32_t* hlin;
+  int32_t* pout;
+  int32_t* ucout;
+};
+
+// Computes rows i0+1 .. i0+Lq (Lq = this launch's row count) and writes
+// them at rows [i0, i0+Lq) of planes laid out [*, B, W].
+template <int SPT, int K, bool TILED>
 __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
                                 const uint8_t* __restrict__ qT,
                                 const int32_t* __restrict__ klo,
@@ -81,8 +105,9 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
                                 uint8_t* __restrict__ cells,
                                 uint8_t* __restrict__ nxt,
                                 uint16_t* __restrict__ nxt2,
-                                int32_t* __restrict__ hlast, int B, int Lq,
-                                int W, int match, int mismatch, int gap) {
+                                int32_t* __restrict__ hlast, Frontier fr,
+                                int B, int Lq, int i0, int W, int match,
+                                int mismatch, int gap) {
   extern __shared__ int32_t smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -104,15 +129,24 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
   for (int r = tid; r < Lq; r += nthr) qs[r] = qT[(size_t)r * B + b];
 
   const int x0 = tid * SPT;
+  const size_t fb = (size_t)b * W;
   int hl[SPT];
 #pragma unroll
   for (int s = 0; s < SPT; ++s) {
     const int x = x0 + s;
-    const int j0 = kl + x;
-    hl[s] = j0 >= 0 ? j0 * gap : kNeg;
-    if (x < W) {
-      P[x] = hl[s];
-      UC[x] = BND;
+    if (TILED) {
+      hl[s] = x < W ? fr.hlin[fb + x] : kNeg;
+      if (x < W) {
+        P[x] = fr.pin[fb + x];
+        UC[x] = fr.ucin[fb + x];
+      }
+    } else {
+      const int j0 = kl + x;
+      hl[s] = j0 >= 0 ? j0 * gap : kNeg;
+      if (x < W) {
+        P[x] = hl[s];
+        UC[x] = BND;
+      }
     }
   }
   if (tid == 0) {
@@ -121,8 +155,9 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
   }
   __syncthreads();
 
-  for (int i = 1; i <= Lq; ++i) {
-    const int qb = qs[i - 1];
+  for (int r = 1; r <= Lq; ++r) {
+    const int i = i0 + r;  // global 1-based row
+    const int qb = qs[r - 1];
     long long dg[SPT];
     int upv[SPT], f[SPT], ucp[SPT], ucup[SPT], jc[SPT];
     int tot = kNeg;
@@ -131,7 +166,7 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
       const int x = x0 + s;
       jc[s] = i + kl + x;
       if (x < W) {
-        int sub = (tb[i - 1 + x] == qb) ? match : mismatch;
+        int sub = (tb[r - 1 + x] == qb) ? match : mismatch;
         if (jc[s] < 1) sub = kNeg;
         dg[s] = (long long)P[x] + sub;
         upv[s] = P[x + 1] + gap;
@@ -246,28 +281,34 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
 #pragma unroll
   for (int s = 0; s < SPT; ++s) {
     const int x = x0 + s;
-    if (x < W) hlast[(size_t)b * W + x] = hl[s];
+    if (x < W) {
+      hlast[fb + x] = hl[s];
+      if (TILED) {
+        fr.pout[fb + x] = P[x];
+        fr.ucout[fb + x] = UC[x];
+      }
+    }
   }
 }
 
-template <int SPT, int K>
+template <int SPT, int K, bool TILED>
 cudaError_t launch(const uint8_t* tband, const uint8_t* qT,
                    const int32_t* klo, const int32_t* lq, uint8_t* cells,
-                   uint8_t* nxt, uint16_t* nxt2, int32_t* hlast, int B,
-                   int Lq, int W, int match, int mismatch, int gap,
-                   cudaStream_t stream) {
+                   uint8_t* nxt, uint16_t* nxt2, int32_t* hlast, Frontier fr,
+                   int B, int Lq, int i0, int W, int match, int mismatch,
+                   int gap, cudaStream_t stream) {
   const int slots = (W + SPT - 1) / SPT;
   const int nthr = ((slots + 31) / 32) * 32;
   const size_t shm = sizeof(int32_t) * (2 * (W + 1) + 32 + 3 * nthr) +
                      (size_t)(W + Lq) + (size_t)Lq;
   if (shm > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        band_fwd_kernel<SPT, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shm);
+        band_fwd_kernel<SPT, K, TILED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (e != cudaSuccess) return e;
   }
-  band_fwd_kernel<SPT, K><<<B, nthr, shm, stream>>>(
-      tband, qT, klo, lq, cells, nxt, nxt2, hlast, B, Lq, W, match,
+  band_fwd_kernel<SPT, K, TILED><<<B, nthr, shm, stream>>>(
+      tband, qT, klo, lq, cells, nxt, nxt2, hlast, fr, B, Lq, i0, W, match,
       mismatch, gap);
   return cudaGetLastError();
 }
@@ -288,11 +329,13 @@ extern "C" int racon_band_fwd(const void* tband, const void* qT,
   auto* n2 = static_cast<uint16_t*>(nxt2);
   auto* hl = static_cast<int32_t*>(hlast);
   auto st = static_cast<cudaStream_t>(stream);
+  const Frontier fr{nullptr, nullptr, nullptr, nullptr, nullptr};
   const bool vec = (W % 4) == 0;
   if ((vec ? W / 4 : W) > 1024 || B <= 0 || Lq <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
 #define RACON_BAND_LAUNCH(S, K)                                             \
-  launch<S, K>(t, q, k, l, c, n, n2, hl, B, Lq, W, match, mismatch, gap, st)
+  launch<S, K, false>(t, q, k, l, c, n, n2, hl, fr, B, Lq, 0, W, match,     \
+                      mismatch, gap, st)
   cudaError_t e;
   if (vec) {
     e = nxt_k >= 4 ? RACON_BAND_LAUNCH(4, 4)
@@ -304,5 +347,45 @@ extern "C" int racon_band_fwd(const void* tband, const void* qT,
                                  : RACON_BAND_LAUNCH(1, 1));
   }
 #undef RACON_BAND_LAUNCH
+  return (int)e;
+}
+
+// One tile: rows i0+1 .. i0+T from the frontier (prev, uc, hlast_in),
+// written at rows [i0, i0+T) of the stitched [Lq, B, W] planes whose row 0
+// the plane pointers address. nxt_k is 2 or 4.
+extern "C" int racon_band_tile_fwd(
+    const void* tband, const void* qT, const void* klo, const void* lq,
+    const void* prev, const void* uc, const void* hlast_in, void* cells,
+    void* nxt, void* nxt2, void* hlast, void* prev_out, void* uc_out, int B,
+    int T, int i0, int W, int match, int mismatch, int gap, int nxt_k,
+    void* stream) {
+  auto* t = static_cast<const uint8_t*>(tband);
+  auto* q = static_cast<const uint8_t*>(qT);
+  auto* k = static_cast<const int32_t*>(klo);
+  auto* l = static_cast<const int32_t*>(lq);
+  auto* c = static_cast<uint8_t*>(cells);
+  auto* n = static_cast<uint8_t*>(nxt);
+  auto* n2 = static_cast<uint16_t*>(nxt2);
+  auto* hl = static_cast<int32_t*>(hlast);
+  auto st = static_cast<cudaStream_t>(stream);
+  const Frontier fr{static_cast<const int32_t*>(prev),
+                    static_cast<const int32_t*>(uc),
+                    static_cast<const int32_t*>(hlast_in),
+                    static_cast<int32_t*>(prev_out),
+                    static_cast<int32_t*>(uc_out)};
+  const bool vec = (W % 4) == 0;
+  if ((vec ? W / 4 : W) > 1024 || B <= 0 || T <= 0 || W <= 0 || i0 < 0 ||
+      (nxt_k != 2 && nxt_k != 4))
+    return (int)cudaErrorInvalidValue;
+#define RACON_TILE_LAUNCH(S, K)                                             \
+  launch<S, K, true>(t, q, k, l, c, n, n2, hl, fr, B, T, i0, W, match,      \
+                     mismatch, gap, st)
+  cudaError_t e;
+  if (vec) {
+    e = nxt_k == 4 ? RACON_TILE_LAUNCH(4, 4) : RACON_TILE_LAUNCH(4, 2);
+  } else {
+    e = nxt_k == 4 ? RACON_TILE_LAUNCH(1, 4) : RACON_TILE_LAUNCH(1, 2);
+  }
+#undef RACON_TILE_LAUNCH
   return (int)e;
 }

@@ -50,6 +50,18 @@ def band_geometry(lq: torch.Tensor, lt: torch.Tensor, W: int):
     return klo.to(torch.int32), wl.to(torch.int32)
 
 
+def band_targets(flat: torch.Tensor, base: torch.Tensor, klo: torch.Tensor,
+                 lt: torch.Tensor, PW: int, origin: int = 0) -> torch.Tensor:
+    """Pre-shifted target windows u8[B, PW]: ``tband[b, y] =
+    flat[base_b + klo_b + origin + y]`` where ``klo_b + origin + y`` lies
+    in [0, lt_b), else 7 (a code no query base equals)."""
+    rel = (klo.long()[:, None] + origin +
+           torch.arange(PW, device=flat.device)[None, :])
+    okb = (rel >= 0) & (rel < lt.long()[:, None])
+    idx = torch.clamp(base.long()[:, None] + rel, 0, flat.numel() - 1)
+    return torch.where(okb, flat[idx], 7).to(torch.uint8)
+
+
 def fw_dirs_band_plain(tband: torch.Tensor, qT: torch.Tensor,
                        klo: torch.Tensor, lq: torch.Tensor, *, match: int,
                        mismatch: int, gap: int, W: int, nxt_k: int = 2):
@@ -58,26 +70,99 @@ def fw_dirs_band_plain(tband: torch.Tensor, qT: torch.Tensor,
     B = tband.shape[0]
     Lq = qT.shape[0]
     dev = tband.device
+    k = int(nxt_k)
+    P = row0_scores(klo, W, gap)
+    U = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    C = torch.full((B, W), LEFT, dtype=torch.int32, device=dev)
+    N = C.clone()
+    planes = _planes(Lq, B, W, k, dev)
+    P, hl, *_ = _band_rows(tband, qT, klo, lq, 0, P, P.clone(), U, C, N,
+                           N.clone(), N.clone(), planes, match=match,
+                           mismatch=mismatch, gap=gap, W=W, k=k)
+    return planes + (hl,)
+
+
+def row0_scores(klo: torch.Tensor, W: int, gap: int) -> torch.Tensor:
+    """Row 0 of the band: ``j * gap`` at target column j >= 0, NEG before
+    it (int32[B, W]); also the initial hlast."""
+    xr = torch.arange(W, dtype=torch.int32, device=klo.device)[None, :]
+    j0 = klo.to(torch.int32)[:, None] + xr
+    return torch.where(j0 >= 0, j0 * gap, NEG).to(torch.int32)
+
+
+def fw_dirs_band_tile_plain(tband: torch.Tensor, qT: torch.Tensor,
+                            klo: torch.Tensor, lq: torch.Tensor, i0: int,
+                            prev: torch.Tensor, uc: torch.Tensor,
+                            hlast: torch.Tensor, *, match: int,
+                            mismatch: int, gap: int, W: int,
+                            nxt_k: int = 2, out=None):
+    """One T-row query tile of the banded forward with an explicit DP
+    frontier — the plain version of the JAX package's
+    ``fw_dirs_band_xla_tile`` (Pallas ``_kernel_tile``).
+
+    Args:
+      tband: u8[B, W+T], this tile's pre-shifted targets:
+        ``tband[b, y] = target_b[klo_b + i0 + y]`` (fill 7).
+      qT: u8[T, B], this tile's query rows.
+      klo, lq: int32[B]; this tile's band origin and the query lengths.
+      i0: 0-based global row origin; rows i0+1 .. i0+T are computed.
+      prev, uc, hlast: int32[B, W] frontier after row i0: scores, packed
+        ``N3 << 18 | N2 << 12 | N << 6 | U << 2 | C`` metadata (the hop-2/3
+        fields at k=4 only) and the running capture of row lq_b.
+      nxt_k: 2 or 4.
+      out: optional ``(cells, nxt, nxt2)`` stitched planes [Lq, B, W]; the
+        tile writes rows [i0, i0+T) of them (``nxt2`` None below k=4).
+
+    Returns ``(cells, nxt, nxt2, hlast, prev, uc)``: the tile's [T, B, W]
+    planes (views into ``out`` when given) and the frontier after row
+    i0+T in the same band coordinates. With the row-0 frontier
+    (:func:`row0_scores`, :func:`uc_boundary`) and i0 = 0 a single tile
+    equals :func:`fw_dirs_band_plain`.
+    """
+    k = int(nxt_k)
+    if k not in (2, 4):
+        raise ValueError("[racon_tpu_torch::band] tile depth must be 2 or 4")
+    B = tband.shape[0]
+    T = qT.shape[0]
+    uc = uc.to(torch.int32)
+    if out is None:
+        planes = _planes(T, B, W, k, tband.device)
+    else:
+        planes = tuple(None if p is None else p[i0:i0 + T] for p in out)
+    P, hl, U, C, N, N2, N3 = _band_rows(
+        tband, qT, klo, lq, i0, prev.to(torch.int32), hlast.to(torch.int32),
+        (uc >> 2) & 0xF, uc & 3, (uc >> 6) & 0x3F, (uc >> 12) & 0x3F,
+        (uc >> 18) & 0x3F, planes, match=match, mismatch=mismatch, gap=gap,
+        W=W, k=k)
+    ucout = (N << 6) + (U << 2) + C
+    if k >= 4:
+        ucout = ucout + (N3 << 18) + (N2 << 12)
+    return planes + (hl, P, ucout)
+
+
+def _planes(rows: int, B: int, W: int, k: int, dev):
+    cells = torch.empty((rows, B, W), dtype=torch.uint8, device=dev)
+    nxt = (torch.empty((rows, B, W), dtype=torch.uint8, device=dev)
+           if k >= 2 else None)
+    nxt2 = (torch.empty((rows, B, W), dtype=torch.uint16, device=dev)
+            if k >= 4 else None)
+    return cells, nxt, nxt2
+
+
+def _band_rows(tband, qT, klo, lq, i0, P, hl, U, C, N, N2, N3, planes, *,
+               match, mismatch, gap, W, k):
+    """The row recurrence over local rows 1..T (global i0+1 .. i0+T),
+    writing the planes; returns the frontier (P, hl, U, C, N, N2, N3)."""
+    cells, nxt, nxt2 = planes
+    B = tband.shape[0]
+    dev = tband.device
     i32 = torch.int32
     xr = torch.arange(W, dtype=i32, device=dev)[None, :]
     t32 = tband.to(i32)
     q32 = qT.to(i32)
-    klo = klo.to(i32)[:, None]
+    j0 = klo.to(i32)[:, None] + xr
     lqc = lq.to(i32)[:, None]
-    j0 = klo + xr
-    P = torch.where(j0 >= 0, j0 * gap, NEG).to(i32)
-    hl = P.clone()
-    U = torch.zeros((B, W), dtype=i32, device=dev)
-    C = torch.full((B, W), LEFT, dtype=i32, device=dev)
-    N = torch.full((B, W), LEFT, dtype=i32, device=dev)
-    N2 = N.clone()
-    N3 = N.clone()
-    k = int(nxt_k)
-    cells = torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
-    nxt = (torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
-           if k >= 2 else None)
-    nxt2 = (torch.empty((Lq, B, W), dtype=torch.int16, device=dev)
-            if k >= 4 else None)
+    n2w = None if nxt2 is None else nxt2.view(torch.int16)
     negcol = torch.full((B, 1), NEG, dtype=i32, device=dev)
     leftcol = torch.full((B, 1), LEFT, dtype=i32, device=dev)
     zcol = torch.zeros((B, 1), dtype=i32, device=dev)
@@ -88,10 +173,11 @@ def fw_dirs_band_plain(tband: torch.Tensor, qT: torch.Tensor,
     def shift_left(A):
         return torch.cat([leftcol, A[:, :-1]], dim=1)
 
-    for i in range(1, Lq + 1):
-        tw = t32[:, i - 1:i - 1 + W]
+    for rl in range(1, qT.shape[0] + 1):
+        i = i0 + rl
+        tw = t32[:, rl - 1:rl - 1 + W]
         jcol = i + j0
-        sub = torch.where(tw == q32[i - 1][:, None], match, mismatch)
+        sub = torch.where(tw == q32[rl - 1][:, None], match, mismatch)
         sub = torch.where(jcol >= 1, sub, NEG).to(i32)
         diag = P + sub                       # >= 2*NEG = -2^31, no wrap
         up = shift_up(P, negcol) + gap
@@ -114,18 +200,16 @@ def fw_dirs_band_plain(tband: torch.Tensor, qT: torch.Tensor,
         Nn = torch.where(isup, shift_up(N, leftcol),
                          torch.where(d == DIAG, (U << 2) + C,
                                      shift_left(ucnow)))
-        cells[i - 1] = (d + (Cn << 2) + (Un << 4)).to(torch.uint8)
+        cells[rl - 1] = (d + (Cn << 2) + (Un << 4)).to(torch.uint8)
         if k >= 2:
-            nxt[i - 1] = Nn.to(torch.uint8)
+            nxt[rl - 1] = Nn.to(torch.uint8)
         if k >= 4:
             N2n = torch.where(isup, shift_up(N2, leftcol),
                               torch.where(d == DIAG, N, shift_left(Nn)))
             N3n = torch.where(isup, shift_up(N3, leftcol),
                               torch.where(d == DIAG, N2, shift_left(N2n)))
-            nxt2[i - 1] = ((N3n << 8) + N2n).to(torch.int16)
+            n2w[rl - 1] = ((N3n << 8) + N2n).to(torch.int16)
             N2, N3 = N2n, N3n
         hl = torch.where(lqc == i, h, hl)
         P, U, C, N = h, Un, Cn, Nn
-    if nxt2 is not None:
-        nxt2 = nxt2.view(torch.uint16)
-    return cells, nxt, nxt2, hl
+    return P, hl, U, C, N, N2, N3

@@ -11,6 +11,16 @@ so the port packs the same chunks and emits the same bytes.
    bytes — so the u16 ``nxt2`` plane of the k=4 walk halves the cap.
 
 A 10% margin is kept below both.
+
+The overlap aligner (ops/ovl_align.py) also takes the JAX package's
+**admission rules** verbatim: ``VMEM_BUDGET``/:func:`vmem_est` and the
+tiled route's ``TILE_TIERS``/:func:`tile_plan`. They model a TPU core's
+fast memory, not this card: they decide which overlaps go to the device,
+at which band width W, lane count and walk depth, so that every lane's
+certificate and every host fallback is the reference's. The CUDA
+kernels' own limits (W/4 <= 1024 threads a block; shared memory of about
+W + T bytes plus the score rows) are separate and are checked in the
+wrappers (ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -56,3 +66,79 @@ def walk_k_for(elems: int, env_k=None) -> int:
     if k >= 4 and elems > max_dir_elems(2):
         return 2
     return k
+
+
+# Usable fraction of the reference's per-core VMEM scoped limit
+# (admission rule, see the module docstring).
+VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def vmem_est(W: int, Lq: int, ch: int, nxt_k: int = 2) -> int:
+    """The reference's band-kernel VMEM block-byte model: the (W+Lq, 128)
+    int32 target window, the double-buffered (ch, W, 128) u8 cell and nxt
+    blocks (plus the u16 nxt2 block at ``nxt_k >= 4``) and four W-tall
+    128-lane int32 rows."""
+    planes = 8 * ch if nxt_k >= 4 else 4 * ch
+    return 128 * (4 * (W + Lq) + W * (planes + 16))
+
+
+# Tiers (lanes, W, T, ch) of the tiled overlap route, preferred first.
+# With the 1.93e9 u8 cap they admit reads up to about 18 kb, 57 kb and
+# 114 kb.
+TILE_TIERS = (
+    (64, 1536, 2048, 4),
+    (16, 2048, 2048, 4),
+    (8, 2048, 4096, 4),
+)
+
+
+class TilePlan:
+    """Admission result for one tiled overlap job: chunk geometry plus
+    the padded query length / tile count the dispatch will use.
+    ``nxt_k`` is the tier's walk depth."""
+
+    __slots__ = ("lanes", "W", "T", "ch", "Lq", "n_tiles", "nxt_k")
+
+    def __init__(self, lanes, W, T, ch, Lq, n_tiles, nxt_k=2):
+        self.lanes = lanes
+        self.W = W
+        self.T = T
+        self.ch = ch
+        self.Lq = Lq
+        self.n_tiles = n_tiles
+        self.nxt_k = nxt_k
+
+    def key(self):
+        return (self.lanes, self.W, self.T, self.ch, self.nxt_k)
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return ("TilePlan(lanes=%d, W=%d, T=%d, ch=%d, Lq=%d, "
+                "n_tiles=%d, nxt_k=%d)"
+                % (self.lanes, self.W, self.T, self.ch, self.Lq,
+                   self.n_tiles, self.nxt_k))
+
+
+def tile_plan(lq: int, lt: int, tiers=None):
+    """The first tier that admits an (lq, lt) overlap job, or None (the
+    job takes the host aligner). A tier admits when ``|lt - lq| <= W //
+    2``, ``lanes * round_up(lq, T) * W <= max_dir_elems(1)`` and
+    ``vmem_est(W, T, ch) <= VMEM_BUDGET``; its ``nxt_k`` is 4 only when
+    the u16 nxt2 plane also fits both budgets."""
+    if tiers is None:
+        tiers = TILE_TIERS
+    lq = max(int(lq), 1)
+    lt = max(int(lt), 1)
+    cap = max_dir_elems(1)
+    for lanes, W, T, ch in tiers:
+        if abs(lt - lq) > W // 2:
+            continue
+        Lq = -(-lq // T) * T
+        if lanes * Lq * W > cap:
+            continue
+        if vmem_est(W, T, ch) > VMEM_BUDGET:
+            continue
+        nxt_k = walk_k_for(lanes * Lq * W)
+        if nxt_k >= 4 and vmem_est(W, T, ch, 4) > VMEM_BUDGET:
+            nxt_k = 2
+        return TilePlan(lanes, W, T, ch, Lq, Lq // T, max(nxt_k, 1))
+    return None

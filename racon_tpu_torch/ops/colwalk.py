@@ -10,7 +10,9 @@ j = p - t_off lies in [0, lt]; emissions are keyed by anchor position.
 
 With the ``nxt`` plane one read undoes two positions, with ``nxt2`` as
 well four (``chain_len``). The walk is a chain of dependent gathers —
-an XLA scan in the reference, one Python loop over all lanes here.
+an XLA scan in the reference, one Python loop over all lanes here. This
+loop is the plain version of the CUDA walk csrc/col_walk.cu (wrapper
+ops/kernels.py::col_walk_kernel), which the overlap aligner runs.
 
 ``up_run`` saturates at U_SAT; a saturated read (or a leading insertion
 longer than K_INS) raises the lane's ``sat`` flag and its window takes
@@ -36,16 +38,23 @@ def chain_len(LA: int, k: int) -> int:
 
 
 def col_walk(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
-             nxt=None, nxt2=None):
+             nxt=None, nxt2=None, tile_klo=None, tile_len: int = 0,
+             emit=torch.int16):
     """Walk packed cells over the anchor-position grid.
 
     Args:
       cells: uint8 packed cells, layout "band" [Lq, B, W] or "flat"
         [Lq, B, Lt].
-      lq, lt, t_off: int32[B]; klo: int32[B] band origin (None for flat).
+      lq, lt, t_off: int32[B]; klo: int32[B] band origin (None for flat,
+        ignored when ``tile_klo`` is given).
       nxt, nxt2: the k=2 / k=4 predecessor planes of the band forward.
+      tile_klo: int32[n_tiles, B] per-tile band origins of the tiled
+        overlap forward: stored row r maps to target columns through the
+        origin of tile ``r // tile_len``.
+      emit: dtype of the channels — int16 (consensus) or int32 (tiled
+        overlaps, whose query indices outgrow int16).
 
-    Returns dict of int16 [B, LA+2] arrays ``ins_len``, ``qstart``,
+    Returns dict of ``emit`` [B, LA+2] arrays ``ins_len``, ``qstart``,
     ``op_c``, ``qi_c`` and ``sat`` bool[B] (see the JAX package's
     docstring for their meaning).
     """
@@ -53,16 +62,20 @@ def col_walk(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         raise ValueError(f"[racon_tpu_torch::colwalk] bad layout {layout!r}")
     if nxt2 is not None and nxt is None:
         raise ValueError("[racon_tpu_torch::colwalk] nxt2 requires nxt")
+    if tile_klo is not None and tile_len <= 0:
+        raise ValueError("[racon_tpu_torch::colwalk] tile_klo needs tile_len")
     Lq, B, W = cells.shape
     dev = cells.device
     i64 = torch.int64
     c1 = cells.reshape(-1)
     n1 = None if nxt is None else nxt.reshape(-1)
     n2 = None if nxt2 is None else nxt2.view(torch.int16).reshape(-1)
-    lane_off = torch.arange(B, dtype=i64, device=dev) * W
     lt = lt.to(i64)
     t_off = t_off.to(i64)
     kl = None if klo is None else klo.to(i64)
+    tk = None if tile_klo is None else tile_klo.to(i64).reshape(-1)
+    lane = torch.arange(B, dtype=i64, device=dev)
+    lane_off = lane * W
     i = lq.to(i64)
     sat = torch.zeros(B, dtype=torch.bool, device=dev)
 
@@ -71,11 +84,17 @@ def col_walk(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         if layout == "flat":
             col = torch.clamp(jc - 1, min=0)
         else:
-            col = torch.clamp(jc - i - kl, 0, W - 1)
+            if tk is not None:
+                tl = torch.clamp(torch.div(r, tile_len, rounding_mode="floor"),
+                                 0, tile_klo.shape[0] - 1)
+                kl_r = torch.take(tk, tl * B + lane)
+            else:
+                kl_r = kl
+            col = torch.clamp(jc - i - kl_r, 0, W - 1)
         return r * (B * W) + lane_off + col
 
     T = (LA + 1 + UNROLL) // UNROLL
-    out = torch.empty((B, UNROLL * T, 4), dtype=torch.int16, device=dev)
+    out = torch.empty((B, UNROLL * T, 4), dtype=emit, device=dev)
 
     def undo(i, sat, p, u_raw, cdir_raw):
         j = p - t_off
@@ -91,8 +110,7 @@ def col_walk(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         cons = torch.where(top <= 0, LEFT, cdir)
         cons = torch.where(is_j0, PAD_OP, cons)
         qi = top - (cons == DIAG).to(i64)
-        out[:, p] = torch.stack([u_eff, top, cons, qi], dim=-1).to(
-            torch.int16)
+        out[:, p] = torch.stack([u_eff, top, cons, qi], dim=-1).to(emit)
         i_next = torch.where(active, torch.where(is_j0, 0, qi), i)
         return i_next, sat
 

@@ -35,7 +35,7 @@ import torch
 from racon_tpu_torch.models.window import Window, window_arrays
 from racon_tpu_torch.ops import device_merge as dm
 from racon_tpu_torch.ops import kernels
-from racon_tpu_torch.ops.band import band_geometry
+from racon_tpu_torch.ops.band import band_geometry, band_targets
 from racon_tpu_torch.ops.budget import max_dir_elems, walk_k_for
 from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.utils import env
@@ -326,11 +326,7 @@ def _lane_fwd(bb, alen, begin, end, q, lq, win, *, match, mismatch, gap,
     if band_w:
         with _stage("tband", dev):
             klo, wl = band_geometry(lq, lt, band_w)
-            PW = band_w + Lq
-            rel = klo.long()[:, None] + torch.arange(PW, device=dev)[None, :]
-            okb = (rel >= 0) & (rel < lt.long()[:, None])
-            idx = torch.clamp(base[:, None] + rel, 0, flat.numel() - 1)
-            tband = torch.where(okb, flat[idx], 7).to(torch.uint8)
+            tband = band_targets(flat, base, klo, lt, band_w + Lq)
         with _stage("forward", dev):
             cells, nxt, nxt2, hlast = kernels.fw_dirs_band(
                 tband, qT, klo, lq, match=match, mismatch=mismatch,

@@ -1,12 +1,18 @@
 """The port's CUDA kernels: build, binding and wrappers.
 
-Two hand-written Hopper kernels replace the JAX package's Pallas
-forwards on the consensus path:
+Hand-written Hopper kernels replace the JAX package's Pallas kernels and
+its column-walk scan:
 
 - ``band_fwd`` (csrc/band_fwd.cu) — racon_tpu/ops/pallas/band_kernel.py
   ``_kernel``; plain version ops/band.py::fw_dirs_band_plain;
+- ``band_tile_fwd`` (csrc/band_fwd.cu, same body) — band_kernel.py
+  ``_kernel_tile``; plain version ops/band.py::fw_dirs_band_tile_plain;
 - ``flat_fwd`` (csrc/flat_fwd.cu) — racon_tpu/ops/pallas/flat_kernel.py
-  ``_kernel``; plain version ops/flat.py::fw_dirs_flat_plain.
+  ``_kernel``; plain version ops/flat.py::fw_dirs_flat_plain;
+- ``col_walk`` (csrc/col_walk.cu) — the XLA scan racon_tpu/ops/colwalk.py
+  ``col_walk``; plain version ops/colwalk.py::col_walk. The overlap
+  aligner (ops/ovl_align.py) runs it; the consensus engine keeps the
+  plain walk for now.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -30,16 +36,21 @@ import torch
 
 from racon_tpu_torch.native.build import (build_dir, content_tag,
                                           run_build)
-from racon_tpu_torch.ops.band import fw_dirs_band_plain
+from racon_tpu_torch.ops.band import (fw_dirs_band_plain,
+                                      fw_dirs_band_tile_plain)
+from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("band_fwd.cu", "flat_fwd.cu")
+SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"band_fwd": 0, "flat_fwd": 0}
+LAUNCHES = {"band_fwd": 0, "band_tile_fwd": 0, "flat_fwd": 0,
+            "col_walk": 0}
+# Shared memory a block may use on an H100 (opt-in maximum).
+SMEM_MAX = 232448
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -94,8 +105,12 @@ def _lib():
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.racon_band_fwd.restype = ci
             lib.racon_band_fwd.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+            lib.racon_band_tile_fwd.restype = ci
+            lib.racon_band_tile_fwd.argtypes = [vp] * 13 + [ci] * 8 + [vp]
             lib.racon_flat_fwd.restype = ci
             lib.racon_flat_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+            lib.racon_col_walk.restype = ci
+            lib.racon_col_walk.argtypes = [vp] * 10 + [ci] * 8 + [vp]
             _LIB = lib
     return _LIB
 
@@ -140,9 +155,7 @@ def fw_dirs_band(tband: torch.Tensor, qT: torch.Tensor, klo: torch.Tensor,
     _check(qT, "qT", torch.uint8, (Lq, B), dev)
     _check(klo, "klo", torch.int32, (B,), dev)
     _check(lq, "lq", torch.int32, (B,), dev)
-    if (W // 4 if W % 4 == 0 else W) > 1024:
-        raise KernelError(f"[racon_tpu_torch::kernels] band width {W} "
-                          "exceeds the kernel's 1024-thread block")
+    _band_block_check(W, Lq)
     k = int(nxt_k)
     cells = torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
     nxt = (torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
@@ -160,6 +173,135 @@ def fw_dirs_band(tband: torch.Tensor, qT: torch.Tensor, klo: torch.Tensor,
                           f"failed (cudaError {rc})")
     LAUNCHES["band_fwd"] += 1
     return cells, nxt, nxt2, hlast
+
+
+def _band_block_check(W: int, rows: int) -> None:
+    """The band kernels' launch limits: W/4 (or W) threads a block, and
+    the shared memory of two score rows, the scan scratch and the lane's
+    target window and query column."""
+    nthr = W // 4 if W % 4 == 0 else W
+    if nthr > 1024:
+        raise KernelError(f"[racon_tpu_torch::kernels] band width {W} "
+                          "exceeds the kernel's 1024-thread block")
+    nthr = -(-nthr // 32) * 32
+    shm = 4 * (2 * (W + 1) + 32 + 3 * nthr) + (W + rows) + rows
+    if shm > SMEM_MAX:
+        raise KernelError(f"[racon_tpu_torch::kernels] band tile of {rows} "
+                          f"rows at W={W} needs {shm} bytes of shared "
+                          "memory")
+
+
+def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,
+                      klo: torch.Tensor, lq: torch.Tensor, i0: int,
+                      prev: torch.Tensor, uc: torch.Tensor,
+                      hlast: torch.Tensor, *, match: int, mismatch: int,
+                      gap: int, W: int, nxt_k: int, out):
+    """One T-row tile of the banded forward with an explicit frontier,
+    written in place into rows [i0, i0+T) of the stitched planes ``out =
+    (cells, nxt, nxt2)`` [Lq, B, W]. Returns ``(cells, nxt, nxt2, hlast,
+    prev, uc)`` (see ops/band.py::fw_dirs_band_tile_plain)."""
+    if tband.device.type == "cpu":
+        return fw_dirs_band_tile_plain(
+            tband, qT, klo, lq, i0, prev, uc, hlast, match=match,
+            mismatch=mismatch, gap=gap, W=W, nxt_k=nxt_k, out=out)
+    if tband.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] band_tile_fwd needs a "
+                          "CPU or CUDA tensor")
+    k = int(nxt_k)
+    if k not in (2, 4):
+        raise KernelError("[racon_tpu_torch::kernels] band_tile_fwd depth "
+                          f"must be 2 or 4, got {k}")
+    B = tband.shape[0]
+    T = qT.shape[0]
+    dev = tband.device
+    _check(tband, "tband", torch.uint8, (B, W + T), dev)
+    _check(qT, "qT", torch.uint8, (T, B), dev)
+    _check(klo, "klo", torch.int32, (B,), dev)
+    _check(lq, "lq", torch.int32, (B,), dev)
+    for name, t in (("prev", prev), ("uc", uc), ("hlast", hlast)):
+        _check(t, name, torch.int32, (B, W), dev)
+    _band_block_check(W, T)
+    cells, nxt, nxt2 = out
+    rows = cells.shape[0]
+    if i0 < 0 or i0 + T > rows:
+        raise KernelError(f"[racon_tpu_torch::kernels] tile rows "
+                          f"[{i0}, {i0 + T}) outside the {rows}-row plane")
+    _check(cells, "cells", torch.uint8, (rows, B, W), dev)
+    _check(nxt, "nxt", torch.uint8, (rows, B, W), dev)
+    if k >= 4:
+        _check(nxt2, "nxt2", torch.uint16, (rows, B, W), dev)
+    hl_out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    p_out = torch.empty_like(hl_out)
+    uc_out = torch.empty_like(hl_out)
+    rc = _lib().racon_band_tile_fwd(
+        tband.data_ptr(), qT.data_ptr(), klo.data_ptr(), lq.data_ptr(),
+        prev.data_ptr(), uc.data_ptr(), hlast.data_ptr(), cells.data_ptr(),
+        nxt.data_ptr(), nxt2.data_ptr() if k >= 4 else None,
+        hl_out.data_ptr(), p_out.data_ptr(), uc_out.data_ptr(), B, T,
+        int(i0), W, match, mismatch, gap, k, _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] band_tile_fwd launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["band_tile_fwd"] += 1
+    return tuple(None if p is None else p[i0:i0 + T] for p in out) + (
+        hl_out, p_out, uc_out)
+
+
+def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
+                    nxt=None, nxt2=None, tile_klo=None, tile_len: int = 0,
+                    emit=torch.int16):
+    """Column walk (ops/colwalk.py::col_walk's contract); the CUDA walk
+    takes the "band" layout only."""
+    if cells.device.type == "cpu":
+        return col_walk(cells, lq, lt, klo, t_off, LA=LA, layout=layout,
+                        nxt=nxt, nxt2=nxt2, tile_klo=tile_klo,
+                        tile_len=tile_len, emit=emit)
+    if cells.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] col_walk needs a CPU "
+                          "or CUDA tensor")
+    if layout != "band":
+        raise KernelError(f"[racon_tpu_torch::kernels] col_walk kernel takes "
+                          f"the band layout, got {layout!r}")
+    if emit not in (torch.int16, torch.int32):
+        raise KernelError(f"[racon_tpu_torch::kernels] col_walk emits int16 "
+                          f"or int32, got {emit}")
+    if nxt2 is not None and nxt is None:
+        raise KernelError("[racon_tpu_torch::kernels] nxt2 requires nxt")
+    Lq, B, W = cells.shape
+    dev = cells.device
+    _check(cells, "cells", torch.uint8, (Lq, B, W), dev)
+    if nxt is not None:
+        _check(nxt, "nxt", torch.uint8, (Lq, B, W), dev)
+    if nxt2 is not None:
+        _check(nxt2, "nxt2", torch.uint16, (Lq, B, W), dev)
+    for name, t in (("lq", lq), ("lt", lt), ("t_off", t_off)):
+        _check(t, name, torch.int32, (B,), dev)
+    if tile_klo is not None:
+        if tile_len <= 0:
+            raise KernelError("[racon_tpu_torch::kernels] tile_klo needs "
+                              "tile_len")
+        n_tiles = tile_klo.shape[0]
+        _check(tile_klo, "tile_klo", torch.int32, (n_tiles, B), dev)
+        klo_p = None
+    else:
+        _check(klo, "klo", torch.int32, (B,), dev)
+        n_tiles, klo_p = 0, klo.data_ptr()
+    k = 4 if nxt2 is not None else (2 if nxt is not None else 1)
+    out = torch.empty((B, LA + 2, 4), dtype=emit, device=dev)
+    sat = torch.empty((B,), dtype=torch.bool, device=dev)
+    rc = _lib().racon_col_walk(
+        cells.data_ptr(), None if nxt is None else nxt.data_ptr(),
+        None if nxt2 is None else nxt2.data_ptr(), lq.data_ptr(),
+        lt.data_ptr(), klo_p, t_off.data_ptr(),
+        None if tile_klo is None else tile_klo.data_ptr(), out.data_ptr(),
+        sat.data_ptr(), B, Lq, W, LA, n_tiles, int(tile_len), k,
+        out.element_size(), _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] col_walk launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["col_walk"] += 1
+    return {"ins_len": out[..., 0], "qstart": out[..., 1],
+            "op_c": out[..., 2], "qi_c": out[..., 3], "sat": sat}
 
 
 def fw_dirs_flat(tbuf: torch.Tensor, qT: torch.Tensor, *, match: int,

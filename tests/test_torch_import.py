@@ -47,6 +47,7 @@ def _forbidden(name: str) -> bool:
 def test_port_modules_found():
     mods = _port_modules()
     assert "racon_tpu_torch.ops.device_poa" in mods
+    assert "racon_tpu_torch.ops.ovl_align" in mods
     assert "racon_tpu_torch.cli" in mods
 
 
