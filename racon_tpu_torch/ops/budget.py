@@ -32,6 +32,11 @@ BUFFER_BYTES = 2 ** 31
 _MARGIN_NUM, _MARGIN_DEN = 9, 10
 
 
+def round_up(n: int, mult: int) -> int:
+    """``n`` (at least 1) rounded up to a multiple of ``mult``."""
+    return ((max(n, 1) + mult - 1) // mult) * mult
+
+
 def max_dir_elems(cell_bytes: int = 1) -> int:
     """Element cap for ONE forward cell plane of ``cell_bytes``-wide
     cells."""

@@ -36,7 +36,8 @@ from racon_tpu_torch.models.window import Window, window_arrays
 from racon_tpu_torch.ops import device_merge as dm
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import band_geometry, band_targets
-from racon_tpu_torch.ops.budget import max_dir_elems, walk_k_for
+from racon_tpu_torch.ops.budget import (max_dir_elems, round_up,
+                                        walk_k_for)
 from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.utils import env
 
@@ -48,17 +49,13 @@ MAX_DIR_ELEMS = max_dir_elems(1)
 LA_GROW = 64
 
 
-def _round_up(n: int, mult: int) -> int:
-    return ((max(n, 1) + mult - 1) // mult) * mult
-
-
 def _bucket_b(n: int) -> int:
     """Batch-dim bucket (coarse grid; the JAX package's, unchanged, so the
     two engines pack identical chunks)."""
     for cap in (128, 256, 512, 1024, 2048):
         if n <= cap:
             return cap
-    return _round_up(n, 1024)
+    return round_up(n, 1024)
 
 
 # Cap reuse history, per process: later runs pad up to a previous
@@ -71,7 +68,7 @@ _BAND_HISTORY: set = set()
 
 def run_caps(lq: int, la: int) -> Tuple[int, int]:
     """(lq_cap, la_cap) covering a run's max layer/backbone lengths."""
-    need = (_round_up(lq, 128), _round_up(la + LA_GROW, 128))
+    need = (round_up(lq, 128), round_up(la + LA_GROW, 128))
     if 128 * need[0] * need[1] > MAX_DIR_ELEMS:
         return need
     with _HISTORY_LOCK:
@@ -106,13 +103,13 @@ def window_band_delta(w: Window) -> int:
 def band_width_for(max_delta: int) -> int:
     """Band slots covering a max length difference with >= 64 slack per
     side, on the 128 grid."""
-    return _round_up(max_delta + 2 * 64 + 1, 128)
+    return round_up(max_delta + 2 * 64 + 1, 128)
 
 
 def dir_elems(n_jobs: int, max_lq: int, max_bb: int) -> int:
     """Cell-plane element count for a chunk, with ChunkPlan's padding."""
-    return (_bucket_b(n_jobs) * _round_up(max_lq, 128) *
-            _round_up(max_bb + LA_GROW, 128))
+    return (_bucket_b(n_jobs) * round_up(max_lq, 128) *
+            round_up(max_bb + LA_GROW, 128))
 
 
 class ChunkPlan:
@@ -142,13 +139,13 @@ class ChunkPlan:
             anchor_w.append(bw)
 
         self.n_real_win = len(windows)
-        self.n_win = _round_up(len(windows), 32)
+        self.n_win = round_up(len(windows), 32)
         self.n_jobs = len(jobs_q)
-        B = _round_up(_bucket_b(self.n_jobs), 128)
+        B = round_up(_bucket_b(self.n_jobs), 128)
         max_lq = max(len(q) for q in jobs_q)
         LA0 = max(len(a) for a in anchors)
-        Lq = lq_cap if lq_cap is not None else _round_up(max_lq, 128)
-        LA = la_cap if la_cap is not None else _round_up(LA0 + la_grow, 128)
+        Lq = lq_cap if lq_cap is not None else round_up(max_lq, 128)
+        LA = la_cap if la_cap is not None else round_up(LA0 + la_grow, 128)
         if max_lq > Lq or LA0 + la_grow > LA:
             raise ValueError(
                 "[racon_tpu_torch::ChunkPlan] caps below chunk max")

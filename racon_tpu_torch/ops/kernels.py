@@ -14,6 +14,9 @@ its column-walk scan:
   aligner (ops/ovl_align.py) runs it; the consensus engine keeps the
   plain walk for now.
 
+``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
+device-memory loads, the floor of the column walk, for chip_smoke.py.
+
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
 interface in the port's build directory, keyed by a hash of the sources
@@ -22,7 +25,8 @@ import time.
 
 Each wrapper sends a CPU tensor to the plain version and a CUDA tensor
 to its kernel (or raises: there is no fallback). ``LAUNCHES`` counts
-kernel launches per wrapper and is touched nowhere else.
+kernel launches per wrapper of a port kernel and is touched nowhere
+else.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu")
+SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu", "probe.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
@@ -111,6 +115,8 @@ def _lib():
             lib.racon_flat_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
             lib.racon_col_walk.restype = ci
             lib.racon_col_walk.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+            lib.racon_chase.restype = ci
+            lib.racon_chase.argtypes = [vp] + [ci] * 4 + [vp, vp]
             _LIB = lib
     return _LIB
 
@@ -331,3 +337,51 @@ def fw_dirs_flat(tbuf: torch.Tensor, qT: torch.Tensor, *, match: int,
                           f"failed (cudaError {rc})")
     LAUNCHES["flat_fwd"] += 1
     return cells
+
+
+
+def chain_of_loads(steps: int, stride: int, device, lanes: int = 1,
+                   lane_stride: int = 0) -> torch.Tensor:
+    """The index array of :func:`chase`: from its last entry (less
+    ``lane_stride`` entries a lane), ``steps`` loads each ``stride``
+    entries below the last, for ``lanes`` lanes."""
+    n = steps * stride + (lanes - 1) * lane_stride + 1
+    if n >= 2 ** 31:
+        raise KernelError(f"[racon_tpu_torch::kernels] a chain of {steps} "
+                          f"loads {stride} entries apart outgrows int32")
+    return (torch.arange(n, dtype=torch.int32, device=device) -
+            stride).clamp_(min=0)
+
+
+def chase(nxt: torch.Tensor, steps: int, lanes: int = 1,
+          lane_stride: int = 0) -> torch.Tensor:
+    """Lane b follows ``steps`` dependent loads ``i = nxt[i]`` from entry
+    ``nxt.numel() - 1 - lane_stride * b``; returns the index each lane
+    reaches (int32[lanes]). The latency probe of csrc/probe.cu on a CUDA
+    tensor, a Python loop on a CPU tensor."""
+    start = nxt.numel() - 1
+    if start - lane_stride * (lanes - 1) < 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] {lanes} lanes "
+                          f"{lane_stride} entries apart start outside the "
+                          f"{nxt.numel()}-entry chain")
+    if nxt.device.type == "cpu":
+        ends = []
+        for b in range(lanes):
+            i = start - lane_stride * b
+            for _ in range(steps):
+                i = int(nxt[i])
+            ends.append(i)
+        return torch.tensor(ends, dtype=torch.int32)
+    if nxt.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] chase needs a CPU or "
+                          "CUDA tensor")
+    dev = nxt.device
+    _check(nxt, "nxt", torch.int32, (nxt.numel(),), dev)
+    end = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    rc = _lib().racon_chase(nxt.data_ptr(), start, int(lane_stride),
+                            int(lanes), int(steps), end.data_ptr(),
+                            _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] chase launch failed "
+                          f"(cudaError {rc})")
+    return end

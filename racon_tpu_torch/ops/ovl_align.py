@@ -34,9 +34,9 @@ from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import (band_geometry, band_targets,
                                       row0_scores, uc_boundary)
 from racon_tpu_torch.ops.budget import (VMEM_BUDGET, max_dir_elems,
-                                        tile_plan, vmem_est, walk_k_for)
+                                        round_up, tile_plan, vmem_est,
+                                        walk_k_for)
 from racon_tpu_torch.ops.cigar import DIAG
-from racon_tpu_torch.ops.device_poa import _round_up
 from racon_tpu_torch.ops.encode import encode_bases
 from racon_tpu_torch.ops.flat import NEG
 from racon_tpu_torch.utils import env
@@ -60,17 +60,27 @@ def band_width_for_read(lq: int, lt: int) -> int:
     edit-distance scoring: half-width ~ L/13 plus slack, |lt - lq| on
     top. Under-banding is safe (the certificate fails and the host
     aligner takes the job)."""
-    return _round_up(abs(lt - lq) + 2 * (max(lq, lt) // 13 + 64) + 1, 128)
+    return round_up(abs(lt - lq) + 2 * (max(lq, lt) // 13 + 64) + 1, 128)
 
 
 def untiled_admits(lq: int, lt: int) -> bool:
     """The untiled route's admission: a 128-lane chunk of this job's
     padded geometry fits the cell-plane cap and the reference's VMEM
     model, and its query indices fit the int16 walk emissions."""
-    W = _round_up(band_width_for_read(lq, lt), 512)
-    lqp = _round_up(lq, 2048)
+    W = round_up(band_width_for_read(lq, lt), 512)
+    lqp = round_up(lq, 2048)
     return (TB * lqp * W <= MAX_DIR_ELEMS and
             vmem_est(W, lqp, 4) <= VMEM_BUDGET and max(lq, lt) < 2 ** 14)
+
+
+def untiled_walk_k(Lq: int, W: int) -> int:
+    """Walk depth of a 128-lane untiled chunk at (Lq, W): the requested
+    depth, down to 2 where the u16 nxt2 plane breaks the element cap or
+    the reference's VMEM model."""
+    nxt_k = walk_k_for(TB * Lq * W)
+    if nxt_k >= 4 and vmem_est(W, Lq, 4, 4) > VMEM_BUDGET:
+        nxt_k = 2
+    return nxt_k
 
 
 def _window_rows(op, qi, lt, t_begin, *, w_len: int, NW: int, LA: int):
@@ -302,16 +312,16 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     Lq = LA = W = 1
     for j in jobs:
         _, qc, tc, _ = j
-        tLq = max(Lq, _round_up(len(qc), 2048))
-        tLA = max(LA, _round_up(len(tc), 2048))
-        tW = max(W, _round_up(band_width_for_read(len(qc), len(tc)), 512))
+        tLq = max(Lq, round_up(len(qc), 2048))
+        tLA = max(LA, round_up(len(tc), 2048))
+        tW = max(W, round_up(band_width_for_read(len(qc), len(tc)), 512))
         if cur and (TB * tLq * tW > MAX_DIR_ELEMS or
                     vmem_est(tW, tLq, 4) > VMEM_BUDGET):
             buckets.append((cur, Lq, LA, W))
             cur = []
-            tLq = _round_up(len(qc), 2048)
-            tLA = _round_up(len(tc), 2048)
-            tW = _round_up(band_width_for_read(len(qc), len(tc)), 512)
+            tLq = round_up(len(qc), 2048)
+            tLA = round_up(len(tc), 2048)
+            tW = round_up(band_width_for_read(len(qc), len(tc)), 512)
         Lq, LA, W = tLq, tLA, tW
         cur.append(j)
     if cur:
@@ -325,8 +335,8 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     tiled_buckets = []
     for (lanes, W_t, T_t, _ch, k_t), js in sorted(bytier.items()):
         js.sort(key=lambda j: (len(j[1]), len(j[2])))
-        Lq_t = max(_round_up(len(j[1]), T_t) for j in js)
-        LA_t = max(Lq_t, max(_round_up(len(j[2]), 2048) for j in js))
+        Lq_t = max(round_up(len(j[1]), T_t) for j in js)
+        LA_t = max(Lq_t, max(round_up(len(j[2]), 2048) for j in js))
         tiled_buckets.append((js, lanes, W_t, T_t, Lq_t, LA_t, k_t))
 
     # Every chunk's inputs go to the device first, then every chunk is
@@ -335,11 +345,8 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     # queued.
     calls = []
     for bucket, Lq, LA, W in buckets:
-        nxt_k = walk_k_for(TB * Lq * W)
-        if nxt_k >= 4 and vmem_est(W, Lq, 4, 4) > VMEM_BUDGET:
-            nxt_k = 2
         kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, nxt_k=nxt_k)
+                  Lq=Lq, LA=LA, nxt_k=untiled_walk_k(Lq, W))
         for s in range(0, len(bucket), TB):
             sub = bucket[s:s + TB]
             calls.append((sub, _chunk_breaking_points,

@@ -18,7 +18,15 @@ from racon_tpu.ops.pallas.band_kernel import (band_geometry, fw_dirs_band,
 from racon_tpu_torch.ops import band as tband_mod
 from racon_tpu_torch.ops import kernels
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SCORINGS = [(5, -4, -8), (1, -1, -1), (0, -1, -1)]
 

@@ -16,7 +16,15 @@ import bench
 from racon_tpu.ops import device_poa as R
 from racon_tpu_torch.ops import device_poa as P
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 KW = dict(match=5, mismatch=-4, gap=-8, ins_scale=(0.2, 0.2, 0.2, 0.6),
           rounds=4)

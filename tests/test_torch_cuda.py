@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, bitwise:
-the banded forward (untiled and tiled), the full-width forward and the
-column walk.
+the banded forward (untiled and tiled), the full-width forward, the
+column walk and the walk's latency probe.
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -152,6 +152,23 @@ def test_col_walk_kernel_matches_plain(cuda, k, tiled):
     for name in ("ins_len", "qstart", "op_c", "qi_c", "sat"):
         assert out[name].dtype == ref[name].dtype
         assert torch.equal(ref[name], out[name].cpu()), name
+
+
+
+def test_chase_kernel_matches_plain(cuda):
+    """The latency probe (csrc/probe.cu) reaches the indices its plain
+    version reaches, one lane and 40 lanes, chains cut at several
+    depths."""
+    for lanes, lane_stride in ((1, 0), (40, 7)):
+        loads = kernels.chain_of_loads(300, 1000, "cpu", lanes=lanes,
+                                       lane_stride=lane_stride)
+        on_card = loads.to(cuda)
+        for steps in (0, 1, 123, 300):
+            want = kernels.chase(loads, steps, lanes, lane_stride)
+            got = kernels.chase(on_card, steps, lanes, lane_stride)
+            assert torch.equal(got.cpu(), want)
+    with pytest.raises(kernels.KernelError):
+        kernels.chase(on_card, 1, lanes=10 ** 6, lane_stride=1000)
 
 
 class _Ovl:

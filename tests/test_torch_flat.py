@@ -13,7 +13,14 @@ from racon_tpu.ops.pallas.flat_kernel import fw_dirs_pallas
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(seed, B, Lq, Lt):

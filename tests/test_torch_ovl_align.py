@@ -40,7 +40,15 @@ from racon_tpu_torch.ops import ovl_align as povl
 from racon_tpu_torch.ops.cigar import ops_to_cigar
 from racon_tpu_torch.ops.encode import encode_bases
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 

@@ -21,8 +21,16 @@ from racon_tpu.ops import device_merge as rdm
 from racon_tpu_torch.ops import colwalk as pcw
 from racon_tpu_torch.ops import device_merge as pdm
 from racon_tpu_torch.ops import device_poa as P
+from racon_tpu_torch.ops import kernels
 
-torch.set_num_threads(1)
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's tests, restored after it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -138,3 +146,19 @@ def test_chain_len_matches_reference():
     for la in (0, 1, 511, 640):
         for k in (1, 2, 4):
             assert pcw.chain_len(la, k) == rcw.chain_len(la, k)
+
+
+def test_chase_follows_chain_of_loads():
+    """The walk's latency probe on the CPU: chains of loads ``stride``
+    entries apart, one a lane, followed from the top of the array."""
+    loads = kernels.chain_of_loads(7, 5, "cpu")
+    assert loads.numel() == 36 and loads.dtype == torch.int32
+    assert kernels.chase(loads, 3).tolist() == [20]
+    assert kernels.chase(loads, 7).tolist() == [0]
+    loads = kernels.chain_of_loads(4, 10, "cpu", lanes=3, lane_stride=2)
+    assert kernels.chase(loads, 4, lanes=3, lane_stride=2).tolist() == [4, 2,
+                                                                        0]
+    with pytest.raises(kernels.KernelError):
+        kernels.chase(loads, 1, lanes=30, lane_stride=2)
+    with pytest.raises(kernels.KernelError):
+        kernels.chain_of_loads(2 ** 16, 2 ** 15, "cpu")
