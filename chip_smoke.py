@@ -14,9 +14,13 @@ any failure exits non-zero and prints no result):
               k=4), band_tile_fwd (K3) at the overlap tile shape from a
               previous tile's frontier, flat_fwd (K2), and col_walk (W1)
               on a stitched overlap chunk (tiled, int32), on the untiled
-              chunk (int16) and at the consensus shape (k=4, int16). Each
-              walk also prints its chain floor: its chain_len dependent
-              loads timed alone (csrc/probe.cu);
+              chunk (int16), at the consensus shape (k=4, int16) and on
+              K2's full-width planes (flat layout, k=1). Each walk also
+              prints its chain floor: its chain_len dependent loads timed
+              alone (csrc/probe.cu). Then the op-string route's kernels
+              at its batch shape: nw_fwd (K4), nw_traceback (T1, with its
+              chain floor) on K4's planes, and monotone_count (K5) on
+              T1's op strings, timed beside torch.searchsorted;
 3. small      the CLI on a ~20 kb synthetic input with --device cuda and
               --device cpu: the FASTA must be byte-identical (the cuda run
               aligns the overlaps on the card, untiled; the cpu run with
@@ -25,14 +29,27 @@ any failure exits non-zero and prints no result):
               1 Mbp synthetic draft (20 contigs x 50 kb), 10 kb reads at
               30x, PAF overlaps aligned on the card (tiled route), w=500.
               Launch counts reset just before and read just after;
-              band_fwd, band_tile_fwd and col_walk must have launched and
-              the overlap aligner must have handled jobs on the card. The
+              band_fwd, band_tile_fwd and col_walk must have launched, the
+              consensus engine must have walked on the card (col_walk
+              launches inside the stage clock's walk stage) and the
+              overlap aligner must have handled jobs on the card. The
               host phases are split from the logger's phase lines.
               Polished edit distance to the truth must be at most a third
               of the draft's;
 5. flat path  the band-off route (RACON_TPU_NO_BAND=1, the full-width
               forward) through the CLI on a 100 kb input, with its own
-              launch counts; flat_fwd must have launched.
+              launch counts; flat_fwd must have launched and the
+              consensus engine must have walked on the card (flat layout);
+6. op strings the batched aligner's route at full size: the windows of
+              phase 4's first 5 contigs (Polisher.initialize), round 0's
+              ~15k jobs through PoaEngine._align on the card (K4 and T1 in
+              batches of up to 4096 lanes), then extract_votes (K5) and
+              the device merge. Every path must score what the native
+              aligner's path scores, and every window's consensus,
+              coverage and coordinate maps must equal the host
+              _merge_round's on the same op strings, except windows with
+              an insertion run longer than K_INS (the device merge keeps
+              K_INS pileup columns by design), which are counted.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -58,17 +75,32 @@ import numpy as np
 HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 # Integer operations per DP cell, counted from the kernel sources (the
-# tiled entry runs the same row body as band_fwd).
+# tiled entry runs the same row body as band_fwd). nw_fwd counts what one
+# pass over a row needs: the substitution's compare and select (2), diag
+# and up (2), their max (1), the column's gap offset taken off and put
+# back (2), the prefix max (1), h == diag and h == up (2), two selects
+# (2) and the code packed into its stored word (2); the kernel's second
+# pass, which recomputes diag and up after the scan, is not counted.
 OPS_PER_CELL = {("band_fwd", 4): 50, ("band_fwd", 2): 40,
-                ("band_fwd", 1): 30, ("flat_fwd", 0): 25}
+                ("band_fwd", 1): 30, ("flat_fwd", 0): 25,
+                ("nw_fwd", 0): 14}
+# Integer operations per traceback step (nw_traceback.cu) and, for the
+# monotone count (count.cu), per X element and per output bin.
+OPS_PER_STEP = 14
+OPS_PER_X, OPS_PER_BIN = 5, 7
 REPLACES = {
     "band_fwd": "racon_tpu/ops/pallas/band_kernel.py:96",
     "band_tile_fwd": "racon_tpu/ops/pallas/band_kernel.py:428",
     "flat_fwd": "racon_tpu/ops/pallas/flat_kernel.py:31",
     "col_walk": "racon_tpu/ops/colwalk.py:66",
+    "nw_fwd": "racon_tpu/ops/pallas/nw_kernel.py:42",
+    "nw_traceback": "racon_tpu/ops/align.py:75",
+    "monotone_count": "racon_tpu/ops/pallas/count_kernel.py:33",
 }
 SOURCE = {"band_fwd": "band_fwd.cu", "band_tile_fwd": "band_fwd.cu",
-          "flat_fwd": "flat_fwd.cu", "col_walk": "col_walk.cu"}
+          "flat_fwd": "flat_fwd.cu", "col_walk": "col_walk.cu",
+          "nw_fwd": "nw_fwd.cu", "nw_traceback": "nw_traceback.cu",
+          "monotone_count": "count.cu"}
 
 
 def fail(msg: str) -> None:
@@ -213,13 +245,27 @@ def overlap_chunk(device, B=64, L=9900, W=1536, T=2048, tiled=True,
 WALK_FIELDS = ("ins_len", "qstart", "op_c", "qi_c", "sat")
 
 
+def chain_floor_ms(device, steps, step_bytes, lanes, lane_bytes) -> float:
+    """Time of ``steps`` dependent loads ``step_bytes`` apart, one chain a
+    lane with lanes ``lane_bytes`` apart, and no other work: the latency
+    probe (csrc/probe.cu) on int32 entries at a walk's addresses."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    probe = dict(lanes=lanes, lane_stride=lane_bytes // 4)
+    loads = kernels.chain_of_loads(steps, step_bytes // 4, device, **probe)
+    ends = kernels.chase(loads, steps, **probe)
+    want = torch.arange(lanes - 1, -1, -1, device=device) * (lane_bytes // 4)
+    if not torch.equal(ends.long(), want):
+        fail("the latency probe did not reach the ends of its chains")
+    return time_ms(lambda: kernels.chase(loads, steps, **probe))
+
+
 def walk_case(case, cells, lq, lt, klo, t_off, extra_bytes=0, **wk):
     """W1 against its plain version (bitwise) on one walk, with its time,
     the plain time, the bytes bound and the chain floor: every lane's
     chain_len dependent loads, k plane rows apart, made with no other
     work by the latency probe (csrc/probe.cu) in this run. Returns the
     record."""
-    import torch
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.colwalk import chain_len, col_walk
     B = lq.shape[0]
@@ -239,17 +285,8 @@ def walk_case(case, cells, lq, lt, klo, t_off, extra_bytes=0, **wk):
     chain = chain_len(LA, k)
     bms, by = bound(B * chain * k + B * (LA + 2) * 4 * esize + 16 * B +
                     extra_bytes, 0)
-    # The probe's int32 entries sit W bytes apart a lane and k plane rows
-    # (k * B * W bytes) apart a step: the walk's addresses.
-    probe = dict(lanes=B, lane_stride=W // 4)
-    loads = kernels.chain_of_loads(chain, k * B * W // 4, cells.device,
-                                   **probe)
-    ends = kernels.chase(loads, chain, **probe)
-    want = torch.arange(B - 1, -1, -1, device=cells.device) * (W // 4)
-    if not torch.equal(ends.long(), want):
-        fail("the latency probe did not reach the ends of its chains")
-    floor_ms = time_ms(lambda: kernels.chase(loads, chain, **probe))
-    del loads, ends
+    # The walk's addresses: lanes W bytes apart, k plane rows a step.
+    floor_ms = chain_floor_ms(cells.device, chain, k * B * W, B, W)
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                bound_by=by, chain_floor_ms=floor_ms)
     emit("kernels", kernel="col_walk", case=case, nxt_k=k,
@@ -417,6 +454,119 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
          **recs[("flat_fwd", 0)])
     if err:
         fail(f"flat_fwd disagrees with its plain version (max_abs_err={err})")
+    # W1 on K2's planes, as the band-off consensus path and the
+    # full-width redo walk them (flat layout, k=1, LA = Lt).
+    rng = np.random.default_rng(6)
+    t_off = rng.integers(0, 48, Bf).astype(np.int32)
+    lt_f = rng.integers(Lt * 3 // 4, Lt - 47, Bf).astype(np.int32)
+    lq_f = rng.integers(Lq * 3 // 4, Lq + 1, Bf).astype(np.int32)
+    recs[("col_walk", "flat")] = walk_case(
+        "consensus flat", run_fk(), *(torch.from_numpy(a).to(device)
+                                      for a in (lq_f, lt_f)), None,
+        torch.from_numpy(t_off).to(device), LA=Lt, layout="flat")
+    return recs
+
+
+def nw_pairs(device, B, Lq, Lt, seed=10):
+    """Pairs as the op-string route packs them: targets of window-slice
+    lengths (up to Lt - 12 bases), queries 8%-error copies of them, codes
+    zero-padded to (Lq, Lt)."""
+    import torch
+    from racon_tpu_torch.ops.encode import encode_bases
+    from racon_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(seed)
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lt), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    for b in range(B):
+        tt = _BASES[rng.integers(0, 4, int(rng.integers(Lt * 3 // 4,
+                                                         Lt - 11)))]
+        qq = mutate(rng, tt, 0.08)[0][:Lq]
+        t[b, :len(tt)] = encode_bases(tt.tobytes())
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        lq[b], lt[b] = len(qq), len(tt)
+    return tuple(torch.from_numpy(a).to(device) for a in (q, t, lq, lt))
+
+
+def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
+    """K4, T1 and K5 at the op-string route's batch shape, each bitwise
+    against its plain version: K4 on route-like pairs, T1 on K4's planes
+    (with its chain floor), K5 on the block keys of T1's op strings with
+    P = LA + 2 (LA = Lt), timed beside torch.searchsorted, which computes
+    the same counts on these non-decreasing keys."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.align import (PAD_OP, nw_dirs_plain,
+                                           traceback_plain)
+    from racon_tpu_torch.ops.device_merge import (block_keys,
+                                                  monotone_count_plain)
+    q, t, lq, lt = nw_pairs(device, B, Lq, Lt)
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    recs = {}
+
+    def record(name, err, **kw):
+        recs[name] = dict(max_abs_err=err, **kw)
+        emit("kernels", kernel=name, max_abs_err=err, **kw)
+        if err:
+            fail(f"{name} disagrees with its plain version "
+                 f"(max_abs_err={err})")
+
+    dirs = kernels.nw_dirs(q, t, **sc)
+    ref, plain_ms = timed_once(lambda: nw_dirs_plain(q, t, **sc))
+    err = max_abs_err([ref], [dirs])
+    del ref
+    ms = time_ms(lambda: kernels.nw_dirs(q, t, **sc))
+    cells = B * Lq * Lt
+    bms, by = bound(B * (Lq + Lt) + cells,
+                    cells * OPS_PER_CELL[("nw_fwd", 0)])
+    record("nw_fwd", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+           bound_by=by, library_ms=None, shape=[B, Lq, Lt])
+
+    L = Lq + Lt
+    ops, n = kernels.nw_traceback(dirs, lq, lt, L)
+
+    def plain_tb():
+        rev = traceback_plain(dirs, lq, lt, L)
+        return (torch.flip(rev, dims=[1]),
+                (rev != PAD_OP).sum(dim=1, dtype=torch.int32))
+    ref, plain_ms = timed_once(plain_tb)
+    err = max_abs_err(ref, (ops, n))
+    del ref
+    ms = time_ms(lambda: kernels.nw_traceback(dirs, lq, lt, L))
+    steps = int(n.sum().item())
+    bms, by = bound(steps + B * L + 12 * B, steps * OPS_PER_STEP)
+    # Chain floor: the longest lane's row moves (lq of them), each a
+    # dependent load one plane row (B * Lt bytes) below the last.
+    rows = int(lq.max().item())
+    floor_ms = chain_floor_ms(dirs.device, rows, B * Lt, B, Lt)
+    record("nw_traceback", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+           bound_by=by, library_ms=None, chain_floor_ms=floor_ms,
+           shape=[B, Lq, Lt], steps=steps, max_n=int(n.max().item()))
+    del dirs
+
+    rng = np.random.default_rng(11)
+    t_off = torch.from_numpy((rng.random(B) * (Lt - lt.cpu().numpy() + 1))
+                             .astype(np.int32)).to(device)
+    Xs = block_keys(ops, t_off)
+    P = Lt + 2
+    S = Xs.shape[1]
+    F = kernels.monotone_count(Xs, P)
+    ref, plain_ms = timed_once(lambda: monotone_count_plain(Xs, P))
+    err = max_abs_err([ref], [F])
+    del ref
+    ms = time_ms(lambda: kernels.monotone_count(Xs, P))
+    pa = torch.arange(P, dtype=torch.int32, device=device).expand(
+        B, P).contiguous()
+    lib_same = torch.equal(torch.searchsorted(Xs, pa).to(torch.int32), F)
+    lib_ms = time_ms(lambda: torch.searchsorted(Xs, pa))
+    bms, by = bound(4 * B * (S + P), B * (OPS_PER_X * S + OPS_PER_BIN * P))
+    record("monotone_count", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+           bound_by=by, library_ms=lib_ms, shape=[B, S, P],
+           library_equal=lib_same)
+    if not lib_same:
+        fail("torch.searchsorted disagrees with monotone_count on "
+             "non-decreasing keys")
     return recs
 
 
@@ -508,6 +658,7 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     launches = dict(kernels.LAUNCHES)
     ovl = dict(ovl_align.STATS)
     stages = clock.ms()
+    walks = clock.launches().get("walk", {}).get("col_walk", 0)
     device_poa.set_stage_clock(False)
     if rc:
         fail(f"main run failed: {err[-3000:]}")
@@ -529,28 +680,32 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
          windows_per_s_end_to_end=n_windows / wall,
          align_s=phases.get("aligned overlaps"), phase_s=phases,
          ovl=ovl, stage_ms=stages, max_memory_allocated=peak,
-         launches=launches, redo_windows=flagged, host_windows=host,
+         launches=launches, consensus_walks=walks, redo_windows=flagged,
+         host_windows=host,
          ed_draft=ed_draft, ed_polished=ed_pol)
     for name in ("band_fwd", "band_tile_fwd", "col_walk"):
         if launches[name] <= 0:
             fail(f"main run: {name} never launched")
+    if walks <= 0:
+        fail("main run: the consensus engine never launched col_walk")
     if ovl["device_jobs"] <= 0:
         fail("main run: no overlap was aligned on the card")
     if "aligned overlaps" not in phases:
         fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
         fail(f"main run: polished ED {ed_pol} > draft ED {ed_draft} / 3")
-    return launches
+    return launches, p
 
 
 def phase_flat(device, tmp, contig_len=100000):
-    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops import device_poa, kernels
     from racon_tpu_torch.utils.synth import write_dataset
     ds = write_dataset(os.path.join(tmp, "flat"), seed=9,
                        contig_len=contig_len, read_len=10000, coverage=30,
                        draft_err=0.03)
     p = ds["paths"]
     os.environ["RACON_TPU_NO_BAND"] = "1"
+    clock = device_poa.set_stage_clock(True)
     try:
         kernels.reset_launches()
         rc, out, err, wall = run_cli([p["reads"], p["overlaps"], p["draft"],
@@ -559,12 +714,152 @@ def phase_flat(device, tmp, contig_len=100000):
         launches = dict(kernels.LAUNCHES)
     finally:
         del os.environ["RACON_TPU_NO_BAND"]
+        device_poa.set_stage_clock(False)
     if rc or not out:
         fail(f"flat-path run failed: {err[-3000:]}")
+    # The overlap chunks walk the band layout; the consensus, the flat one.
+    walks = clock.launches().get("walk", {}).get("col_walk", 0)
     emit("flat_path", wall_s=wall, consensus_s=consensus_seconds(err),
-         launches=launches)
+         launches=launches, consensus_walks=walks)
     if launches["flat_fwd"] <= 0:
         fail("flat-path run: flat_fwd never launched")
+    if walks <= 0:
+        fail("flat-path run: the consensus engine never launched col_walk")
+    return dict(launches, col_walk_flat=walks)
+
+
+def path_score(q, t, ops, m, x, g):
+    """Score of an op string, or None when it does not consume exactly q
+    and t."""
+    cq = ops != 2
+    ct = ops != 1
+    if int(cq.sum()) != len(q) or int(ct.sum()) != len(t):
+        return None
+    d = ops == 0
+    qi = (np.cumsum(cq) - cq)[d]
+    ti = (np.cumsum(ct) - ct)[d]
+    eq = int((q[qi] == t[ti]).sum())
+    nd = int(d.sum())
+    return m * eq + x * (nd - eq) + g * (len(ops) - nd)
+
+
+def longest_insertion(ops) -> int:
+    edges = np.diff(np.concatenate([[0], (ops == 1).astype(np.int8), [0]]))
+    starts, ends = np.flatnonzero(edges == 1), np.flatnonzero(edges == -1)
+    return int((ends - starts).max()) if len(starts) else 0
+
+
+def phase_op_strings(device, paths, n_contigs=5, device_batch=4096):
+    """The batched aligner's route at full size (see the module
+    docstring, phase 6). Returns its launch counts."""
+    import torch
+    from racon_tpu_torch.models.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.models.window import window_arrays
+    from racon_tpu_torch.native.aligner import NativeAligner
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.align import PAD_OP
+    from racon_tpu_torch.ops.poa import PoaEngine
+    m, x, g = 5, -4, -8
+    threads = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    pol = create_polisher(paths["reads"], paths["overlaps"], paths["draft"],
+                          PolisherType.kC, 500, 10.0, 0.3, m, x, g,
+                          device=device, threads=threads)
+    pol.initialize()
+    windows = [w for w in pol.windows if w.id < n_contigs and
+               w.n_layers >= 2]
+    eng = PoaEngine(m, x, g, device=device, device_batch=device_batch,
+                    threads=threads)
+    eng.stats = {}
+    anchors, jobs = [], []
+    for wi, w in enumerate(windows):
+        lays, bb, bw = window_arrays(w)
+        anchors.append((bb, bw))
+        jobs.extend(eng._build_jobs(wi, bb, [(c, wt) for c, wt, _, _ in lays],
+                                    [(b, e) for _, _, b, e in lays]))
+    setup_s = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    eng._align(jobs)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    B = len(jobs)
+    S = max(len(j.ops) for j in jobs)
+    Lq = max(len(j.q) for j in jobs)
+    LA = max(len(bb) for bb, _ in anchors) + 8
+    ops = np.full((B, S), PAD_OP, np.uint8)
+    q = np.zeros((B, Lq), np.uint8)
+    qw = np.zeros((B, Lq), np.float32)
+    for b, j in enumerate(jobs):
+        ops[b, S - len(j.ops):] = j.ops
+        q[b, :len(j.q)] = j.q
+        qw[b, :len(j.q)] = j.w
+    col = [np.array([getattr(j, a) for j in jobs], dt) for a, dt in (
+        ("w_read", np.float32), ("t_len", np.int32), ("t_off", np.int32),
+        ("win", np.int32))]
+    Nw = len(anchors)
+    bb_pad = np.zeros((Nw, LA), np.uint8)
+    bbw_pad = np.zeros((Nw, LA), np.float32)
+    alen = np.array([len(bb) for bb, _ in anchors], np.int32)
+    for wi, (bb, bw) in enumerate(anchors):
+        bb_pad[wi, :len(bb)] = bb
+        bbw_pad[wi, :len(bb)] = bw
+    dv = [torch.from_numpy(a).to(device) for a in (ops, q, qw, *col)]
+    bb_d, bbw_d, alen_d = (torch.from_numpy(a).to(device)
+                           for a in (bb_pad, bbw_pad, alen))
+    votes = dm.extract_votes(*dv[:6], LA)
+    acc = dm.aggregate_votes(votes, dv[6], Nw)
+    del votes
+    acc = dm.add_backbone(acc, bb_d, bbw_d, alen_d)
+    asm = dm.assemble(acc, alen_d, eng.ins_scale)
+    codes, cov, total = (a.cpu().numpy() for a in dm.compact(asm, LA + 64))
+    map_b, map_e = (a.cpu().numpy() for a in dm.coord_maps(asm, alen_d, LA))
+    merge_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    del acc, asm, dv
+
+    nat = NativeAligner(m, x, g, threads=threads).align_batch(
+        [(j.q, j.t) for j in jobs])
+    bad_paths = 0
+    for j, o in zip(jobs, nat):
+        sc = path_score(j.q, j.t, j.ops, m, x, g)
+        bad_paths += sc is None or sc != path_score(j.q, j.t, o, m, x, g)
+    host = eng._merge_round(anchors, jobs)
+    long_ins = {j.win for j in jobs if longest_insertion(j.ops) > dm.K_INS}
+    differ = []
+    for wi, (cons, hcov, mb, me) in enumerate(host):
+        L = len(cons)
+        if not (total[wi] == L and np.array_equal(codes[wi, :L], cons) and
+                np.array_equal(cov[wi, :L], hcov) and
+                np.array_equal(map_b[wi, :len(mb)], mb) and
+                np.array_equal(map_e[wi, :len(me)], me)):
+            differ.append(wi)
+    unexplained = [wi for wi in differ if wi not in long_ins]
+    shapes = eng.stats["align_shapes"]
+    emit("op_strings", contigs=n_contigs, windows=Nw, jobs=B,
+         batches=len(shapes), batch_shapes=shapes, launches=launches,
+         setup_s=setup_s, align_s=align_s, merge_s=merge_s,
+         route_s=align_s + merge_s, merge_shape=[B, S, LA + 2],
+         path_score_mismatches=bad_paths,
+         windows_equal=Nw - len(differ),
+         long_insertion_windows=sorted(long_ins),
+         long_insertion_windows_differing=sorted(set(differ) & long_ins),
+         windows_differing_unexplained=unexplained)
+    if bad_paths:
+        fail(f"op strings: {bad_paths} of {B} paths do not score what the "
+             "native aligner's path scores")
+    if unexplained:
+        fail(f"op strings: windows {unexplained[:20]} differ from the host "
+             "merge without an insertion run longer than K_INS")
+    for name in ("nw_fwd", "nw_traceback", "monotone_count"):
+        if launches[name] <= 0:
+            fail(f"op strings: {name} never launched")
+    if max(sh[0] for sh in shapes) < eng.device_batch:
+        fail(f"op strings: no batch of {eng.device_batch} lanes ({shapes})")
     return launches
 
 
@@ -590,25 +885,37 @@ def main() -> int:
     recs = phase_kernels("cuda")
     recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
     phase_untiled_overlap_kernels("cuda")
+    recs.update({(n, 0): r for n, r in
+                 phase_op_string_kernels("cuda").items()})
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
-        main_launches = phase_main("cuda", tmp)
+        main_launches, main_paths = phase_main("cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
+        op_launches = phase_op_strings("cuda", main_paths)
 
     rows = []
     for (name, k), r in recs.items():
         if name == "band_fwd" and k != 4:
             continue
+        # Each kernel's launches on the path that runs it: the band-off
+        # path for K2 and the flat walk, the op-string route for K4, T1
+        # and K5, the main path for the rest.
+        if k == "flat":
+            launches = flat_launches["col_walk_flat"]
+        else:
+            launches = (flat_launches if name == "flat_fwd" else
+                        op_launches if name in ("nw_fwd", "nw_traceback",
+                                                "monotone_count")
+                        else main_launches)[name]
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name if k != "flat" else f"{name} (flat layout)",
+            "route": "cuda",
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
-            "replaces": REPLACES[name],
-            "launches": (flat_launches if name == "flat_fwd"
-                         else main_launches)[name],
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             **({"chain_floor_ms": r["chain_floor_ms"]}
                if "chain_floor_ms" in r else {})})
     print(json.dumps({"kernels": rows}))

@@ -3,7 +3,7 @@
 // Replaces the JAX package's column walk, an XLA scan
 // (racon_tpu/ops/colwalk.py::col_walk, not a Pallas kernel), and is held
 // bitwise against its plain PyTorch version
-// racon_tpu_torch/ops/colwalk.py::col_walk (layout "band").
+// racon_tpu_torch/ops/colwalk.py::col_walk, on both of its layouts.
 //
 // Design: one thread per lane runs the reversed loop over the anchor
 // positions p = 4*ceil((LA+2)/4) - 1 .. 0, grouped exactly as the plain
@@ -13,6 +13,9 @@
 // vector store into out[b, p, 0:4], plus the lane's sat flag. Band slots
 // map to target columns through the lane's klo, or through the origin of
 // tile r / tile_len (tile_klo[n_tiles, B]) on the tiled overlap route.
+// The "flat" layout (template flag FLAT: the full-width forward's
+// [Lq, B, Lt] planes, W = Lt) maps column jc straight to slot jc - 1; the
+// full-width forward makes no nxt planes, so it walks at k = 1 only.
 // Flat indices are 64-bit: a stitched plane reaches 1.93e9 cells.
 //
 // Bound: the walk reads one cell (and its nxt/nxt2 bytes) per dependent
@@ -35,12 +38,12 @@ constexpr int kUnroll = 4;
 constexpr int kThreads = 32;
 
 struct WalkArgs {
-  const uint8_t* cells;     // [Lq, B, W]
+  const uint8_t* cells;     // [Lq, B, W] (flat layout: W = Lt)
   const uint8_t* nxt;       // [Lq, B, W] (k >= 2)
   const uint16_t* nxt2;     // [Lq, B, W] (k == 4)
   const int32_t* lq;        // [B]
   const int32_t* lt;        // [B]
-  const int32_t* klo;       // [B] (when tile_klo is null)
+  const int32_t* klo;       // [B] (band layout, when tile_klo is null)
   const int32_t* t_off;     // [B]
   const int32_t* tile_klo;  // [n_tiles, B] or null
   uint8_t* sat;             // [B]
@@ -63,7 +66,7 @@ struct Vec4<int32_t> {
   }
 };
 
-template <typename E>
+template <bool FLAT, typename E>
 struct Lane {
   const int32_t* tile_klo;
   int B, Lq, W, n_tiles, tile_len;
@@ -77,18 +80,23 @@ struct Lane {
     i = a.lq[b];
     tof = a.t_off[b];
     ltb = a.lt[b];
-    kl = a.tile_klo == nullptr ? a.klo[b] : 0;
+    kl = (FLAT || a.tile_klo != nullptr) ? 0 : a.klo[b];
     npos = a.LA + 2;
     sat = false;
     out = o + (size_t)b * npos * 4;
   }
 
-  // Flat index of cell (i, clip(p - t_off, 0, lt)). Row r is clamped to
-  // the plane as well, which the plain version's gather would reject.
+  // Flat index of cell (i, clip(p - t_off, 0, lt)). Row r (and the flat
+  // layout's slot) is clamped to the plane as well, which the plain
+  // version's gather would reject.
   __device__ size_t index(int p) const {
     const int j = p - tof;
     const int jc = min(max(j, 0), ltb);
     const int r = min(max(i - 1, 0), Lq - 1);
+    if constexpr (FLAT) {
+      const int col = min(max(jc - 1, 0), W - 1);
+      return ((size_t)r * B + b) * W + col;
+    }
     int k = kl;
     if (tile_klo != nullptr) {
       const int tl = min(r / tile_len, n_tiles - 1);
@@ -119,12 +127,13 @@ struct Lane {
   }
 };
 
-template <int K, typename E>
+template <int K, bool FLAT, typename E>
 __global__ void col_walk_kernel(const __grid_constant__ WalkArgs a,
                                 E* __restrict__ out) {
+  static_assert(!FLAT || K == 1, "the flat layout walks at k = 1");
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= a.B) return;
-  Lane<E> L(a, out, b);
+  Lane<FLAT, E> L(a, out, b);
   const int groups = (a.LA + 1 + kUnroll) / kUnroll;
   for (int t = groups - 1; t >= 0; --t) {
     const int p0 = kUnroll * t;
@@ -170,40 +179,47 @@ __global__ void col_walk_kernel(const __grid_constant__ WalkArgs a,
   a.sat[b] = L.sat ? 1 : 0;
 }
 
-template <int K, typename E>
+template <int K, bool FLAT, typename E>
 cudaError_t launch(const WalkArgs& a, void* out, cudaStream_t stream) {
   const int blocks = (a.B + kThreads - 1) / kThreads;
-  col_walk_kernel<K, E><<<blocks, kThreads, 0, stream>>>(
+  col_walk_kernel<K, FLAT, E><<<blocks, kThreads, 0, stream>>>(
       a, static_cast<E*>(out));
   return cudaGetLastError();
 }
 
 template <typename E>
-cudaError_t launch_k(const WalkArgs& a, int k, void* out,
+cudaError_t launch_k(const WalkArgs& a, int k, bool flat, void* out,
                      cudaStream_t stream) {
-  return k == 4 ? launch<4, E>(a, out, stream)
-                : (k == 2 ? launch<2, E>(a, out, stream)
-                          : launch<1, E>(a, out, stream));
+  if (flat) return launch<1, true, E>(a, out, stream);
+  return k == 4 ? launch<4, false, E>(a, out, stream)
+                : (k == 2 ? launch<2, false, E>(a, out, stream)
+                          : launch<1, false, E>(a, out, stream));
 }
 
 }  // namespace
 
 // out: [B, LA+2, 4] of int16 (emit_bytes 2) or int32 (emit_bytes 4);
-// sat: [B] bytes. tile_klo may be null (then klo is read), klo may be null
-// when tile_klo is given. nxt_k is 1, 2 or 4.
+// sat: [B] bytes. Band layout (flat 0): tile_klo may be null (then klo is
+// read), klo may be null when tile_klo is given; nxt_k is 1, 2 or 4. Flat
+// layout (flat 1, W = Lt): klo, tile_klo, nxt and nxt2 are null and
+// nxt_k is 1.
 extern "C" int racon_col_walk(const void* cells, const void* nxt,
                               const void* nxt2, const void* lq,
                               const void* lt, const void* klo,
                               const void* t_off, const void* tile_klo,
                               void* out, void* sat, int B, int Lq, int W,
                               int LA, int n_tiles, int tile_len, int nxt_k,
-                              int emit_bytes, void* stream) {
+                              int emit_bytes, int flat, void* stream) {
   if (B <= 0 || Lq <= 0 || W <= 0 || LA < 0 ||
       (nxt_k != 1 && nxt_k != 2 && nxt_k != 4) ||
-      (emit_bytes != 2 && emit_bytes != 4) ||
-      (tile_klo != nullptr && (n_tiles <= 0 || tile_len <= 0)) ||
-      (tile_klo == nullptr && klo == nullptr) ||
-      (nxt_k >= 2 && nxt == nullptr) || (nxt_k == 4 && nxt2 == nullptr))
+      (emit_bytes != 2 && emit_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  if (flat ? (nxt_k != 1 || nxt != nullptr || nxt2 != nullptr ||
+              tile_klo != nullptr)
+           : ((tile_klo != nullptr && (n_tiles <= 0 || tile_len <= 0)) ||
+              (tile_klo == nullptr && klo == nullptr) ||
+              (nxt_k >= 2 && nxt == nullptr) ||
+              (nxt_k == 4 && nxt2 == nullptr)))
     return (int)cudaErrorInvalidValue;
   WalkArgs a;
   a.cells = static_cast<const uint8_t*>(cells);
@@ -223,7 +239,7 @@ extern "C" int racon_col_walk(const void* cells, const void* nxt,
   a.tile_len = tile_len;
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = emit_bytes == 2
-                            ? launch_k<int16_t>(a, nxt_k, out, st)
-                            : launch_k<int32_t>(a, nxt_k, out, st);
+                            ? launch_k<int16_t>(a, nxt_k, flat != 0, out, st)
+                            : launch_k<int32_t>(a, nxt_k, flat != 0, out, st);
   return (int)e;
 }

@@ -12,7 +12,9 @@ With the ``nxt`` plane one read undoes two positions, with ``nxt2`` as
 well four (``chain_len``). The walk is a chain of dependent gathers —
 an XLA scan in the reference, one Python loop over all lanes here. This
 loop is the plain version of the CUDA walk csrc/col_walk.cu (wrapper
-ops/kernels.py::col_walk_kernel), which the overlap aligner runs.
+ops/kernels.py::col_walk_kernel, both layouts), which the overlap
+aligner and the consensus engine run on the card; the loop runs only
+for CPU tensors and in the tests.
 
 ``up_run`` saturates at U_SAT; a saturated read (or a leading insertion
 longer than K_INS) raises the lane's ``sat`` flag and its window takes

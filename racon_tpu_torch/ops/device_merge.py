@@ -2,7 +2,9 @@
 ``ops/device_merge.py`` (the functions the fixed-round chunk runs).
 
 Per round: ``extract_votes_cols`` turns each lane's column-walk output
-into dense anchor-aligned vote channels, ``aggregate_votes`` sums them
+into dense anchor-aligned vote channels (``extract_votes`` does the same
+from right-aligned op strings, the batched aligner's output, through the
+monotone count K5, csrc/count.cu), ``aggregate_votes`` sums them
 per window, ``add_backbone`` folds the anchor's own votes in,
 ``assemble`` votes out the consensus into a per-gap prefix layout,
 ``compact`` gathers it into dense per-window strings and ``coord_maps``
@@ -22,7 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from racon_tpu_torch.ops.cigar import DIAG
+from racon_tpu_torch.ops.cigar import DIAG, UP, LEFT
+from racon_tpu_torch.ops.flat import PAD_OP
 from racon_tpu_torch.ops.flat import U_SAT as _U_SAT
 
 # Tie-break epsilon shared with the host merge (ops/poa.py).
@@ -46,6 +49,165 @@ def _onehot(idx, depth):
 def _take1(a, idx):
     """take_along_axis on axis 1 with clipping."""
     return torch.gather(a, 1, torch.clamp(idx, 0, a.shape[1] - 1))
+
+
+def monotone_count_plain(X: torch.Tensor, P: int) -> torch.Tensor:
+    """``F[b, p] = #{s : X[b, s] < p}``, int32 [B, P]: the broadcast
+    compare-reduce of the reference's ``monotone_count_xla``, the plain
+    version of K5 (csrc/count.cu)."""
+    pa = torch.arange(P, dtype=X.dtype, device=X.device)
+    return (X[:, :, None] < pa[None, None, :]).sum(dim=1, dtype=torch.int32)
+
+
+def block_keys(ops: torch.Tensor, t_off: torch.Tensor) -> torch.Tensor:
+    """The monotone block key of right-aligned ops u8 [B, S], shifted by
+    t_off: int32 [B, S], the count of target columns consumed before each
+    op plus t_off, and t_off - 1 for the PAD_OP prefix (it sorts below
+    every real op). The count of keys below p is then the first op of the
+    block that consumes anchor column p (K5's input in extract_votes)."""
+    valid = ops != PAD_OP
+    tcons = (valid & (ops != UP)).to(torch.int32)
+    ct_excl = torch.cumsum(tcons, dim=1, dtype=torch.int32) - tcons
+    X = torch.where(valid, ct_excl, -1)
+    return (X + t_off.to(torch.int32)[:, None]).contiguous()
+
+
+def extract_votes(ops, q, qw, w_read, lt, t_off, LA: int):
+    """Per-job anchor-aligned dense vote channels from right-aligned ops.
+
+    Args:
+      ops: uint8[B, S] right-aligned (PAD_OP prefix), start->end order
+        (ops/align.py::nw_align_batch's output).
+      q: uint8[B, Lq] query codes; qw: f32[B, Lq] per-base weights;
+      w_read: f32[B] read-mean weight; lt, t_off: int32[B] target (slice)
+        lengths and slice offsets in the window anchor.
+      LA: anchor padding length.
+
+    Returns the channel dict of :func:`extract_votes_cols` (every channel
+    float32), which ``aggregate_votes`` takes unchanged.
+
+    In a global alignment the ops with the same count of target columns
+    consumed so far form one block ``[insertion run at gap v][the op
+    consuming column v]``, so for every anchor position p the first op of
+    block v = p - t_off is a count over the lane's monotone block key:
+    the monotone count K5 on a CUDA tensor, its plain version on a CPU
+    tensor. Four stacked gathers then read, per column, the consuming op
+    and its query base/weight, and per gap the insertion run.
+    """
+    # kernels imports this module's plain versions.
+    from racon_tpu_torch.ops import kernels
+    B, S = ops.shape
+    Lq = q.shape[1]
+    dev = ops.device
+    i32, i64, f32 = torch.int32, torch.int64, torch.float32
+    lt = lt.to(i32)
+    w_read = w_read.to(f32)
+    qw = qw.to(f32)
+    valid = ops != PAD_OP
+    qcons = valid & (ops != LEFT)
+    cq_excl = torch.cumsum(qcons, dim=1, dtype=i32) - qcons.to(i32)
+    F = kernels.monotone_count(block_keys(ops, t_off), LA + 2).to(i64)
+    Fa = F[:, :-1]                                    # F(c) at p
+    F1 = F[:, 1:]                                     # F(c+1) at p
+
+    ltc = lt.to(i64)[:, None]
+    pa = torch.arange(LA + 2, dtype=i64, device=dev)[None, :]
+    c = (pa - t_off.to(i64)[:, None])[:, :-1]         # slice-rel position
+    in_cols = (c >= 0) & (c < ltc)
+    in_gaps = (c >= 0) & (c <= ltc)
+
+    # Insertion run before column c: block minus its t-step (none at lt).
+    ins_len = torch.where(in_gaps, F1 - Fa - (c < ltc).to(i64), 0)
+
+    # Stacked gather #1 (op axis) at s = F[p]: the first-insertion q index
+    # (at p), the column consumer's q index and op code (at p+1). S+1 rows:
+    # F reaches S when an alignment's last op consumes its last column.
+    ops64 = ops.to(i64)
+    cq64 = cq_excl.to(i64)
+    stack_s = torch.stack(
+        [torch.cat([cq64, cq64[:, -1:]], dim=1),
+         torch.cat([cq64[:, :1], cq64], dim=1),
+         torch.cat([ops64[:, :1], ops64], dim=1)], dim=-1)   # [B, S+1, 3]
+    G = torch.gather(stack_s, 1,
+                     torch.clamp(F, 0, S)[:, :, None].expand(-1, -1, 3))
+    qstart = G[:, :-1, 0]
+    qi = G[:, 1:, 1]
+    op_at = G[:, 1:, 2]
+    is_match = in_cols & (op_at == DIAG)
+
+    # Stacked gather #2 (query axis) at qi: base code and weight.
+    qx = q.to(i64)
+    stack_qi = torch.stack([qx.to(f32), qw], dim=-1)
+    Gqi = torch.gather(stack_qi, 1, torch.clamp(qi, 0, Lq - 1)[:, :, None]
+                       .expand(-1, -1, 2))
+    colbase = Gqi[..., 0].to(i64)
+    colw = Gqi[..., 1]
+    wq = torch.where(is_match, colw, w_read[:, None])
+
+    cols = in_cols[:, :LA]
+    base_idx = torch.where(is_match[:, :LA], colbase[:, :LA], NBASE)
+    col_w = torch.where(cols, torch.where(is_match[:, :LA], colw[:, :LA],
+                                          w_read[:, None]), 0.0)
+    col_oh = _onehot(base_idx, NBASE + 1)
+    col_w_ch = col_oh * col_w[..., None]                       # [B, LA, 6]
+    col_c_ch = col_oh[..., :NBASE] * (is_match[:, :LA] &
+                                      cols)[..., None].to(f32)  # [B, LA, 5]
+
+    crossed = (c >= 1) & (c <= ltc - 1) & (ins_len == 0)
+    wq_prev = torch.cat([w_read[:, None], wq[:, :LA]], dim=1)
+    cross_w = torch.where(crossed, 0.5 * (wq_prev + wq), 0.0)  # [B, LA+1]
+
+    # Stacked gather #3 (query axis) at qstart: the K_INS shifted base and
+    # weight channels plus the weight prefix sum at the run start.
+    qwcum = torch.cat([torch.zeros((B, 1), dtype=f32, device=dev),
+                       torch.cumsum(qw, dim=1)], dim=1)
+    qx_pad = torch.cat([qx, qx[:, -1:].expand(B, K_INS - 1)], dim=1)
+    qw_pad = torch.cat([qw, qw[:, -1:].expand(B, K_INS - 1)], dim=1)
+    chans = ([qx_pad[:, k:k + Lq].to(f32) for k in range(K_INS)] +
+             [qw_pad[:, k:k + Lq] for k in range(K_INS)] + [qwcum[:, :Lq]])
+    stack_qs = torch.stack(chans, dim=-1)             # [B, Lq, 2K+1]
+    Gqs = torch.gather(stack_qs, 1, torch.clamp(qstart, 0, Lq - 1)[:, :, None]
+                       .expand(-1, -1, 2 * K_INS + 1))
+    b_k = Gqs[..., :K_INS].to(i64)
+    w_k = Gqs[..., K_INS:2 * K_INS]
+    cum_start = Gqs[..., 2 * K_INS]
+
+    has1 = in_gaps & (ins_len == 1)
+    multi = in_gaps & (ins_len >= 2)
+    w1 = w_k[..., 0]
+    ins1_oh = _onehot(torch.where(has1, b_k[..., 0], NBASE),
+                      NBASE + 1)[..., :NBASE]
+    ins1_w_ch = ins1_oh * torch.where(has1, w1, 0.0)[..., None]
+    ins1_c_ch = ins1_oh * has1[..., None].to(f32)
+    ins1_stop = torch.where(has1, w1, 0.0)
+
+    pk_w, pk_c = [], []
+    for k in range(K_INS):
+        inrun = multi & (ins_len > k)
+        oh = _onehot(torch.where(inrun, b_k[..., k], NBASE),
+                     NBASE + 1)[..., :NBASE]
+        pk_w.append(oh * torch.where(inrun, w_k[..., k], 0.0)[..., None])
+        pk_c.append(oh * inrun[..., None].to(f32))
+    pile_w_ch = torch.stack(pk_w, dim=2)              # [B, LA+1, K, 5]
+    pile_c_ch = torch.stack(pk_c, dim=2)
+
+    # Run mean weight -> stop-weight by run length (lengths 2..K_INS);
+    # stacked gather #4: the weight prefix sum at the run end.
+    run_sum = _take1(qwcum, qstart + ins_len) - cum_start
+    wmean = torch.where(multi, run_sum / torch.clamp(ins_len, min=1), 0.0)
+    lw_oh = (torch.clamp(ins_len, 0, K_INS)[..., None] ==
+             torch.arange(2, K_INS + 1, device=dev)[None, None, :])
+    lenw_ch = lw_oh.to(f32) * (wmean * multi)[..., None]  # [B, LA+1, K-1]
+
+    return {
+        "col_w": col_w_ch, "col_c": col_c_ch,
+        "cross_w": cross_w[..., None],
+        "ins1_w": ins1_w_ch, "ins1_c": ins1_c_ch,
+        "ins1_stop": ins1_stop[..., None],
+        "pile_w": pile_w_ch.reshape(B, LA + 1, -1),
+        "pile_c": pile_c_ch.reshape(B, LA + 1, -1),
+        "lenw": lenw_ch,
+    }
 
 
 def extract_votes_cols(cols, q, qw8, w_read, lt, t_off, LA: int):

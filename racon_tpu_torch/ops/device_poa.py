@@ -10,7 +10,7 @@ Per chunk:
     - the shifted target buffer (tband / tbuf) by gather from the anchors
     - banded NW forward (CUDA kernel csrc/band_fwd.cu), or the full-width
       forward (csrc/flat_fwd.cu) when the band is off
-    - column-walk traceback (ops/colwalk.py)
+    - column-walk traceback (CUDA kernel csrc/col_walk.cu, both layouts)
     - vote extraction + window aggregation + assembly + compaction
       (ops/device_merge.py) -> next round's anchors and spans
   d2h once:  compact consensus codes + coverage + lengths + flags
@@ -38,7 +38,6 @@ from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import band_geometry, band_targets
 from racon_tpu_torch.ops.budget import (max_dir_elems, round_up,
                                         walk_k_for)
-from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.utils import env
 
 # Per-plane element budget for the cell planes (ops/budget.py).
@@ -242,14 +241,18 @@ class ChunkPlan:
 
 class StageClock:
     """Per-stage device time of the chunk rounds (tband, forward, walk,
-    merge): CUDA events on a GPU, the host clock on the CPU. Enabled with
-    :func:`set_stage_clock`; read once at the end (one synchronize)."""
+    merge): CUDA events on a GPU, the host clock on the CPU; and the kernel
+    launches made inside each stage (the change of ``kernels.LAUNCHES``).
+    Enabled with :func:`set_stage_clock`; read once at the end (one
+    synchronize)."""
 
     def __init__(self):
         self._ev: Dict[str, list] = {}
+        self._launches: Dict[str, Dict[str, int]] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, device: torch.device):
+        before = dict(kernels.LAUNCHES)
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -262,6 +265,14 @@ class StageClock:
             yield
             self._ev.setdefault(name, []).append(
                 (time.perf_counter() - t0) * 1e3)
+        got = self._launches.setdefault(name, {})
+        for k, n in kernels.LAUNCHES.items():
+            if n != before.get(k, 0):
+                got[k] = got.get(k, 0) + n - before.get(k, 0)
+
+    def launches(self) -> Dict[str, Dict[str, int]]:
+        """Kernel launches made inside each stage: {stage: {kernel: n}}."""
+        return {k: dict(v) for k, v in self._launches.items()}
 
     def ms(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
@@ -354,11 +365,11 @@ def _lane_walk(cells, nxt, nxt2, lt, t_off, klo, esc0, q, qw8, lq, w_read,
     (votes for dm.aggregate_votes, esc_w f32[B])."""
     with _stage("walk", q.device):
         if band_w:
-            cols = col_walk(cells, lq, lt, klo, t_off, LA=LA, layout="band",
-                            nxt=nxt, nxt2=nxt2)
+            cols = kernels.col_walk_kernel(cells, lq, lt, klo, t_off, LA=LA,
+                                           layout="band", nxt=nxt, nxt2=nxt2)
         else:
-            cols = col_walk(cells, lq, lt, None, t_off, LA=LA,
-                            layout="flat")
+            cols = kernels.col_walk_kernel(cells, lq, lt, None, t_off, LA=LA,
+                                           layout="flat")
     with _stage("merge", q.device):
         votes = dm.extract_votes_cols(cols, q, qw8, w_read, lt, t_off, LA)
     sat_w = cols["sat"].to(torch.float32)

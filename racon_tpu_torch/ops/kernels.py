@@ -11,8 +11,16 @@ its column-walk scan:
   ``_kernel``; plain version ops/flat.py::fw_dirs_flat_plain;
 - ``col_walk`` (csrc/col_walk.cu) — the XLA scan racon_tpu/ops/colwalk.py
   ``col_walk``; plain version ops/colwalk.py::col_walk. The overlap
-  aligner (ops/ovl_align.py) runs it; the consensus engine keeps the
-  plain walk for now.
+  aligner (ops/ovl_align.py) and the consensus engine (ops/device_poa.py,
+  band and flat layouts) run it;
+- ``nw_fwd`` (csrc/nw_fwd.cu) — racon_tpu/ops/pallas/nw_kernel.py
+  ``_kernel``; plain version ops/align.py::nw_dirs_plain;
+- ``nw_traceback`` (csrc/nw_traceback.cu) — the XLA scan
+  racon_tpu/ops/align.py ``_traceback_flat``; plain version
+  ops/align.py::traceback_plain;
+- ``monotone_count`` (csrc/count.cu) — racon_tpu/ops/pallas/
+  count_kernel.py ``_kernel``; plain version
+  ops/device_merge.py::monotone_count_plain.
 
 ``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
 device-memory loads, the floor of the column walk, for chip_smoke.py.
@@ -40,19 +48,23 @@ import torch
 
 from racon_tpu_torch.native.build import (build_dir, content_tag,
                                           run_build)
+from racon_tpu_torch.ops.align import PAD_OP, nw_dirs_plain, traceback_plain
 from racon_tpu_torch.ops.band import (fw_dirs_band_plain,
                                       fw_dirs_band_tile_plain)
 from racon_tpu_torch.ops.colwalk import col_walk
+from racon_tpu_torch.ops.device_merge import monotone_count_plain
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu", "probe.cu")
+SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu", "nw_fwd.cu",
+           "nw_traceback.cu", "count.cu", "probe.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"band_fwd": 0, "band_tile_fwd": 0, "flat_fwd": 0,
-            "col_walk": 0}
+            "col_walk": 0, "nw_fwd": 0, "nw_traceback": 0,
+            "monotone_count": 0}
 # Shared memory a block may use on an H100 (opt-in maximum).
 SMEM_MAX = 232448
 
@@ -114,7 +126,13 @@ def _lib():
             lib.racon_flat_fwd.restype = ci
             lib.racon_flat_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
             lib.racon_col_walk.restype = ci
-            lib.racon_col_walk.argtypes = [vp] * 10 + [ci] * 8 + [vp]
+            lib.racon_col_walk.argtypes = [vp] * 10 + [ci] * 9 + [vp]
+            lib.racon_nw_fwd.restype = ci
+            lib.racon_nw_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+            lib.racon_nw_traceback.restype = ci
+            lib.racon_nw_traceback.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+            lib.racon_monotone_count.restype = ci
+            lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 3 + [vp]
             lib.racon_chase.restype = ci
             lib.racon_chase.argtypes = [vp] + [ci] * 4 + [vp, vp]
             _LIB = lib
@@ -256,8 +274,9 @@ def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,
 def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
                     nxt=None, nxt2=None, tile_klo=None, tile_len: int = 0,
                     emit=torch.int16):
-    """Column walk (ops/colwalk.py::col_walk's contract); the CUDA walk
-    takes the "band" layout only."""
+    """Column walk (ops/colwalk.py::col_walk's contract), on the "band"
+    and "flat" layouts; the flat layout (the full-width forward's planes)
+    has no nxt planes and no tiles, so it walks at k = 1."""
     if cells.device.type == "cpu":
         return col_walk(cells, lq, lt, klo, t_off, LA=LA, layout=layout,
                         nxt=nxt, nxt2=nxt2, tile_klo=tile_klo,
@@ -265,9 +284,14 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
     if cells.device.type != "cuda":
         raise KernelError("[racon_tpu_torch::kernels] col_walk needs a CPU "
                           "or CUDA tensor")
-    if layout != "band":
+    if layout not in ("band", "flat"):
         raise KernelError(f"[racon_tpu_torch::kernels] col_walk kernel takes "
-                          f"the band layout, got {layout!r}")
+                          f"the band or flat layout, got {layout!r}")
+    flat = layout == "flat"
+    if flat and (nxt is not None or nxt2 is not None or
+                 tile_klo is not None):
+        raise KernelError("[racon_tpu_torch::kernels] the flat layout walks "
+                          "at k = 1: no nxt, nxt2 or tile_klo")
     if emit not in (torch.int16, torch.int32):
         raise KernelError(f"[racon_tpu_torch::kernels] col_walk emits int16 "
                           f"or int32, got {emit}")
@@ -282,7 +306,9 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         _check(nxt2, "nxt2", torch.uint16, (Lq, B, W), dev)
     for name, t in (("lq", lq), ("lt", lt), ("t_off", t_off)):
         _check(t, name, torch.int32, (B,), dev)
-    if tile_klo is not None:
+    if flat:
+        n_tiles, klo_p = 0, None
+    elif tile_klo is not None:
         if tile_len <= 0:
             raise KernelError("[racon_tpu_torch::kernels] tile_klo needs "
                               "tile_len")
@@ -301,7 +327,7 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         lt.data_ptr(), klo_p, t_off.data_ptr(),
         None if tile_klo is None else tile_klo.data_ptr(), out.data_ptr(),
         sat.data_ptr(), B, Lq, W, LA, n_tiles, int(tile_len), k,
-        out.element_size(), _stream(dev))
+        out.element_size(), int(flat), _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] col_walk launch "
                           f"failed (cudaError {rc})")
@@ -338,6 +364,94 @@ def fw_dirs_flat(tbuf: torch.Tensor, qT: torch.Tensor, *, match: int,
     LAUNCHES["flat_fwd"] += 1
     return cells
 
+
+def nw_smem(Lq: int, Lt: int) -> int:
+    """Shared memory of one nw_fwd block: the score row and the 32 warp
+    totals (int32), the lane's target and query codes."""
+    return 4 * (Lt + 32) + Lt + Lq
+
+
+def nw_dirs(q: torch.Tensor, t: torch.Tensor, *, match: int, mismatch: int,
+            gap: int) -> torch.Tensor:
+    """NW direction codes u8 [Lq, B, Lt] of q u8 [B, Lq] against t u8
+    [B, Lt] (ops/align.py::nw_dirs_plain's contract)."""
+    if q.device.type == "cpu":
+        return nw_dirs_plain(q, t, match=match, mismatch=mismatch, gap=gap)
+    if q.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] nw_fwd needs a CPU or "
+                          "CUDA tensor")
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    dev = q.device
+    _check(q, "q", torch.uint8, (B, Lq), dev)
+    _check(t, "t", torch.uint8, (B, Lt), dev)
+    if nw_smem(Lq, Lt) > SMEM_MAX:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd at Lq={Lq}, "
+                          f"Lt={Lt} needs {nw_smem(Lq, Lt)} bytes of shared "
+                          f"memory, past the block's {SMEM_MAX}")
+    dirs = torch.empty((Lq, B, Lt), dtype=torch.uint8, device=dev)
+    rc = _lib().racon_nw_fwd(q.data_ptr(), t.data_ptr(), dirs.data_ptr(), B,
+                             Lq, Lt, match, mismatch, gap, _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd launch failed "
+                          f"(cudaError {rc})")
+    LAUNCHES["nw_fwd"] += 1
+    return dirs
+
+
+def nw_traceback(dirs: torch.Tensor, lq: torch.Tensor, lt: torch.Tensor,
+                 L: int):
+    """Op strings of every lane from its direction codes u8 [Lq, B, Lt]:
+    ``(ops u8[B, L], n i32[B])``, each path right-aligned behind PAD_OP in
+    start-to-end order (ops/align.py::nw_align_batch's contract)."""
+    if dirs.device.type == "cpu":
+        rev = traceback_plain(dirs, lq, lt, L)
+        n = (rev != PAD_OP).sum(dim=1, dtype=torch.int32)
+        return torch.flip(rev, dims=[1]), n
+    if dirs.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] nw_traceback needs a "
+                          "CPU or CUDA tensor")
+    Lq, B, Lt = dirs.shape
+    dev = dirs.device
+    _check(dirs, "dirs", torch.uint8, (Lq, B, Lt), dev)
+    _check(lq, "lq", torch.int32, (B,), dev)
+    _check(lt, "lt", torch.int32, (B,), dev)
+    ops = torch.empty((B, L), dtype=torch.uint8, device=dev)
+    n = torch.empty((B,), dtype=torch.int32, device=dev)
+    rc = _lib().racon_nw_traceback(dirs.data_ptr(), lq.data_ptr(),
+                                   lt.data_ptr(), ops.data_ptr(),
+                                   n.data_ptr(), B, Lq, Lt, int(L),
+                                   _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["nw_traceback"] += 1
+    return ops, n
+
+
+def monotone_count(X: torch.Tensor, P: int) -> torch.Tensor:
+    """``F[b, p] = #{s : X[b, s] < p}``, int32 [B, P], from X int32 [B, S]
+    (ops/device_merge.py::monotone_count_plain's contract)."""
+    if X.device.type == "cpu":
+        return monotone_count_plain(X, P)
+    if X.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] monotone_count needs a "
+                          "CPU or CUDA tensor")
+    B, S = X.shape
+    dev = X.device
+    _check(X, "X", torch.int32, (B, S), dev)
+    if 4 * (P + 32) > SMEM_MAX:
+        raise KernelError(f"[racon_tpu_torch::kernels] monotone_count at "
+                          f"P={P} needs {4 * (P + 32)} bytes of shared "
+                          f"memory, past the block's {SMEM_MAX}")
+    F = torch.empty((B, P), dtype=torch.int32, device=dev)
+    rc = _lib().racon_monotone_count(X.data_ptr(), F.data_ptr(), B, S, int(P),
+                                     _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] monotone_count launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["monotone_count"] += 1
+    return F
 
 
 def chain_of_loads(steps: int, stride: int, device, lanes: int = 1,

@@ -14,6 +14,10 @@ Routes:
 - the host path (numpy merge + native C++ aligner) for jumbo windows,
   windows the redo cannot certify, and anchor overflow.
 
+``PoaEngine._align`` (library entry, not on ``consensus_windows``'s
+routes) aligns a round's jobs with the batched aligner (ops/align.py) on
+``device``: K4 and T1 on a GPU, their plain versions on the CPU.
+
 A device error raises: there is no quiet fallback onto the host path.
 """
 
@@ -25,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from racon_tpu_torch.models.window import Window, window_arrays
+from racon_tpu_torch.ops.budget import round_up
 from racon_tpu_torch.ops.encode import decode_bases, ALPHABET
 from racon_tpu_torch.ops.cigar import DIAG, UP, LEFT
 from racon_tpu_torch.utils import env
@@ -90,7 +95,8 @@ class PoaEngine:
         self.ins_scale_final = ins_scale_final
         self.log = log if log is not None else sys.stderr
         self.threads = threads
-        # Optional dict: chunk counts, rounds executed, redo routing.
+        # Optional dict: chunk counts, rounds executed, redo routing, and
+        # the (B, Lq, Lt) of every batch _align_device runs.
         self.stats: Optional[dict] = None
         self._native = None
 
@@ -284,7 +290,9 @@ class PoaEngine:
             for wi in range(len(active)):
                 jobs.extend(self._build_jobs(wi, anchors[wi][0],
                                              layers[wi], spans[wi]))
-            self._align(jobs)
+            # The host path aligns on the native aligner, as the
+            # reference's force_native host path does.
+            self._align_native(jobs)
             results = self._merge_round(anchors, jobs, scales[r])
             # Next round anchors: the fresh consensus with neutral weights
             # (reads re-vote from scratch); spans mapped through the merge.
@@ -329,6 +337,55 @@ class PoaEngine:
     # ------------------------------------------------------------- alignment
 
     def _align(self, jobs: List[_Job]) -> None:
+        """Set every job's ops with the batched aligner on ``device``."""
+        if jobs:
+            self._align_device(jobs)
+
+    @staticmethod
+    def _pack_jobs(jobs: List[_Job], B: int):
+        """Pad a job list into dense (q, t, lq, lt) batch arrays; rows past
+        the jobs are length-1 dummies."""
+        Lq = round_up(max(len(j.q) for j in jobs), 128)
+        Lt = round_up(max(j.t_len for j in jobs), 128)
+        q = np.zeros((B, Lq), np.uint8)
+        t = np.zeros((B, Lt), np.uint8)
+        lq = np.ones(B, np.int32)
+        lt = np.ones(B, np.int32)
+        for b, j in enumerate(jobs):
+            lq[b] = len(j.q)
+            lt[b] = j.t_len
+            q[b, :lq[b]] = j.q
+            t[b, :lt[b]] = j.t
+        return q, t, lq, lt
+
+    def _align_device(self, jobs: List[_Job]) -> None:
+        """The reference's ``_align_jax`` on ``device``: jobs bucketed by
+        (target, query) length so one long target does not pad a whole
+        batch, batches of at most ``device_batch`` jobs padded onto the
+        coarse B grid (512, then multiples of 1024), one
+        ``align.nw_align_auto`` call a batch."""
+        import torch
+        from racon_tpu_torch.ops.align import nw_align_auto
+        order = np.lexsort((np.asarray([len(j.q) for j in jobs]),
+                            np.asarray([j.t_len for j in jobs])))
+        bs = self.device_batch
+        for s in range(0, len(order), bs):
+            chunk = [jobs[i] for i in order[s:s + bs]]
+            B = 512 if len(chunk) <= 512 else round_up(len(chunk), 1024)
+            q, t, lq, lt = (torch.from_numpy(a).to(self.device)
+                            for a in self._pack_jobs(chunk, B))
+            ops, n = nw_align_auto(q, t, lq, lt, match=self.match,
+                                   mismatch=self.mismatch, gap=self.gap)
+            if self.stats is not None:
+                self.stats.setdefault("align_shapes", []).append(
+                    (B, q.shape[1], t.shape[1]))
+            ops = ops.cpu().numpy()
+            n = n.cpu().numpy()
+            W = ops.shape[1]
+            for b, j in enumerate(chunk):
+                j.ops = ops[b, W - int(n[b]):]
+
+    def _align_native(self, jobs: List[_Job]) -> None:
         if not jobs:
             return
         from racon_tpu_torch.native.aligner import NativeAligner

@@ -94,6 +94,23 @@ def test_full_width_path_matches_reference(monkeypatch):
     _same(R.run_chunk(pr, **KW), P.run_chunk(pp, device="cpu", **KW))
 
 
+def test_stage_clock_counts_launches_inside_each_stage(monkeypatch):
+    from racon_tpu_torch.ops import kernels
+    monkeypatch.setitem(kernels.LAUNCHES, "col_walk", 5)
+    clock = P.set_stage_clock(True)
+    try:
+        cpu = torch.device("cpu")
+        for _ in range(2):
+            with P._stage("walk", cpu):
+                kernels.LAUNCHES["col_walk"] += 1  # as the wrapper counts
+            with P._stage("merge", cpu):
+                pass
+    finally:
+        P.set_stage_clock(False)
+    assert clock.launches() == {"walk": {"col_walk": 2}, "merge": {}}
+    assert set(clock.ms()) == {"walk", "merge"}
+
+
 def test_load_packed_rejects_wrong_dims():
     _, pp = _plans(2, 5)
     job, winb = pp.packed_bufs()

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, bitwise:
 the banded forward (untiled and tiled), the full-width forward, the
-column walk and the walk's latency probe.
+column walk (band and flat layouts) and the walk's latency probe, the
+batched NW forward (K4) and its traceback (T1), the monotone count (K5)
+and the batched aligner end to end.
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -12,11 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from racon_tpu_torch.ops import kernels, ovl_align
+from racon_tpu_torch.ops import align, kernels, ovl_align
 from racon_tpu_torch.ops.band import (band_geometry, fw_dirs_band_plain,
                                       fw_dirs_band_tile_plain, row0_scores,
                                       uc_boundary)
 from racon_tpu_torch.ops.colwalk import col_walk
+from racon_tpu_torch.ops.device_merge import monotone_count_plain
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
 pytestmark = pytest.mark.cuda
@@ -154,6 +157,96 @@ def test_col_walk_kernel_matches_plain(cuda, k, tiled):
         assert torch.equal(ref[name], out[name].cpu()), name
 
 
+@pytest.mark.parametrize("emit", [torch.int16, torch.int32])
+@pytest.mark.parametrize("scoring", [(5, -4, -8), (0, -1, -1)])
+def test_flat_col_walk_kernel_matches_plain(cuda, emit, scoring):
+    """The walk on the full-width forward's planes (layout "flat", k=1),
+    as the band-off consensus path and the full-width redo run it."""
+    m, x, g = scoring
+    rng = np.random.default_rng(13)
+    B, Lq, Lt = 48, 96, 128
+    lq = torch.from_numpy(rng.integers(1, Lq + 1, B).astype(np.int32))
+    lt = torch.from_numpy(rng.integers(1, Lt - 20, B).astype(np.int32))
+    tbuf = torch.from_numpy(rng.integers(0, 4, (B, Lt)).astype(np.uint8))
+    qT = torch.from_numpy(rng.integers(0, 4, (Lq, B)).astype(np.uint8))
+    cells = fw_dirs_flat_plain(tbuf, qT, match=m, mismatch=x, gap=g)
+    t_off = torch.from_numpy(rng.integers(0, 20, B).astype(np.int32))
+    LA = Lt + 20
+    ref = col_walk(cells, lq, lt, None, t_off, LA=LA, layout="flat",
+                   emit=emit)
+    n0 = kernels.LAUNCHES["col_walk"]
+    out = kernels.col_walk_kernel(cells.to(cuda), lq.to(cuda), lt.to(cuda),
+                                  None, t_off.to(cuda), LA=LA, layout="flat",
+                                  emit=emit)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["col_walk"] == n0 + 1
+    for name in ("ins_len", "qstart", "op_c", "qi_c", "sat"):
+        assert out[name].dtype == ref[name].dtype
+        assert torch.equal(ref[name], out[name].cpu()), name
+
+
+def _nw_case(seed, B, Lq, Lt):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.integers(0, 5, (B, Lq)).astype(np.uint8))
+    t = torch.from_numpy(rng.integers(0, 5, (B, Lt)).astype(np.uint8))
+    lq = torch.from_numpy(rng.integers(1, Lq + 1, B).astype(np.int32))
+    lt = torch.from_numpy(rng.integers(1, Lt + 1, B).astype(np.int32))
+    lq[0], lt[0] = Lq, Lt
+    return q, t, lq, lt
+
+
+@pytest.mark.parametrize("B", [3, 128, 1030])
+@pytest.mark.parametrize("Lt", [56, 640, 4224])
+def test_nw_kernels_match_plain(cuda, B, Lt):
+    """K4 (direction codes; Lt=4224 gives a thread two 4-column groups)
+    and T1 (op strings and counts) on its planes."""
+    Lq = 64
+    q, t, lq, lt = _nw_case(B + Lt, B, Lq, Lt)
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    ref = align.nw_dirs_plain(q, t, **sc)
+    n0 = dict(kernels.LAUNCHES)
+    dirs = kernels.nw_dirs(q.to(cuda), t.to(cuda), **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(ref, dirs.cpu())
+    r_ops, r_n = kernels.nw_traceback(ref, lq, lt, Lq + Lt)
+    ops, n = kernels.nw_traceback(dirs, lq.to(cuda), lt.to(cuda), Lq + Lt)
+    torch.cuda.synchronize()
+    assert torch.equal(r_ops, ops.cpu()) and torch.equal(r_n, n.cpu())
+    assert kernels.LAUNCHES["nw_fwd"] == n0["nw_fwd"] + 1
+    assert kernels.LAUNCHES["nw_traceback"] == n0["nw_traceback"] + 1
+
+
+@pytest.mark.parametrize("kind", ["monotone", "unsorted"])
+def test_monotone_count_kernel_matches_plain(cuda, kind):
+    """K5 on non-decreasing rows (the op-string route's keys, with their
+    negative pad prefix) and on unsorted rows with values on both sides
+    of [0, P)."""
+    rng = np.random.default_rng(17)
+    B, S, P = 130, 700, 300
+    if kind == "monotone":
+        X = np.cumsum(rng.integers(0, 2, (B, S)), axis=1) - \
+            rng.integers(1, 60, (B, 1))
+    else:
+        X = rng.integers(-50, P + 50, (B, S))
+    X = torch.from_numpy(X.astype(np.int32))
+    ref = monotone_count_plain(X, P)
+    n0 = kernels.LAUNCHES["monotone_count"]
+    out = kernels.monotone_count(X.to(cuda), P)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["monotone_count"] == n0 + 1
+    assert torch.equal(ref, out.cpu())
+
+
+@pytest.mark.parametrize("scoring", [(5, -4, -8), (0, -1, -1)])
+def test_nw_align_batch_cuda_matches_cpu(cuda, scoring):
+    m, x, g = scoring
+    q, t, lq, lt = _nw_case(23, 200, 128, 256)
+    ref = align.nw_align_batch(q, t, lq, lt, match=m, mismatch=x, gap=g)
+    out = align.nw_align_batch(q.to(cuda), t.to(cuda), lq.to(cuda),
+                               lt.to(cuda), match=m, mismatch=x, gap=g)
+    for r, o in zip(ref, out):
+        assert torch.equal(r, o.cpu())
+
 
 def test_chase_kernel_matches_plain(cuda):
     """The latency probe (csrc/probe.cu) reaches the indices its plain
@@ -239,7 +332,15 @@ def test_wrappers_reject_bad_inputs(cuda):
                              gap=-8)
     cells = torch.zeros((16, 8, 128), dtype=torch.uint8, device=cuda)
     with pytest.raises(kernels.KernelError):
-        kernels.col_walk_kernel(cells, lq, lq, klo, lq, LA=32, layout="flat")
+        kernels.col_walk_kernel(cells, lq, lq, None, lq, LA=32,
+                                layout="flat", nxt=cells)
+    with pytest.raises(kernels.KernelError):
+        kernels.nw_dirs(tb[:, :100000].contiguous(),
+                        torch.zeros((8, 50000), dtype=torch.uint8,
+                                    device=cuda), match=5, mismatch=-4,
+                        gap=-8)
+    with pytest.raises(kernels.KernelError):
+        kernels.monotone_count(lq[None, :].to(torch.int64), 10)
     front = (torch.zeros((8, 128), dtype=torch.int32, device=cuda),) * 3
     for k, i0 in ((1, 0), (2, 12)):    # depth 1; rows past the plane
         with pytest.raises(kernels.KernelError):
