@@ -7,13 +7,18 @@ any failure exits non-zero and prints no result):
 
 1. build      the CUDA kernels (csrc/*.cu, one nvcc per source, started
               together) and the host C++ aligner, from this checkout;
+              then each band kernel instantiation the paths launch, with
+              its registers, spills (local-memory bytes) and resident
+              blocks an SM on this card;
 2. kernels    each kernel against its plain PyTorch version on the card,
               bitwise, at the main path's shapes; kernel and plain times
               from CUDA events: band_fwd (K1) at the consensus shape and
               on an untiled overlap chunk (128 lanes, Lq=6144, W=1024,
-              k=4), band_tile_fwd (K3) at the overlap tile shape from a
-              previous tile's frontier, flat_fwd (K2), and col_walk (W1)
-              on a stitched overlap chunk (tiled, int32), on the untiled
+              k=4), band_tile_fwd (K3) on tile 1 of an overlap group of
+              G chunks of 64 lanes (G from the group planner, as the
+              main path launches it) from tile 0's frontier and on its
+              first 64 lanes, flat_fwd (K2), and col_walk (W1) on the
+              group's stitched planes (tiled, int32), on the untiled
               chunk (int16), at the consensus shape (k=4, int16) and on
               K2's full-width planes (flat layout, k=1). Each walk also
               prints its chain floor: its chain_len dependent loads timed
@@ -29,7 +34,9 @@ any failure exits non-zero and prints no result):
               1 Mbp synthetic draft (20 contigs x 50 kb), 10 kb reads at
               30x, PAF overlaps aligned on the card (tiled route), w=500.
               Launch counts reset just before and read just after;
-              band_fwd, band_tile_fwd and col_walk must have launched, the
+              band_fwd, band_tile_fwd and col_walk must have launched,
+              band_tile_fwd once a tile of each launch group, every
+              tiled bucket of more than one chunk in groups of G > 1, the
               consensus engine must have walked on the card (col_walk
               launches inside the stage clock's walk stage) and the
               overlap aligner must have handled jobs on the card. The
@@ -298,19 +305,45 @@ def walk_case(case, cells, lq, lt, klo, t_off, extra_bytes=0, **wk):
     return rec
 
 
-def phase_overlap_kernels(device, B=64, L=9900, W=1536, T=2048):
-    """K3 at the main-path tile (64 lanes, T=2048, W=1536, k=2) from a
-    previous tile's frontier, then W1 over the stitched 5-tile planes
-    (LA = 10240, tiled, int32); both bitwise against their plain
-    versions."""
+def band_occ(W, rows, k, tiled):
+    """Registers, spills and resident blocks an SM of the band kernel
+    instantiation for (W, rows, k) on this card."""
+    from racon_tpu_torch.ops import kernels
+    occ = kernels.band_occupancy(W, rows, k, tiled=tiled)
+    return {n: occ[n] for n in ("regs", "spills", "blocks_per_sm")}
+
+
+def phase_build_occupancy():
+    """Phase 1's record of every band kernel instantiation the paths
+    launch: K1 at the consensus shape and the untiled overlap chunk, K3
+    at each tiled tier (ops/budget.py TILE_TIERS) and walk depth."""
+    from racon_tpu_torch.ops.budget import TILE_TIERS
+    cases = [("band_fwd", 256, 640, 4), ("band_fwd", 256, 640, 2),
+             ("band_fwd", 1024, 6144, 4)]
+    cases += sorted({("band_tile_fwd", W, T, k) for _, W, T, _ in TILE_TIERS
+                     for k in (2, 4)})
+    return [dict(kernel=n, W=W, rows=rows, nxt_k=k,
+                 **band_occ(W, rows, k, n == "band_tile_fwd"))
+            for n, W, rows, k in cases]
+
+
+def phase_overlap_kernels(device, lanes=64, L=9900, W=1536, T=2048):
+    """K3 on tile 1 of an overlap group (G chunks of 64 lanes, G from the
+    group planner as the main path launches it; T=2048, W=1536, k=2) from
+    tile 0's frontier, and on the group's first 64 lanes; then W1 over
+    the group's stitched 5-tile planes (LA = 10240, tiled, int32); all
+    bitwise against their plain versions. Returns the group's records."""
     import torch
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.band import (band_targets,
                                           fw_dirs_band_tile_plain,
                                           row0_scores, uc_boundary)
+    from racon_tpu_torch.ops.ovl_align import group_size
+    k = 2
+    G = group_size(lanes, W, T, k, device)
+    B = G * lanes
     c = overlap_chunk(device, B, L, W, T)
     Lq = c["Lq"]
-    k = 2
     sc = dict(match=0, mismatch=-1, gap=-1, W=W, nxt_k=k)
     qT = c["q"].t().contiguous()
     base = torch.arange(B, dtype=torch.int64, device=device) * Lq
@@ -320,37 +353,52 @@ def phase_overlap_kernels(device, B=64, L=9900, W=1536, T=2048):
     prev = row0_scores(c["klo"], W, -1)
     front = (prev, torch.full((B, W), uc_boundary(k), dtype=torch.int32,
                               device=device), prev.clone())
+    occ = band_occ(W, T, k, True)
 
-    def tile_args(ti):
-        tb = band_targets(c["t"].reshape(-1), base, c["klo"], c["lt"],
-                          W + T, origin=ti * T)
-        return (tb, qT[ti * T:(ti + 1) * T], c["klo"], c["lq"], ti * T)
+    def check(case, args, front, out_planes, n):
+        """One tile over the first n lanes: kernel vs plain, time, bound."""
+        out = kernels.fw_dirs_band_tile(*args, *front, out=out_planes, **sc)
+        ref, plain_ms = timed_once(lambda: fw_dirs_band_tile_plain(
+            *args, *front, **sc))
+        err = max_abs_err(ref, out)
+        del ref
+        ms = time_ms(lambda: kernels.fw_dirs_band_tile(
+            *args, *front, out=out_planes, **sc))
+        bms, by = band_bound(n, T, W, k, tiled=True)
+        rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, **occ)
+        emit("kernels", kernel="band_tile_fwd", case=case, nxt_k=k,
+             shape=[n, T, W], i0=args[4], G=G, **rec)
+        if err:
+            fail(f"band_tile_fwd ({case}) disagrees with its plain version "
+                 f"(max_abs_err={err})")
+        return out, rec
 
     recs = {}
     for ti in range(Lq // T):
-        args = tile_args(ti)
-        out = kernels.fw_dirs_band_tile(*args, *front, out=planes, **sc)
+        args = (band_targets(c["t"].reshape(-1), base, c["klo"], c["lt"],
+                             W + T, origin=ti * T),
+                qT[ti * T:(ti + 1) * T], c["klo"], c["lq"], ti * T)
         if ti == 1:
-            # Tile 1 starts from tile 0's frontier, as on the main path.
-            ref, plain_ms = timed_once(lambda: fw_dirs_band_tile_plain(
-                *args, *front, **sc))
-            err = max_abs_err(ref, out)
-            del ref
-            ms = time_ms(lambda: kernels.fw_dirs_band_tile(
-                *args, *front, out=planes, **sc))
-            bms, by = band_bound(B, T, W, k, tiled=True)
-            recs["band_tile_fwd"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by)
-            emit("kernels", kernel="band_tile_fwd", nxt_k=k, shape=[B, T, W],
-                 i0=ti * T, **recs["band_tile_fwd"])
-            if err:
-                fail(f"band_tile_fwd disagrees with its plain version "
-                     f"(max_abs_err={err})")
-        front = out[3:]
+            # Tile 1 starts from tile 0's frontier, as on the main path:
+            # first the group, then its first 64 lanes alone.
+            out, recs["band_tile_fwd"] = check(f"group of {G} chunks", args,
+                                               front, planes, B)
+            tb, q1, klo, lq, i0 = args
+            sub = (tb[:lanes], q1[:, :lanes].contiguous(), klo[:lanes],
+                   lq[:lanes], i0)
+            own = tuple(torch.empty((2 * T, lanes, W), dtype=torch.uint8,
+                                    device=device) for _ in range(2))
+            check(f"{lanes} lanes", sub, tuple(f[:lanes] for f in front),
+                  own + (None,), lanes)
+            del own
+        else:
+            out = kernels.fw_dirs_band_tile(*args, *front, out=planes, **sc)
+        hl, p, u = out[3:]
+        front = (p, u, hl)
     klos = c["klo"][None, :].repeat(Lq // T, 1).contiguous()
     recs["col_walk"] = walk_case(
-        "overlap tiled", planes[0], c["lq"], c["lt"], None,
+        f"overlap group of {G} chunks", planes[0], c["lq"], c["lt"], None,
         torch.zeros_like(c["lq"]), extra_bytes=4 * klos.numel(), LA=Lq,
         layout="band", nxt=planes[1], tile_klo=klos, tile_len=T,
         emit=torch.int32)
@@ -381,7 +429,7 @@ def phase_untiled_overlap_kernels(device, B=128, L=5400, W=1024):
     bms, by = band_bound(B, Lq, W, k)
     emit("kernels", kernel="band_fwd", case="overlap untiled", nxt_k=k,
          shape=[B, Lq, W], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-         bound_ms=bms, bound_by=by)
+         bound_ms=bms, bound_by=by, **band_occ(W, Lq, k, False))
     if err:
         fail(f"band_fwd (overlap untiled) disagrees with its plain version "
              f"(max_abs_err={err})")
@@ -424,7 +472,7 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
         bms, by = band_bound(B, Lq, W, k)
         recs[("band_fwd", k)] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=bms,
-                                     bound_by=by)
+                                     bound_by=by, **band_occ(W, Lq, k, False))
         emit("kernels", kernel="band_fwd", case="consensus", nxt_k=k,
              shape=[B, Lq, W], **recs[("band_fwd", k)])
         if err:
@@ -657,6 +705,7 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     rc, out, err, wall = run_cli(argv)
     launches = dict(kernels.LAUNCHES)
     ovl = dict(ovl_align.STATS)
+    groups = [dict(g) for g in ovl_align.TILED_GROUPS]
     stages = clock.ms()
     walks = clock.launches().get("walk", {}).get("col_walk", 0)
     device_poa.set_stage_clock(False)
@@ -679,7 +728,8 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
          consensus_s=cons_s, windows_per_s=n_windows / cons_s,
          windows_per_s_end_to_end=n_windows / wall,
          align_s=phases.get("aligned overlaps"), phase_s=phases,
-         ovl=ovl, stage_ms=stages, max_memory_allocated=peak,
+         ovl=ovl, tiled_groups=groups, stage_ms=stages,
+         max_memory_allocated=peak,
          launches=launches, consensus_walks=walks, redo_windows=flagged,
          host_windows=host,
          ed_draft=ed_draft, ed_polished=ed_pol)
@@ -690,6 +740,15 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
         fail("main run: the consensus engine never launched col_walk")
     if ovl["device_jobs"] <= 0:
         fail("main run: no overlap was aligned on the card")
+    # One K3 launch a tile of each group; a bucket of several chunks runs
+    # in groups of more than one.
+    tile_launches = sum(g["groups"] * (g["Lq"] // g["T"]) for g in groups)
+    if not launches["band_tile_fwd"] == ovl["tiles"] == tile_launches:
+        fail(f"main run: band_tile_fwd launched {launches['band_tile_fwd']} "
+             f"times, not groups x tiles = {tile_launches}")
+    for g in groups:
+        if g["chunks"] > 1 and (g["G"] <= 1 or g["groups"] >= g["chunks"]):
+            fail(f"main run: tiled bucket {g} was not grouped")
     if "aligned overlaps" not in phases:
         fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
@@ -880,7 +939,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     shared_library_path()
-    emit("build", seconds=time.perf_counter() - t0)
+    build_s = time.perf_counter() - t0
+    emit("build", seconds=build_s, band_kernels=phase_build_occupancy())
 
     recs = phase_kernels("cuda")
     recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
@@ -916,8 +976,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **({"chain_floor_ms": r["chain_floor_ms"]}
-               if "chain_floor_ms" in r else {})})
+            **{n: r[n] for n in ("chain_floor_ms", "regs", "spills",
+                                 "blocks_per_sm") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

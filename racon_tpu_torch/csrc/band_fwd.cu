@@ -1,6 +1,6 @@
 // Banded NW forward in per-lane diagonal coordinates (Hopper, sm_90a).
 //
-// Two entry points share one kernel body (template flag TILED):
+// Two entry points share one row body (band_rows, template flag TILED):
 //
 // - racon_band_fwd (K1) replaces the JAX package's Pallas kernel
 //   racon_tpu/ops/pallas/band_kernel.py::_kernel (entry fw_dirs_band); it
@@ -21,29 +21,50 @@
 //     x+1 of the previous row (both in shared memory, sentinel at x = W);
 //   - the left-gap chain is an inclusive prefix max over x of
 //     tmp - j*gap (with the NEG floor of the reference's shift-max
-//     ladder): a per-thread serial prefix, a warp shuffle scan and one
-//     shared-memory pass across warps;
+//     ladder): a per-thread serial prefix, a warp shuffle scan, and the
+//     warp totals read back lane-parallel and folded with one
+//     __reduce_max_sync;
 //   - the UP-chain metadata (U, C) and the k-step predecessor hops
 //     (N, N2, N3) follow the reference's three-shift propagation; the
 //     "LEFT" hop reads slot x-1 of this row, exchanged across threads
 //     through shared memory.
+// A row costs three block barriers at k = 2 and five at k = 4. Measured
+// on an H100 (band_edits.py, PERF.md), the row is bound by the integer
+// instructions it issues more than by its barriers, so the body is cut
+// for instructions: the warp totals read lane-parallel, the diagonal sum
+// in int32 (as the plain version forms it) and one in-band test a
+// thread. Recomputing slot x-1 in each thread to save a barrier, and
+// packing the stores with __byte_perm, made K3 slower and were not kept.
 // Output layout is the plain twin's "band" layout [Lq, B, W]: a lane's
 // row is W contiguous bytes, written as SPT-wide vector stores.
+//
+// Filling the card. A tiled overlap chunk has the reference's 64 lanes
+// (ops/budget.py admission rules), so one chunk is 64 blocks on 132 SMs.
+// The admission cap sizes a chunk; the group planner in ops/ovl_align.py
+// sizes a launch: it concatenates consecutive chunks of one tiled bucket
+// (they share Lq, W, T and k) into one launch of as many lanes as fill
+// one wave, blocks_per_SM x SMs, from racon_band_occupancy below. At
+// W=1536 the tiled body takes 56 registers a thread, so three 384-thread
+// blocks share an SM (G = 6 chunks a launch on an H100) and each SM
+// interleaves their row chains. The tiled kernel carries no
+// __launch_bounds__: a floor of 2 or 3 resident blocks on the body
+// before the cuts made ptxas schedule it differently and K3 8-14% slower
+// (band_edits.py).
 //
 // Bound. K1 at its main-path shape (B=4096, Lq=640, W=256, k=4): the
 // planes write B*Lq*W*(1+1+2) bytes ~ 2.7 GB (~0.8 ms at 3.35 TB/s), and
 // the integer work is ~40 operations per cell over 671 M cells; the two
-// are of the same order. K3 at its main-path tile (B=64, T=2048, W=1536,
-// k=2): 2.0e8 cells at 2 bytes a cell is 0.12 ms of HBM, 40 operations a
-// cell 0.48 ms of int32 throughput, so it is bound by operations. The design
-// keeps every score and metadata word in shared memory or registers so
-// device memory sees only the planes; at 64 lanes K3 fills at most 64 of
-// the 132 SMs (one block per lane), the first thing to fix.
+// are of the same order. K3 at its group shape (B=384, T=2048, W=1536,
+// k=2): 1.2e9 cells at 2 bytes a cell is 0.72 ms of HBM, 40 operations a
+// cell 2.9 ms of int32 throughput, so it is bound by operations. The
+// design keeps every score and metadata word in shared memory or
+// registers so device memory sees only the planes; what it does not hide
+// is the chain of dependent rows, one per block barrier pair.
 //
-// Arithmetic: scores are int32 with NEG = -2^30. P + sub can reach
-// exactly 2*NEG = -2^31 (a masked cell below a masked cell); that sum is
-// formed in 64 bits so no signed overflow can occur, and the clamp to
-// NEG precedes the "- j*gap" exactly as in the reference.
+// Arithmetic: scores are int32 with NEG = -2^30, and every score is at
+// least NEG. P + sub can reach exactly 2*NEG = -2^31 (a masked cell below
+// a masked cell), which int32 holds, as in the plain version; the clamp
+// to NEG precedes the "- j*gap" exactly as in the reference.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -98,16 +119,12 @@ struct Frontier {
 // Computes rows i0+1 .. i0+Lq (Lq = this launch's row count) and writes
 // them at rows [i0, i0+Lq) of planes laid out [*, B, W].
 template <int SPT, int K, bool TILED>
-__global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
-                                const uint8_t* __restrict__ qT,
-                                const int32_t* __restrict__ klo,
-                                const int32_t* __restrict__ lq,
-                                uint8_t* __restrict__ cells,
-                                uint8_t* __restrict__ nxt,
-                                uint16_t* __restrict__ nxt2,
-                                int32_t* __restrict__ hlast, Frontier fr,
-                                int B, int Lq, int i0, int W, int match,
-                                int mismatch, int gap) {
+__device__ __forceinline__ void band_rows(
+    const uint8_t* __restrict__ tband, const uint8_t* __restrict__ qT,
+    const int32_t* __restrict__ klo, const int32_t* __restrict__ lq,
+    uint8_t* __restrict__ cells, uint8_t* __restrict__ nxt,
+    uint16_t* __restrict__ nxt2, int32_t* __restrict__ hlast, Frontier fr,
+    int B, int Lq, int i0, int W, int match, int mismatch, int gap) {
   extern __shared__ int32_t smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -155,25 +172,27 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
   }
   __syncthreads();
 
+  // SPT divides W, so a thread's slots are all in the band or all out.
+  const bool active = x0 < W;
   for (int r = 1; r <= Lq; ++r) {
     const int i = i0 + r;  // global 1-based row
     const int qb = qs[r - 1];
-    long long dg[SPT];
+    int dg[SPT];
     int upv[SPT], f[SPT], ucp[SPT], ucup[SPT], jc[SPT];
     int tot = kNeg;
 #pragma unroll
     for (int s = 0; s < SPT; ++s) {
       const int x = x0 + s;
       jc[s] = i + kl + x;
-      if (x < W) {
+      if (active) {
         int sub = (tb[r - 1 + x] == qb) ? match : mismatch;
         if (jc[s] < 1) sub = kNeg;
-        dg[s] = (long long)P[x] + sub;
+        dg[s] = P[x] + sub;  // >= 2*NEG = -2^31, no wrap
         upv[s] = P[x + 1] + gap;
-        long long t = dg[s] > upv[s] ? dg[s] : (long long)upv[s];
-        if (jc[s] == 0) t = (long long)i * gap;
+        int t = dg[s] > upv[s] ? dg[s] : upv[s];
+        if (jc[s] == 0) t = i * gap;
         if (t < kNeg) t = kNeg;
-        const int fv = (int)t - jc[s] * gap;
+        const int fv = t - jc[s] * gap;
         tot = fv > tot ? fv : tot;
         ucp[s] = UC[x];
         ucup[s] = UC[x + 1];
@@ -196,7 +215,10 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
     if (lane == 0) excl = kNeg;
     if (lane == 31) wmax[warp] = incl;
     __syncthreads();
-    for (int w = 0; w < warp; ++w) excl = wmax[w] > excl ? wmax[w] : excl;
+    {
+      const int m = __reduce_max_sync(kFull, lane < warp ? wmax[lane] : kNeg);
+      excl = m > excl ? m : excl;
+    }
 
     int h[SPT], d[SPT], U[SPT], C[SPT], un[SPT], N[SPT];
     bool isup[SPT];
@@ -205,7 +227,7 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
       const int F = f[s] > excl ? f[s] : excl;
       const int hv = jc[s] >= 0 ? F + jc[s] * gap : kNeg;
       h[s] = hv;
-      d[s] = ((long long)hv == dg[s]) ? kDiag : (hv == upv[s] ? kUp : kLeft);
+      d[s] = hv == dg[s] ? kDiag : (hv == upv[s] ? kUp : kLeft);
       isup[s] = d[s] == kUp;
       const int uu = ((ucup[s] >> 2) & 0xF) + 1;
       U[s] = isup[s] ? (uu < kUSat ? uu : kUSat) : 0;
@@ -214,7 +236,6 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
       if (i == lqb) hl[s] = hv;
     }
     const size_t row = ((size_t)(i - 1) * B + b) * W + x0;
-    const bool active = x0 < W;
     {
       int pk[SPT];
 #pragma unroll
@@ -271,7 +292,7 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
 #pragma unroll
     for (int s = 0; s < SPT; ++s) {
       const int x = x0 + s;
-      if (x < W) {
+      if (active) {
         P[x] = h[s];
         UC[x] = uc_new[s];
       }
@@ -291,25 +312,85 @@ __global__ void band_fwd_kernel(const uint8_t* __restrict__ tband,
   }
 }
 
-template <int SPT, int K, bool TILED>
-cudaError_t launch(const uint8_t* tband, const uint8_t* qT,
-                   const int32_t* klo, const int32_t* lq, uint8_t* cells,
-                   uint8_t* nxt, uint16_t* nxt2, int32_t* hlast, Frontier fr,
-                   int B, int Lq, int i0, int W, int match, int mismatch,
-                   int gap, cudaStream_t stream) {
-  const int slots = (W + SPT - 1) / SPT;
-  const int nthr = ((slots + 31) / 32) * 32;
-  const size_t shm = sizeof(int32_t) * (2 * (W + 1) + 32 + 3 * nthr) +
-                     (size_t)(W + Lq) + (size_t)Lq;
-  if (shm > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        band_fwd_kernel<SPT, K, TILED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (e != cudaSuccess) return e;
+#define RACON_BAND_PARAMS                                                    \
+  const uint8_t *__restrict__ tband, const uint8_t *__restrict__ qT,         \
+      const int32_t *__restrict__ klo, const int32_t *__restrict__ lq,       \
+      uint8_t *__restrict__ cells, uint8_t *__restrict__ nxt,                \
+      uint16_t *__restrict__ nxt2, int32_t *__restrict__ hlast, Frontier fr, \
+      int B, int Lq, int i0, int W, int match, int mismatch, int gap
+#define RACON_BAND_ARGS                                                     \
+  tband, qT, klo, lq, cells, nxt, nxt2, hlast, fr, B, Lq, i0, W, match,     \
+      mismatch, gap
+
+// K1.
+template <int SPT, int K>
+__global__ void band_fwd_kernel(RACON_BAND_PARAMS) {
+  band_rows<SPT, K, false>(RACON_BAND_ARGS);
+}
+
+// K3.
+template <int SPT, int K>
+__global__ void band_tile_kernel(RACON_BAND_PARAMS) {
+  band_rows<SPT, K, true>(RACON_BAND_ARGS);
+}
+
+using BandKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*,
+                            const int32_t*, uint8_t*, uint8_t*, uint16_t*,
+                            int32_t*, Frontier, int, int, int, int, int, int,
+                            int);
+
+// Threads a block: W/4 (4 slots a thread) when W % 4 == 0, else W, in
+// whole warps.
+int band_threads(int W) {
+  const int slots = (W % 4) == 0 ? W / 4 : W;
+  return ((slots + 31) / 32) * 32;
+}
+
+// Dynamic shared memory: P and UC rows, warp totals, last-slot
+// exchanges, the target window and the query column.
+size_t band_smem(int W, int rows, int nthr) {
+  return sizeof(int32_t) * (2 * (W + 1) + 32 + 3 * nthr) +
+         (size_t)(W + rows) + (size_t)rows;
+}
+
+// The instantiation for (tiled, W, depth k), or nullptr where none
+// exists: up to 1024 threads a block; the untiled entry takes k in
+// {1, 2, 4}, the tiled entry k in {2, 4}.
+BandKernel band_kernel_for(bool tiled, int W, int k) {
+  const bool vec = (W % 4) == 0;
+  if (W <= 0 || band_threads(W) > 1024) return nullptr;
+  if (!tiled) {
+    if (vec)
+      return k >= 4 ? &band_fwd_kernel<4, 4>
+                    : (k >= 2 ? &band_fwd_kernel<4, 2> : &band_fwd_kernel<4, 1>);
+    return k >= 4 ? &band_fwd_kernel<1, 4>
+                  : (k >= 2 ? &band_fwd_kernel<1, 2> : &band_fwd_kernel<1, 1>);
   }
-  band_fwd_kernel<SPT, K, TILED><<<B, nthr, shm, stream>>>(
-      tband, qT, klo, lq, cells, nxt, nxt2, hlast, fr, B, Lq, i0, W, match,
-      mismatch, gap);
+  if (k != 2 && k != 4) return nullptr;
+  if (vec) return k == 4 ? &band_tile_kernel<4, 4> : &band_tile_kernel<4, 2>;
+  return k == 4 ? &band_tile_kernel<1, 4> : &band_tile_kernel<1, 2>;
+}
+
+cudaError_t allow_smem(BandKernel kern, size_t shm) {
+  if (shm <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)shm);
+}
+
+cudaError_t launch(bool tiled, int nxt_k, const uint8_t* tband,
+                   const uint8_t* qT, const int32_t* klo, const int32_t* lq,
+                   uint8_t* cells, uint8_t* nxt, uint16_t* nxt2,
+                   int32_t* hlast, Frontier fr, int B, int Lq, int i0, int W,
+                   int match, int mismatch, int gap, cudaStream_t stream) {
+  BandKernel kern = band_kernel_for(tiled, W, nxt_k);
+  if (kern == nullptr) return cudaErrorInvalidValue;
+  const int nthr = band_threads(W);
+  const size_t shm = band_smem(W, Lq, nthr);
+  cudaError_t e = allow_smem(kern, shm);
+  if (e != cudaSuccess) return e;
+  kern<<<B, nthr, shm, stream>>>(tband, qT, klo, lq, cells, nxt, nxt2, hlast,
+                                 fr, B, Lq, i0, W, match, mismatch, gap);
   return cudaGetLastError();
 }
 
@@ -320,34 +401,15 @@ extern "C" int racon_band_fwd(const void* tband, const void* qT,
                               void* nxt, void* nxt2, void* hlast, int B,
                               int Lq, int W, int match, int mismatch,
                               int gap, int nxt_k, void* stream) {
-  auto* t = static_cast<const uint8_t*>(tband);
-  auto* q = static_cast<const uint8_t*>(qT);
-  auto* k = static_cast<const int32_t*>(klo);
-  auto* l = static_cast<const int32_t*>(lq);
-  auto* c = static_cast<uint8_t*>(cells);
-  auto* n = static_cast<uint8_t*>(nxt);
-  auto* n2 = static_cast<uint16_t*>(nxt2);
-  auto* hl = static_cast<int32_t*>(hlast);
-  auto st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || Lq <= 0) return (int)cudaErrorInvalidValue;
   const Frontier fr{nullptr, nullptr, nullptr, nullptr, nullptr};
-  const bool vec = (W % 4) == 0;
-  if ((vec ? W / 4 : W) > 1024 || B <= 0 || Lq <= 0 || W <= 0)
-    return (int)cudaErrorInvalidValue;
-#define RACON_BAND_LAUNCH(S, K)                                             \
-  launch<S, K, false>(t, q, k, l, c, n, n2, hl, fr, B, Lq, 0, W, match,     \
-                      mismatch, gap, st)
-  cudaError_t e;
-  if (vec) {
-    e = nxt_k >= 4 ? RACON_BAND_LAUNCH(4, 4)
-                   : (nxt_k >= 2 ? RACON_BAND_LAUNCH(4, 2)
-                                 : RACON_BAND_LAUNCH(4, 1));
-  } else {
-    e = nxt_k >= 4 ? RACON_BAND_LAUNCH(1, 4)
-                   : (nxt_k >= 2 ? RACON_BAND_LAUNCH(1, 2)
-                                 : RACON_BAND_LAUNCH(1, 1));
-  }
-#undef RACON_BAND_LAUNCH
-  return (int)e;
+  return (int)launch(
+      false, nxt_k, static_cast<const uint8_t*>(tband),
+      static_cast<const uint8_t*>(qT), static_cast<const int32_t*>(klo),
+      static_cast<const int32_t*>(lq), static_cast<uint8_t*>(cells),
+      static_cast<uint8_t*>(nxt), static_cast<uint16_t*>(nxt2),
+      static_cast<int32_t*>(hlast), fr, B, Lq, 0, W, match, mismatch, gap,
+      static_cast<cudaStream_t>(stream));
 }
 
 // One tile: rows i0+1 .. i0+T from the frontier (prev, uc, hlast_in),
@@ -359,33 +421,44 @@ extern "C" int racon_band_tile_fwd(
     void* nxt, void* nxt2, void* hlast, void* prev_out, void* uc_out, int B,
     int T, int i0, int W, int match, int mismatch, int gap, int nxt_k,
     void* stream) {
-  auto* t = static_cast<const uint8_t*>(tband);
-  auto* q = static_cast<const uint8_t*>(qT);
-  auto* k = static_cast<const int32_t*>(klo);
-  auto* l = static_cast<const int32_t*>(lq);
-  auto* c = static_cast<uint8_t*>(cells);
-  auto* n = static_cast<uint8_t*>(nxt);
-  auto* n2 = static_cast<uint16_t*>(nxt2);
-  auto* hl = static_cast<int32_t*>(hlast);
-  auto st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || i0 < 0) return (int)cudaErrorInvalidValue;
   const Frontier fr{static_cast<const int32_t*>(prev),
                     static_cast<const int32_t*>(uc),
                     static_cast<const int32_t*>(hlast_in),
                     static_cast<int32_t*>(prev_out),
                     static_cast<int32_t*>(uc_out)};
-  const bool vec = (W % 4) == 0;
-  if ((vec ? W / 4 : W) > 1024 || B <= 0 || T <= 0 || W <= 0 || i0 < 0 ||
-      (nxt_k != 2 && nxt_k != 4))
-    return (int)cudaErrorInvalidValue;
-#define RACON_TILE_LAUNCH(S, K)                                             \
-  launch<S, K, true>(t, q, k, l, c, n, n2, hl, fr, B, T, i0, W, match,      \
-                     mismatch, gap, st)
-  cudaError_t e;
-  if (vec) {
-    e = nxt_k == 4 ? RACON_TILE_LAUNCH(4, 4) : RACON_TILE_LAUNCH(4, 2);
-  } else {
-    e = nxt_k == 4 ? RACON_TILE_LAUNCH(1, 4) : RACON_TILE_LAUNCH(1, 2);
-  }
-#undef RACON_TILE_LAUNCH
-  return (int)e;
+  return (int)launch(
+      true, nxt_k, static_cast<const uint8_t*>(tband),
+      static_cast<const uint8_t*>(qT), static_cast<const int32_t*>(klo),
+      static_cast<const int32_t*>(lq), static_cast<uint8_t*>(cells),
+      static_cast<uint8_t*>(nxt), static_cast<uint16_t*>(nxt2),
+      static_cast<int32_t*>(hlast), fr, B, T, i0, W, match, mismatch, gap,
+      static_cast<cudaStream_t>(stream));
+}
+
+// What one instantiation gets on this card at (tiled, W, rows, nxt_k):
+// out[0] resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// with the launch's threads and shared memory), out[1] registers a thread,
+// out[2] local memory bytes a thread (where spills go), out[3] threads a
+// block. The group planner (ops/ovl_align.py) sizes a launch from out[0].
+extern "C" int racon_band_occupancy(int tiled, int W, int rows, int nxt_k,
+                                    int* out) {
+  BandKernel kern = band_kernel_for(tiled != 0, W, nxt_k);
+  if (kern == nullptr || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int nthr = band_threads(W);
+  const size_t shm = band_smem(W, rows, nthr);
+  cudaError_t e = allow_smem(kern, shm);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, reinterpret_cast<const void*>(kern), nthr, shm);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kern));
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = (int)attr.localSizeBytes;
+  out[3] = nthr;
+  return 0;
 }

@@ -17,10 +17,16 @@ The overlap aligner (ops/ovl_align.py) also takes the JAX package's
 tiled route's ``TILE_TIERS``/:func:`tile_plan`. They model a TPU core's
 fast memory, not this card: they decide which overlaps go to the device,
 at which band width W, lane count and walk depth, so that every lane's
-certificate and every host fallback is the reference's. The CUDA
-kernels' own limits (W/4 <= 1024 threads a block; shared memory of about
-W + T bytes plus the score rows) are separate and are checked in the
-wrappers (ops/kernels.py).
+certificate and every host fallback is the reference's.
+
+These rules size a **chunk**. What a **launch** carries is the group
+planner's (ovl_align.plan_groups): consecutive tiled chunks of one bucket
+run as one launch of as many lanes as fill one wave of the card, with
+their planes held under ``GROUP_MEM_FRACTION`` of the card's memory. The
+port's kernels index the planes in 64 bits, so a group's planes may pass
+the 2^31 elements that cap one chunk. The CUDA kernels' own limits (W/4
+<= 1024 threads a block; shared memory of about W + T bytes plus the
+score rows) are checked in the wrappers (ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -72,6 +78,10 @@ def walk_k_for(elems: int, env_k=None) -> int:
         return 2
     return k
 
+
+# Ceiling on one tiled launch group's planes, as a fraction of the
+# card's memory (the group planner's, not an admission rule).
+GROUP_MEM_FRACTION = 0.25
 
 # Usable fraction of the reference's per-core VMEM scoped limit
 # (admission rule, see the module docstring).

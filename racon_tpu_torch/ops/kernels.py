@@ -24,6 +24,9 @@ its column-walk scan:
 
 ``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
 device-memory loads, the floor of the column walk, for chip_smoke.py.
+``band_occupancy`` reads what a band kernel instantiation gets on the
+card (resident blocks an SM, registers, spills); the overlap aligner's
+group planner sizes a tiled launch from it.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -123,6 +126,8 @@ def _lib():
             lib.racon_band_fwd.argtypes = [vp] * 8 + [ci] * 7 + [vp]
             lib.racon_band_tile_fwd.restype = ci
             lib.racon_band_tile_fwd.argtypes = [vp] * 13 + [ci] * 8 + [vp]
+            lib.racon_band_occupancy.restype = ci
+            lib.racon_band_occupancy.argtypes = [ci] * 4 + [vp]
             lib.racon_flat_fwd.restype = ci
             lib.racon_flat_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
             lib.racon_col_walk.restype = ci
@@ -213,6 +218,25 @@ def _band_block_check(W: int, rows: int) -> None:
         raise KernelError(f"[racon_tpu_torch::kernels] band tile of {rows} "
                           f"rows at W={W} needs {shm} bytes of shared "
                           "memory")
+
+
+def band_occupancy(W: int, rows: int, nxt_k: int, *, tiled: bool) -> dict:
+    """What the band kernel instantiation for (W, rows, nxt_k) gets on the
+    current card: ``blocks_per_sm`` resident blocks an SM at the launch's
+    threads and shared memory, ``regs`` registers a thread, ``spills``
+    local-memory bytes a thread (where spills go; 0 means none) and
+    ``threads`` a block. Raises KernelError when the query fails or no
+    block fits."""
+    _band_block_check(W, rows)
+    out = (ctypes.c_int * 4)()
+    rc = _lib().racon_band_occupancy(int(tiled), W, rows, int(nxt_k), out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"the band kernel (tiled={tiled}, W={W}, "
+                          f"rows={rows}, k={nxt_k}) failed (cudaError {rc}, "
+                          f"{out[0]} blocks an SM)")
+    return {"blocks_per_sm": out[0], "regs": out[1], "spills": out[2],
+            "threads": out[3]}
 
 
 def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,

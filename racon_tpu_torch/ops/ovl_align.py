@@ -18,6 +18,15 @@ Two routes, by length (admission rules of ops/budget.py, the reference's):
   re-centered between tiles, a staircase escape certificate over the
   running band clearance, and one stitched column walk.
 
+The admission rules size a chunk (its lanes, W, T and walk depth are the
+reference's); the group planner (:func:`plan_groups`) sizes a launch.
+Consecutive tiled chunks of one bucket share (Lq, LA, W, T, k), so a
+group of them runs as one chunk over their concatenated lanes: one K3
+launch per tile, one re-centering pass, one walk, with as many chunks as
+fill one wave of the card (:func:`group_size`) under a ceiling on the
+group's planes. Lanes never interact, so each chunk's rows are what it
+gives alone.
+
 Both walks run on the CUDA column walk (W1, csrc/col_walk.cu). A lane
 whose band optimality is not certified, or whose walk saturated, goes
 back to the caller for the host aligner, as do jobs no route admits.
@@ -33,9 +42,9 @@ import torch
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import (band_geometry, band_targets,
                                       row0_scores, uc_boundary)
-from racon_tpu_torch.ops.budget import (VMEM_BUDGET, max_dir_elems,
-                                        round_up, tile_plan, vmem_est,
-                                        walk_k_for)
+from racon_tpu_torch.ops.budget import (GROUP_MEM_FRACTION, VMEM_BUDGET,
+                                        max_dir_elems, round_up, tile_plan,
+                                        vmem_est, walk_k_for)
 from racon_tpu_torch.ops.cigar import DIAG
 from racon_tpu_torch.ops.encode import encode_bases
 from racon_tpu_torch.ops.flat import NEG
@@ -45,14 +54,19 @@ TB = 128                      # lanes of an untiled chunk
 MAX_DIR_ELEMS = max_dir_elems(1)
 HUGE = 2 ** 30
 
-# Jobs handled on the device / sent to the host aligner, and tiles run,
-# summed over calls since the last reset_stats().
+# Jobs handled on the device / sent to the host aligner, and tile
+# launches (one a tile of each group), summed over calls since the last
+# reset_stats().
 STATS = {"device_jobs": 0, "native_jobs": 0, "tiles": 0}
+# One record a tiled bucket since the last reset_stats(): its chunk
+# geometry, chunks, chunks a group (G) and groups.
+TILED_GROUPS: List[dict] = []
 
 
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
+    TILED_GROUPS.clear()
 
 
 def band_width_for_read(lq: int, lt: int) -> int:
@@ -239,27 +253,89 @@ def _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, *, match, mismatch,
                         LA=LA) + (fail, klos)
 
 
-def _pack(sub, B, Lq, LA, device):
-    """One chunk's padded lane arrays on ``device``."""
-    q = np.zeros((B, Lq), np.uint8)
-    t = np.zeros((B, LA), np.uint8)
-    lq = np.ones(B, np.int32)
-    lt = np.ones(B, np.int32)
-    t_begin = np.zeros(B, np.int32)
-    for b, job in enumerate(sub):
-        o, qc, tc = job[0], job[1], job[2]
-        q[b, :len(qc)] = qc
-        t[b, :len(tc)] = tc
-        lq[b] = len(qc)
-        lt[b] = len(tc)
-        t_begin[b] = o.t_begin
+def _tiled_group_breaking_points(q, t, lq, lt, t_begin, *, lanes, **kw):
+    """A group of tiled chunks, their lanes concatenated (``lanes[c]``
+    lanes for chunk c, in order), as one tiled chunk: one K3 launch a
+    tile over every lane, one re-centering pass between tiles, one walk.
+    Returns, per chunk, the tuple :func:`_tiled_chunk_breaking_points`
+    gives for that chunk alone (lane fields and ``klos`` split back)."""
+    out = _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, **kw)
+    parts = [a.split(lanes) for a in out[:6]] + [out[6].split(lanes, dim=1)]
+    return [tuple(p[c] for p in parts) for c in range(len(lanes))]
+
+
+def plan_groups(chunk_lanes, group: int, lane_bytes: int, cap_bytes=None):
+    """Consecutive chunks (``chunk_lanes[c]`` lanes each) into launch
+    groups of at most ``group`` chunks whose planes, ``lane_bytes`` a
+    lane, stay within ``cap_bytes`` (None: no ceiling); a chunk over the
+    ceiling alone still forms a group. Returns lists of chunk indices."""
+    groups: List[List[int]] = []
+    cur: List[int] = []
+    n = 0
+    for c, lanes in enumerate(chunk_lanes):
+        if cur and (len(cur) >= group or (cap_bytes is not None and
+                                          (n + lanes) * lane_bytes >
+                                          cap_bytes)):
+            groups.append(cur)
+            cur, n = [], 0
+        cur.append(c)
+        n += lanes
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def group_size(lanes: int, W: int, T: int, nxt_k: int, device) -> int:
+    """Chunks of ``lanes`` lanes a tiled launch carries: as many as fill
+    one wave of the card, ``max(1, blocks_per_SM * SMs // lanes)``, with
+    blocks_per_SM the K3 instantiation's occupancy at (W, T, k). 1 on the
+    CPU. A failed occupancy query raises."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    with torch.cuda.device(device):
+        occ = kernels.band_occupancy(W, T, nxt_k, tiled=True)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, occ["blocks_per_sm"] * sms // lanes)
+
+
+def group_mem_cap(device):
+    """Ceiling on one group's planes: GROUP_MEM_FRACTION of the card's
+    memory; None (no ceiling) on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(GROUP_MEM_FRACTION * total)
+
+
+def _pack(chunks, Lq, LA, device):
+    """Padded lane arrays on ``device`` of consecutive chunks ``[(jobs,
+    lanes), ...]``: chunk c's jobs from its first lane, ``lanes`` lanes
+    each."""
+    n = sum(B for _, B in chunks)
+    q = np.zeros((n, Lq), np.uint8)
+    t = np.zeros((n, LA), np.uint8)
+    lq = np.ones(n, np.int32)
+    lt = np.ones(n, np.int32)
+    t_begin = np.zeros(n, np.int32)
+    off = 0
+    for sub, B in chunks:
+        for b, job in enumerate(sub, off):
+            o, qc, tc = job[0], job[1], job[2]
+            q[b, :len(qc)] = qc
+            t[b, :len(tc)] = tc
+            lq[b] = len(qc)
+            lt[b] = len(tc)
+            t_begin[b] = o.t_begin
+        off += B
     return tuple(torch.from_numpy(a).to(device)
                  for a in (q, t, lq, lt, t_begin))
 
 
 def device_breaking_points(pending, sequences, window_length: int, *,
                            match: int, mismatch: int, gap: int, device,
-                           log=None) -> List:
+                           log=None, tiers=None, group=None) -> List:
     """Compute breaking points on ``device`` for as many overlaps as the
     admission rules take; returns the overlaps that still need the host
     aligner (no route admits them, the escape certificate failed, or the
@@ -267,7 +343,8 @@ def device_breaking_points(pending, sequences, window_length: int, *,
 
     Sets ``o.breaking_points`` (int64[N, 4], the reference's row format)
     on every handled overlap, so ``find_breaking_points`` then returns at
-    once.
+    once. ``tiers`` replaces budget.TILE_TIERS; ``group`` fixes the
+    chunks a tiled launch carries (default :func:`group_size`).
     """
     device = torch.device(device)
     tiled_on = env.ovl_tiled()
@@ -288,7 +365,7 @@ def device_breaking_points(pending, sequences, window_length: int, *,
             jobs.append((o, encode_bases(bytes(qb)),
                          encode_bases(bytes(tb)), q_start))
             continue
-        plan = tile_plan(lq, lt) if tiled_on else None
+        plan = tile_plan(lq, lt, tiers) if tiled_on else None
         if plan is not None:
             tiled_jobs.append((o, encode_bases(bytes(qb)),
                                encode_bases(bytes(tb)), q_start, plan))
@@ -339,22 +416,25 @@ def device_breaking_points(pending, sequences, window_length: int, *,
         LA_t = max(Lq_t, max(round_up(len(j[2]), 2048) for j in js))
         tiled_buckets.append((js, lanes, W_t, T_t, Lq_t, LA_t, k_t))
 
-    # Every chunk's inputs go to the device first, then every chunk is
-    # dispatched before any is collected: the host's copies never wait on
-    # the card, and a chunk's planes are freed as soon as its walk is
-    # queued.
-    calls = []
+    # Every chunk's inputs go to the device first, then every chunk (and
+    # group) is dispatched before any is collected: the host's copies
+    # never wait on the card, and a chunk's planes are freed as soon as
+    # its walk is queued.
+    sc = dict(match=match, mismatch=mismatch, gap=gap)
+    untiled_calls, group_calls = [], []
     for bucket, Lq, LA, W in buckets:
         kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, nxt_k=untiled_walk_k(Lq, W))
+                  Lq=Lq, LA=LA, nxt_k=untiled_walk_k(Lq, W), **sc)
         for s in range(0, len(bucket), TB):
             sub = bucket[s:s + TB]
-            calls.append((sub, _chunk_breaking_points,
-                          _pack(sub, TB, Lq, LA, device), kw))
+            untiled_calls.append((sub, _pack([(sub, TB)], Lq, LA, device),
+                                  kw))
     n_tiles_exec = 0
+    mem_cap = group_mem_cap(device)
     for bucket, lanes, W, T, Lq, LA, nxt_k in tiled_buckets:
         kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, T=T, nxt_k=nxt_k)
+                  Lq=Lq, LA=LA, T=T, nxt_k=nxt_k, **sc)
+        chunks = []
         for s in range(0, len(bucket), lanes):
             sub = bucket[s:s + lanes]
             # Lanes halve down to the job count (power of two, at least
@@ -362,11 +442,23 @@ def device_breaking_points(pending, sequences, window_length: int, *,
             B = lanes
             while B // 2 >= max(8, len(sub)):
                 B //= 2
-            calls.append((sub, _tiled_chunk_breaking_points,
-                          _pack(sub, B, Lq, LA, device), kw))
-            n_tiles_exec += Lq // T
-    outs = [(sub, fn(*args, match=match, mismatch=mismatch, gap=gap, **kw))
-            for sub, fn, args, kw in calls]
+            chunks.append((sub, B))
+        G = group_size(lanes, W, T, nxt_k, device) if group is None else group
+        groups = plan_groups([B for _, B in chunks], G,
+                             Lq * W * (4 if nxt_k >= 4 else 2), mem_cap)
+        for idx in groups:
+            part = [chunks[c] for c in idx]
+            group_calls.append(([sub for sub, _ in part],
+                                _pack(part, Lq, LA, device),
+                                dict(kw, lanes=[B for _, B in part])))
+        n_tiles_exec += len(groups) * (Lq // T)
+        TILED_GROUPS.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
+                                 chunks=len(chunks), G=G,
+                                 groups=len(groups)))
+    outs = [(sub, _chunk_breaking_points(*args, **kw))
+            for sub, args, kw in untiled_calls]
+    for subs, args, kw in group_calls:
+        outs.extend(zip(subs, _tiled_group_breaking_points(*args, **kw)))
 
     for sub, out in outs:
         first_c, qi_f, last_c, qi_l, valid, fail = (

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, bitwise:
-the banded forward (untiled and tiled), the full-width forward, the
+the banded forward (untiled and tiled, the tiled one also over a group of
+chunks' lanes at the overlap tiers' widths), the full-width forward, the
 column walk (band and flat layouts) and the walk's latency probe, the
 batched NW forward (K4) and its traceback (T1), the monotone count (K5)
 and the batched aligner end to end.
@@ -122,6 +123,35 @@ def test_band_tile_kernel_matches_plain(cuda, W, k, scoring):
     assert kernels.LAUNCHES["band_tile_fwd"] == n0 + Lq // T
     for r, o in zip(ref, out):
         assert _same(r, o)
+
+
+@pytest.mark.parametrize("W,k", [(1536, 2), (2048, 4)])
+def test_band_tile_kernel_group_matches_plain(cuda, W, k):
+    """K3 at the overlap tiers' band widths (384- and 512-thread blocks)
+    over 144 lanes, more than one 64-lane chunk: a group's launch."""
+    B, Lq, T = 144, 64, 32
+    args = _band_case(19, B, Lq, W, 200)
+    ref = _tile_chain(fw_dirs_band_tile_plain, args, B, Lq, W, T, k,
+                      (0, -1, -1), torch.device("cpu"))
+    out = _tile_chain(kernels.fw_dirs_band_tile, args, B, Lq, W, T, k,
+                      (0, -1, -1), cuda)
+    torch.cuda.synchronize()
+    for r, o in zip(ref, out):
+        assert _same(r, o)
+
+
+def test_band_tile_occupancy(cuda):
+    """The main path's K3 instantiation (W=1536, T=2048, k=2) holds two
+    blocks an SM without spilling; the group planner then carries
+    blocks x SMs // 64 chunks a launch."""
+    occ = kernels.band_occupancy(1536, 2048, 2, tiled=True)
+    assert occ["threads"] == 384
+    assert occ["blocks_per_sm"] >= 2 and occ["spills"] == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ovl_align.group_size(64, 1536, 2048, 2, cuda) == \
+        occ["blocks_per_sm"] * sms // 64
+    assert kernels.band_occupancy(256, 640, 4, tiled=False)[
+        "blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
@@ -279,6 +309,55 @@ class _Ovl:
         return self._q, self._t
 
 
+def _breaking_point_runs(specs, cuda, **kw):
+    """device_breaking_points on the CPU and on the card: per device the
+    overlaps, the fallback indices, the launches made and the tiled
+    groups."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        ovls = [_Ovl(*sp) for sp in specs]
+        n0 = dict(kernels.LAUNCHES)
+        ovl_align.reset_stats()
+        fb = ovl_align.device_breaking_points(ovls, None, 500, match=0,
+                                              mismatch=-1, gap=-1,
+                                              device=dev, **kw)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (ovls, [ovls.index(o) for o in fb],
+                          {k: kernels.LAUNCHES[k] - n0[k] for k in n0},
+                          list(ovl_align.TILED_GROUPS))
+    return runs
+
+
+def test_device_breaking_points_grouped_cuda_matches_cpu(cuda):
+    """Five 8.5-8.7 kb tiled jobs (queries past the untiled route's 8192
+    rows) through a small tier of 2 lanes: three chunks, run on the card
+    as one group (G from the K3 occupancy) and
+    on the CPU one by one, give the same rows and fallbacks."""
+    rng = np.random.default_rng(43)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    specs = []
+    for i in range(5):
+        t = acgt[rng.integers(0, 4, 8500 + 50 * i)]
+        r = rng.random(len(t))
+        q = np.where((r >= 0.015) & (r < 0.03),
+                     acgt[rng.integers(0, 4, len(t))], t)[r >= 0.015]
+        specs.append((q.tobytes(), t.tobytes(), 61 * i))
+    runs = _breaking_point_runs(specs, cuda, tiers=((2, 512, 2048, 4),))
+    (c_ovl, c_fb, c_n, c_groups), (g_ovl, g_fb, g_n, g_groups) = (
+        runs["cpu"], runs["cuda"])
+    assert g_fb == c_fb
+    assert [(g["chunks"], g["G"], g["groups"]) for g in c_groups] == \
+        [(3, 1, 3)]
+    assert [(g["chunks"], g["groups"]) for g in g_groups] == [(3, 1)]
+    assert g_groups[0]["G"] >= 3
+    assert g_n["band_tile_fwd"] == 5 and g_n["col_walk"] == 1
+    for c, g in zip(c_ovl, g_ovl):
+        assert (c.breaking_points is None) == (g.breaking_points is None)
+        if c.breaking_points is not None:
+            assert np.array_equal(c.breaking_points, g.breaking_points)
+    assert sum(o.breaking_points is not None for o in g_ovl) >= 4
+
+
 def test_device_breaking_points_cuda_matches_cpu(cuda):
     """The overlap route on the card (K1, K3, W1 and the re-centering
     between tiles) gives the rows and fallbacks of the plain route:
@@ -304,19 +383,15 @@ def test_device_breaking_points_cuda_matches_cpu(cuda):
                   acgt[rng.integers(0, 4, 1200)].tobytes(), 5))
     specs.append((acgt[rng.integers(0, 4, 10_000)].tobytes(),
                   acgt[rng.integers(0, 4, 12_500)].tobytes(), 0))
-    runs = {}
-    for dev in ("cpu", cuda):
-        ovls = [_Ovl(*sp) for sp in specs]
-        n0 = dict(kernels.LAUNCHES)
-        fb = ovl_align.device_breaking_points(ovls, None, 500, match=0,
-                                              mismatch=-1, gap=-1,
-                                              device=dev)
-        runs[str(dev)] = (ovls, [ovls.index(o) for o in fb],
-                          {k: kernels.LAUNCHES[k] - n0[k] for k in n0})
-    (c_ovl, c_fb, _), (g_ovl, g_fb, g_n) = runs["cpu"], runs["cuda"]
+    runs = _breaking_point_runs(specs, cuda)
+    (c_ovl, c_fb, _, _), (g_ovl, g_fb, g_n, g_groups) = (runs["cpu"],
+                                                         runs["cuda"])
     assert g_fb == c_fb == [6, 5]     # over budget first, then uncertified
-    assert g_n["band_tile_fwd"] == 5 and g_n["col_walk"] == 2
-    assert g_n["band_fwd"] == 1
+    # One tiled bucket of one chunk: one group, one K3 launch a tile.
+    assert [(g["chunks"], g["groups"]) for g in g_groups] == [(1, 1)]
+    assert g_n["band_tile_fwd"] == sum(
+        g["groups"] * (g["Lq"] // g["T"]) for g in g_groups) == 5
+    assert g_n["col_walk"] == 2 and g_n["band_fwd"] == 1
     for c, g in zip(c_ovl[:5], g_ovl[:5]):
         assert np.array_equal(c.breaking_points, g.breaking_points)
 
@@ -348,3 +423,4 @@ def test_wrappers_reject_bad_inputs(cuda):
                                       klo, lq, i0, *front, match=5,
                                       mismatch=-4, gap=-8, W=128, nxt_k=k,
                                       out=(cells, cells, None))
+

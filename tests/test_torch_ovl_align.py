@@ -14,9 +14,13 @@ versions on the CPU:
   case that re-centers the band;
 - the admission rules (``tile_plan`` and the untiled gate) over a grid of
   (lq, lt);
+- the group planner (chunks into launch groups, a halved tail chunk, the
+  memory ceiling), and a group of three tiled chunks run as one against
+  each chunk alone, through the port and through the reference;
 - ``device_breaking_points(device="cpu")`` on a small synthetic overlap
   set: rows equal to the reference's and to the host aligner's, and the
-  same fallback counts.
+  same fallback counts; grouped tiled launches give the rows of
+  ungrouped ones.
 """
 
 import io
@@ -327,6 +331,98 @@ def test_tiled_chunk_recentering_matches_reference():
         assert len(np.unique(klos[:, b])) == 1
 
 
+# ------------------------------------------------------------ tile groups
+
+@pytest.mark.parametrize("lanes,group,lane_bytes,cap,want", [
+    # The main path's bucket: 42 chunks of 64 lanes, 4 a group.
+    ([64] * 42, 4, 1, None, [list(range(i, min(i + 4, 42)))
+                             for i in range(0, 42, 4)]),
+    # A halved tail chunk joins the last group.
+    ([64] * 5 + [16], 4, 1, None, [[0, 1, 2, 3], [4, 5]]),
+    # The memory ceiling closes a group before G chunks.
+    ([8, 8, 8, 4], 4, 100, 2000, [[0, 1], [2, 3]]),
+    ([8, 8, 8, 4], 4, 100, 2700, [[0, 1, 2], [3]]),
+    ([8, 8, 8, 4], 4, 100, 2800, [[0, 1, 2, 3]]),
+    # A chunk over the ceiling still runs, alone.
+    ([8, 8], 4, 100, 500, [[0], [1]]),
+    # G = 1: every chunk alone (the CPU's default).
+    ([8, 8, 4], 1, 1, None, [[0], [1], [2]]),
+])
+def test_plan_groups(lanes, group, lane_bytes, cap, want):
+    groups = povl.plan_groups(lanes, group, lane_bytes, cap)
+    assert groups == want
+    assert [c for g in groups for c in g] == list(range(len(lanes)))
+
+
+def test_group_size_is_one_on_cpu():
+    assert povl.group_size(64, 1536, 2048, 2, "cpu") == 1
+    assert povl.group_mem_cap("cpu") is None
+
+
+def _group_chunks(seed):
+    """Three tiled chunks of 8, 8 and 4 lanes (the last a halved tail):
+    180-base reads at 5% error, and in chunk 1 one 240-base lane that
+    drifts 40 diagonals off and back (every third base of 120 missing
+    from the target, then 40 extra bases), so its band re-centers between
+    tiles."""
+    rng = np.random.default_rng(seed)
+    Lq = LA = 256
+    chunks = [_mk_chunk(rng, 180, 0.05, B, Lq, LA) for B in (8, 8, 4)]
+    q, t, lq, lt, _ = chunks[1]
+    qq = rng.integers(0, 4, 240).astype(np.uint8)
+    tt = list(qq[:30]) + [b for i, b in enumerate(qq[30:150]) if i % 3]
+    for i, b in enumerate(qq[150:]):
+        tt.append(b)
+        if i % 2 and i < 80:
+            tt.append(int(rng.integers(0, 4)))
+    q[2], t[2] = 0, 0
+    q[2, :240], t[2, :len(tt)] = qq, tt
+    lq[2], lt[2] = 240, len(tt)
+    return chunks, dict(W=128, w_len=50, NW=LA // 50 + 2, Lq=Lq, LA=LA,
+                        T=32)
+
+
+@pytest.mark.parametrize("nxt_k", [2, 4])
+@pytest.mark.parametrize("scoring", [(0, -1, -1), (5, -4, -8)])
+def test_tiled_group_matches_chunks_alone(nxt_k, scoring):
+    """One grouped run (one tile forward a tile over all 20 lanes, one
+    re-centering pass, one walk) gives each chunk the breaking-point
+    fields, fail flags and per-tile origins of that chunk run alone."""
+    m, x, g = scoring
+    chunks, kw = _group_chunks(31)
+    kw.update(match=m, mismatch=x, gap=g, nxt_k=nxt_k)
+    tch = [tuple(torch.from_numpy(a) for a in c) for c in chunks]
+    group = [torch.cat(f) for f in zip(*tch)]
+    outs = povl._tiled_group_breaking_points(*group, lanes=[8, 8, 4], **kw)
+    assert len(outs) == 3
+    for c, out in zip(tch, outs):
+        alone = povl._tiled_chunk_breaking_points(*c, **kw)
+        assert len(out) == len(alone) == 7
+        for a, b in zip(alone, out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    klos = outs[1][6]
+    assert len(torch.unique(klos[:, 2])) > 1      # the excursion re-centers
+    assert not outs[0][5].any()
+
+
+def test_tiled_group_matches_reference_per_chunk():
+    """The same group against the reference's tiled chunk function run on
+    each chunk alone (XLA twins on the CPU)."""
+    chunks, kw = _group_chunks(32)
+    kw.update(match=0, mismatch=-1, gap=-1, nxt_k=2)
+    tch = [tuple(torch.from_numpy(a) for a in c) for c in chunks]
+    group = [torch.cat(f) for f in zip(*tch)]
+    outs = povl._tiled_group_breaking_points(*group, lanes=[8, 8, 4], **kw)
+    for c, out in zip(chunks, outs):
+        ref = rovl._tiled_chunk_breaking_points(*c, tb=c[0].shape[0], ch=4,
+                                                pallas=False, **kw)
+        assert len(ref) == len(out)
+        for i, (a, b) in enumerate(zip(ref, out)):
+            a = np.asarray(a)
+            assert a.dtype == b.numpy().dtype, f"field {i} dtype"
+            assert np.array_equal(a, b.numpy()), f"field {i} differs"
+
+
 # -------------------------------------------------------------- admission
 
 def _ref_untiled(lq, lt):
@@ -433,6 +529,8 @@ def test_device_breaking_points_match_reference_and_native():
     assert pbuf.getvalue().replace("racon_tpu_torch", "racon_tpu") == \
         rbuf.getvalue()
     assert povl.STATS == {"device_jobs": 5, "native_jobs": 2, "tiles": 5}
+    assert povl.TILED_GROUPS == [dict(lanes=64, W=1536, T=2048, Lq=10240,
+                                      nxt_k=2, chunks=1, G=1, groups=1)]
     for r, p in zip(ref, port):
         if p in pfb:
             assert p.breaking_points is None
@@ -455,3 +553,36 @@ def test_tiled_gate_off_routes_native(monkeypatch):
     assert fb == [o]
     assert "exceed the device length budget" in buf.getvalue()
     assert povl.STATS == {"device_jobs": 0, "native_jobs": 1, "tiles": 0}
+    assert povl.TILED_GROUPS == []
+
+
+def test_grouped_tiled_launches_give_ungrouped_rows():
+    """Five 8.3-8.5 kb tiled jobs through a small tier of 2 lanes: three
+    chunks in one group of G=3 (5 tile launches) give the rows and
+    fallbacks of the three chunks run one by one (15)."""
+    rng = np.random.default_rng(17)
+    specs = []
+    for i in range(5):
+        t = _BASES[rng.integers(0, 4, 8300 + 50 * i)].tobytes()
+        q = _BASES[_mutate_codes(rng, encode_bases(t), 0.03)].tobytes()
+        specs.append((q, t, 97 * i, 3 * i, i % 2 == 1))
+    tiers = ((2, 512, 2048, 4),)
+    runs = []
+    for group in (1, 3):
+        ovls = [_Ovl(*s) for s in specs]
+        povl.reset_stats()
+        fb = povl.device_breaking_points(ovls, None, 500, match=0,
+                                         mismatch=-1, gap=-1, device="cpu",
+                                         tiers=tiers, group=group)
+        runs.append(([ovls.index(o) for o in fb], ovls, dict(povl.STATS),
+                     list(povl.TILED_GROUPS)))
+    (fb1, o1, st1, tg1), (fb3, o3, st3, tg3) = runs
+    assert fb1 == fb3
+    assert st1["tiles"] == 15 and st3["tiles"] == 5
+    assert [(r["chunks"], r["G"], r["groups"]) for r in tg1] == [(3, 1, 3)]
+    assert [(r["chunks"], r["G"], r["groups"]) for r in tg3] == [(3, 3, 1)]
+    assert st3["device_jobs"] == 5 - len(fb3) >= 4
+    for a, b in zip(o1, o3):
+        assert (a.breaking_points is None) == (b.breaking_points is None)
+        if a.breaking_points is not None:
+            assert np.array_equal(a.breaking_points, b.breaking_points)
