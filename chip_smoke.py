@@ -19,10 +19,16 @@ any failure exits non-zero and prints no result):
               main path launches it) from tile 0's frontier and on its
               first 64 lanes, flat_fwd (K2), and col_walk (W1) on the
               group's stitched planes (tiled, int32), on the untiled
-              chunk (int16), at the consensus shape (k=4, int16) and on
-              K2's full-width planes (flat layout, k=1). Each walk also
-              prints its chain floor: its chain_len dependent loads timed
-              alone (csrc/probe.cu). Then the op-string route's kernels
+              chunk (int16), at the consensus shape (k=4, int16) on K1's
+              planes of random inputs and of 8%-error reads, and on K2's
+              full-width planes (flat layout, k=1). Each walk's bound is
+              the larger of its bytes bound and its serial floor, its
+              chain_len dependent loads through shared memory; beside it
+              the chain floor (the same loads through device memory at
+              the walk's addresses: csrc/probe.cu in both modes), the
+              windows and misses a lane from the kernel's refill counter,
+              and its launch plan's registers and shared memory a block.
+              Then the op-string route's kernels
               at its batch shape: nw_fwd (K4), nw_traceback (T1, with its
               chain floor) on K4's planes, and monotone_count (K5) on
               T1's op strings, timed beside torch.searchsorted;
@@ -65,6 +71,7 @@ the card's name and power limit, the last line the ok record.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -206,6 +213,36 @@ def band_inputs(device, B, Lq, W, seed=1):
             torch.from_numpy(lt).to(device))
 
 
+def consensus_reads(device, B, Lq, W, seed=8):
+    """Band inputs as a consensus chunk's lanes give them: targets of
+    window-slice lengths (3/4 of Lq to Lq - 8 bases), queries 8%-error
+    reads of them cut to Lq rows, the band origin of band_geometry and the
+    target band of band_targets. Returns (tband, qT, klo, lq, lt)."""
+    import torch
+    from racon_tpu_torch.ops.band import band_geometry, band_targets
+    from racon_tpu_torch.ops.encode import encode_bases
+    from racon_tpu_torch.utils.synth import _BASES, mutate
+    rng = np.random.default_rng(seed)
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lq), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    for b in range(B):
+        tt = _BASES[rng.integers(0, 4, int(rng.integers(Lq * 3 // 4,
+                                                         Lq - 8)))]
+        qq = mutate(rng, tt, 0.08)[0][:Lq]
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        t[b, :len(tt)] = encode_bases(tt.tobytes())
+        lq[b], lt[b] = len(qq), len(tt)
+    lq_t, lt_t = torch.from_numpy(lq), torch.from_numpy(lt)
+    klo = band_geometry(lq_t, lt_t, W)[0]
+    base = torch.arange(B, dtype=torch.int64) * Lq
+    tband = band_targets(torch.from_numpy(t).reshape(-1), base, klo, lt_t,
+                         W + Lq)
+    return tuple(a.to(device) for a in (
+        tband, torch.from_numpy(q).t().contiguous(), klo, lq_t, lt_t))
+
+
 def band_bound(B, rows, W, k, tiled=False):
     """bound() of the banded forward over B lanes, ``rows`` query rows and
     W band slots at walk depth k: the target window, query and klo/lq
@@ -267,12 +304,29 @@ def chain_floor_ms(device, steps, step_bytes, lanes, lane_bytes) -> float:
     return time_ms(lambda: kernels.chase(loads, steps, **probe))
 
 
+@functools.lru_cache(maxsize=None)
+def shared_step_ms(device) -> float:
+    """Time of one dependent load through shared memory: the latency
+    probe's shared mode, 2^20 loads down a chain of its most entries."""
+    from racon_tpu_torch.ops import kernels
+    loads = kernels.chain_of_loads(kernels.CHASE_SHARED_ENTRIES - 1, 1,
+                                   device)
+    steps = 1 << 20
+    if kernels.chase(loads, steps, shared=True).item() != 0:
+        fail("the shared-memory probe did not reach the end of its chain")
+    return time_ms(lambda: kernels.chase(loads, steps, shared=True)) / steps
+
+
 def walk_case(case, cells, lq, lt, klo, t_off, extra_bytes=0, **wk):
     """W1 against its plain version (bitwise) on one walk, with its time,
-    the plain time, the bytes bound and the chain floor: every lane's
-    chain_len dependent loads, k plane rows apart, made with no other
-    work by the latency probe (csrc/probe.cu) in this run. Returns the
-    record."""
+    the plain time and its bound: the larger of the bytes bound and the
+    serial floor, chain_len dependent loads through shared memory (the
+    probe's shared mode; bound_by "operations"). Beside it the chain
+    floor, the same loads through device memory at the walk's addresses
+    (the floor of a walk that loads every step from there), the windows
+    and misses a lane (the kernel's refill counter), and what the launch
+    plan gets on this card. Returns the record."""
+    import torch
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.colwalk import chain_len, col_walk
     B = lq.shape[0]
@@ -290,15 +344,33 @@ def walk_case(case, cells, lq, lt, klo, t_off, extra_bytes=0, **wk):
     ms = time_ms(lambda: kernels.col_walk_kernel(cells, lq, lt, klo, t_off,
                                                  **wk))
     chain = chain_len(LA, k)
-    bms, by = bound(B * chain * k + B * (LA + 2) * 4 * esize + 16 * B +
-                    extra_bytes, 0)
-    # The walk's addresses: lanes W bytes apart, k plane rows a step.
+    bytes_ms, _ = bound(B * chain * k + B * (LA + 2) * 4 * esize + 16 * B +
+                        extra_bytes, 0)
+    serial_ms = chain * shared_step_ms(cells.device)
+    bms, by = ((bytes_ms, "bytes") if bytes_ms >= serial_ms else
+               (serial_ms, "operations"))
+    # The old design's addresses: lanes W bytes apart, k plane rows a step.
     floor_ms = chain_floor_ms(cells.device, chain, k * B * W, B, W)
+    refills = torch.zeros((B, 2), dtype=torch.int32, device=cells.device)
+    kernels.col_walk_kernel(cells, lq, lt, klo, t_off, refills=refills,
+                            **wk)
+    per_lane = refills.to(torch.float64).mean(dim=0).tolist()
+    n_tiles = 0 if wk.get("tile_klo") is None else wk["tile_klo"].shape[0]
+    plan = kernels.walk_plan(
+        B, k, layout=wk["layout"], n_tiles=n_tiles,
+        sms=torch.cuda.get_device_properties(
+            cells.device).multi_processor_count)
+    occ = kernels.walk_occupancy(k, layout=wk["layout"],
+                                 emit=wk.get("emit", torch.int16), plan=plan)
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, chain_floor_ms=floor_ms)
+               bound_by=by, bytes_bound_ms=bytes_ms,
+               serial_floor_ms=serial_ms, chain_floor_ms=floor_ms,
+               windows_per_lane=per_lane[0], misses_per_lane=per_lane[1],
+               regs=occ["regs"], spills=occ["spills"],
+               blocks_per_sm=occ["blocks_per_sm"], smem_per_block=plan["smem"])
     emit("kernels", kernel="col_walk", case=case, nxt_k=k,
          shape=[B, cells.shape[0], W], LA=LA, emit=f"int{8 * esize}",
-         chain_len=chain, **rec)
+         chain_len=chain, plan=plan, threads=occ["threads"], **rec)
     if err:
         fail(f"col_walk ({case}) disagrees with its plain version "
              f"(max_abs_err={err})")
@@ -434,9 +506,9 @@ def phase_untiled_overlap_kernels(device, B=128, L=5400, W=1024):
         fail(f"band_fwd (overlap untiled) disagrees with its plain version "
              f"(max_abs_err={err})")
     cells, nxt, nxt2, _ = out
-    walk_case("overlap untiled", cells, c["lq"], c["lt"], c["klo"],
-              torch.zeros_like(c["lq"]), LA=Lq, layout="band", nxt=nxt,
-              nxt2=nxt2)
+    return walk_case("overlap untiled", cells, c["lq"], c["lt"], c["klo"],
+                     torch.zeros_like(c["lq"]), LA=Lq, layout="band",
+                     nxt=nxt, nxt2=nxt2)
 
 
 def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
@@ -459,12 +531,13 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
         err = max_abs_err(ref, out)
         del ref
         if k == 4:
-            # W1 at the consensus shape (k=4, int16) on these planes.
+            # W1 at the consensus shape (k=4, int16) on these random
+            # planes, whose paths wander off the diagonal.
             rng = np.random.default_rng(4)
             t_off = torch.from_numpy(rng.integers(0, 48, B).astype(
                 np.int32)).to(device)
-            walk_case("consensus", out[0], args[3], lt, args[2], t_off,
-                      LA=int(lt.max().item()) + 48, layout="band",
+            walk_case("consensus random", out[0], args[3], lt, args[2],
+                      t_off, LA=int(lt.max().item()) + 48, layout="band",
                       nxt=out[1], nxt2=out[2])
         del out
         ms = time_ms(run_k)
@@ -479,6 +552,17 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
             fail(f"band_fwd k={k} disagrees with its plain version "
                  f"(max_abs_err={err})")
     del args
+    # W1 at the consensus shape on a forward of 8%-error reads of their
+    # targets, whose paths stay near the diagonal as the main path's do.
+    tb, qT, klo, lq, lt = consensus_reads(device, B, Lq, W)
+    cells, nxt, nxt2, _ = kernels.fw_dirs_band(tb, qT, klo, lq, W=W,
+                                               nxt_k=4, **sc)
+    t_off = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 48, B).astype(np.int32)).to(device)
+    recs[("col_walk", "consensus")] = walk_case(
+        "consensus 8%-error reads", cells, lq, lt, klo, t_off,
+        LA=int(lt.max().item()) + 48, layout="band", nxt=nxt, nxt2=nxt2)
+    del tb, qT, cells, nxt, nxt2
     rng = np.random.default_rng(2)
     tbuf = torch.from_numpy(rng.integers(0, 4, (Bf, Lt)).astype(
         np.uint8)).to(device)
@@ -753,7 +837,12 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
         fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
         fail(f"main run: polished ED {ed_pol} > draft ED {ed_draft} / 3")
-    return launches, p
+    # W1's launches by case: the tiled groups, the consensus walks and the
+    # untiled overlap chunks (the rest).
+    tiled = sum(g["groups"] for g in groups)
+    walk_launches = {"tiled": tiled, "consensus": walks,
+                     "untiled": launches["col_walk"] - tiled - walks}
+    return launches, walk_launches, p
 
 
 def phase_flat(device, tmp, contig_len=100000):
@@ -944,13 +1033,13 @@ def main() -> int:
 
     recs = phase_kernels("cuda")
     recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
-    phase_untiled_overlap_kernels("cuda")
+    recs[("col_walk", "untiled")] = phase_untiled_overlap_kernels("cuda")
     recs.update({(n, 0): r for n, r in
                  phase_op_string_kernels("cuda").items()})
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
-        main_launches, main_paths = phase_main("cuda", tmp)
+        main_launches, walk_launches, main_paths = phase_main("cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
         op_launches = phase_op_strings("cuda", main_paths)
 
@@ -960,24 +1049,30 @@ def main() -> int:
             continue
         # Each kernel's launches on the path that runs it: the band-off
         # path for K2 and the flat walk, the op-string route for K4, T1
-        # and K5, the main path for the rest.
+        # and K5, the main path for the rest; W1's by case.
         if k == "flat":
             launches = flat_launches["col_walk_flat"]
+        elif name == "col_walk":
+            launches = walk_launches["tiled" if k == 0 else k]
         else:
             launches = (flat_launches if name == "flat_fwd" else
                         op_launches if name in ("nw_fwd", "nw_traceback",
                                                 "monotone_count")
                         else main_launches)[name]
+        label = {"flat": "flat layout", "untiled": "untiled overlap chunk",
+                 "consensus": "consensus", 0: "tiled overlap group"}
         rows.append({
-            "name": name if k != "flat" else f"{name} (flat layout)",
+            "name": f"{name} ({label[k]})" if name == "col_walk" else name,
             "route": "cuda",
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{n: r[n] for n in ("chain_floor_ms", "regs", "spills",
-                                 "blocks_per_sm") if n in r}})
+            **{n: r[n] for n in ("chain_floor_ms", "serial_floor_ms",
+                                 "windows_per_lane", "misses_per_lane",
+                                 "regs", "spills", "blocks_per_sm",
+                                 "smem_per_block") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

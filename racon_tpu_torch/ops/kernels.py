@@ -23,10 +23,15 @@ its column-walk scan:
   ops/device_merge.py::monotone_count_plain.
 
 ``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
-device-memory loads, the floor of the column walk, for chip_smoke.py.
+loads, through device memory (the floor of a walk that loads every step
+from there) or through shared memory (one on-chip step of the windowed
+walk's serial chain), for chip_smoke.py.
 ``band_occupancy`` reads what a band kernel instantiation gets on the
 card (resident blocks an SM, registers, spills); the overlap aligner's
-group planner sizes a tiled launch from it.
+group planner sizes a tiled launch from it. ``walk_plan`` sizes a walk
+launch (threads a lane, window shape, lanes a block) from the lane count,
+the walk depth and the SM count, and ``walk_occupancy`` reads what a plan
+gets on the card.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -131,7 +136,9 @@ def _lib():
             lib.racon_flat_fwd.restype = ci
             lib.racon_flat_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
             lib.racon_col_walk.restype = ci
-            lib.racon_col_walk.argtypes = [vp] * 10 + [ci] * 9 + [vp]
+            lib.racon_col_walk.argtypes = [vp] * 11 + [ci] * 13 + [vp]
+            lib.racon_col_walk_occupancy.restype = ci
+            lib.racon_col_walk_occupancy.argtypes = [ci] * 5 + [vp]
             lib.racon_nw_fwd.restype = ci
             lib.racon_nw_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
             lib.racon_nw_traceback.restype = ci
@@ -139,7 +146,7 @@ def _lib():
             lib.racon_monotone_count.restype = ci
             lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 3 + [vp]
             lib.racon_chase.restype = ci
-            lib.racon_chase.argtypes = [vp] + [ci] * 4 + [vp, vp]
+            lib.racon_chase.argtypes = [vp] + [ci] * 5 + [vp, vp]
             _LIB = lib
     return _LIB
 
@@ -295,13 +302,97 @@ def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,
         hl_out, p_out, uc_out)
 
 
+# The walk's plan (csrc/col_walk.cu): G threads a lane, windows of R rows
+# by S slots, two windows a lane in shared memory. A window costs a DRAM
+# page opened for each of its rows and planes, and hides the latency of
+# the steps it serves. With few lanes an SM (at most WALK_FEW_LANES) the
+# latency is what bounds the walk: a warp a lane and tall windows
+# (WALK_WINDOWS, the first whose buffers for an SM's lanes fit
+# WALK_SMEM_SM). With more, the pages opened bound it: 4 threads a lane
+# and a one-row window (WALK_ONE_ROW), which opens the pages of the rows
+# the walk reads and no others (measured with walk_bench.py on an H100).
+# WALK_SMS is the SM count the plan assumes off the card (an H100 SXM).
+WALK_FEW_LANES = 8
+WALK_SMEM_SM = 200 * 1024
+WALK_SMS = 132
+WALK_WINDOWS = {"band": ((128, 64), (64, 64), (32, 32)),
+                "flat": ((32, 64), (16, 48))}
+WALK_ONE_ROW = (1, 16)
+
+
+def walk_lane_bytes(k: int, R: int, S: int, n_tiles: int = 0) -> int:
+    """Shared memory of one walk lane: two windows of R x S slots of the
+    planes read at depth k (1, 2 or 4 bytes a slot) and the lane's tile
+    origins (int32, rounded up to 16 bytes)."""
+    per_slot = 1 + (k >= 2) + 2 * (k >= 4)
+    return 2 * R * S * per_slot + (4 * n_tiles + 15) // 16 * 16
+
+
+def walk_plan(B: int, k: int, *, layout: str = "band", n_tiles: int = 0,
+              sms: int = WALK_SMS) -> dict:
+    """Plan of one column-walk launch over B lanes at depth k on ``sms``
+    SMs: ``G`` threads a lane and an R x S window (see WALK_FEW_LANES),
+    and ``lanes_per_block`` (at most 128 threads a block, and no more
+    lanes a block than an SM's share, so that small launches spread over
+    the SMs). ``lane_bytes`` is a lane's shared memory, ``smem`` a
+    block's."""
+    if layout not in WALK_WINDOWS:
+        raise KernelError(f"[racon_tpu_torch::kernels] bad layout {layout!r}")
+    lanes_sm = max(1, -(-int(B) // int(sms)))
+    if lanes_sm <= WALK_FEW_LANES:
+        G = 32
+        for R, S in WALK_WINDOWS[layout]:
+            lane = walk_lane_bytes(k, R, S, n_tiles)
+            if lanes_sm * lane <= WALK_SMEM_SM:
+                break
+    else:
+        G = 4
+        R, S = WALK_ONE_ROW
+        lane = walk_lane_bytes(k, R, S, n_tiles)
+    lpb = max(1, min(128 // G, lanes_sm))
+    while lpb > 1 and lpb * lane > SMEM_MAX:
+        lpb -= 1
+    return {"G": G, "R": R, "S": S, "lanes_per_block": lpb,
+            "lane_bytes": lane, "smem": lpb * lane}
+
+
+def walk_occupancy(k: int, *, layout: str = "band", emit=torch.int16,
+                   plan: dict) -> dict:
+    """What the walk instantiation for (k, layout, emit) gets on the
+    current card under ``plan``: ``blocks_per_sm``, ``regs`` a thread,
+    ``spills`` (local-memory bytes a thread), ``threads`` and ``smem`` a
+    block. Raises KernelError when the query fails or no block fits."""
+    esize = torch.empty((), dtype=emit).element_size()
+    threads = plan["lanes_per_block"] * plan["G"]
+    out = (ctypes.c_int * 4)()
+    rc = _lib().racon_col_walk_occupancy(int(k), int(layout == "flat"),
+                                         esize, threads, plan["smem"], out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"the walk (k={k}, {layout}, plan {plan}) failed "
+                          f"(cudaError {rc}, {out[0]} blocks an SM)")
+    return {"blocks_per_sm": out[0], "regs": out[1], "spills": out[2],
+            "threads": threads, "smem": plan["smem"]}
+
+
 def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
                     nxt=None, nxt2=None, tile_klo=None, tile_len: int = 0,
-                    emit=torch.int16):
+                    emit=torch.int16, plan=None, refills=None):
     """Column walk (ops/colwalk.py::col_walk's contract), on the "band"
     and "flat" layouts; the flat layout (the full-width forward's planes)
-    has no nxt planes and no tiles, so it walks at k = 1."""
+    has no nxt planes and no tiles, so it walks at k = 1. The kernel
+    takes plane widths W that are multiples of 16 (the port's are
+    multiples of 128) and 16-byte aligned planes.
+
+    On the card: ``plan`` (default :func:`walk_plan`) sets threads a
+    lane, window shape and lanes a block, which change the time and never
+    the outputs; ``refills``, an int32 [B, 2] tensor on the card, receives
+    each lane's windows entered and misses (windows loaded while the walk
+    waited). Neither is taken on the CPU."""
     if cells.device.type == "cpu":
+        if refills is not None:
+            raise KernelError("[racon_tpu_torch::kernels] col_walk counts "
+                              "refills on the card only")
         return col_walk(cells, lq, lt, klo, t_off, LA=LA, layout=layout,
                         nxt=nxt, nxt2=nxt2, tile_klo=tile_klo,
                         tile_len=tile_len, emit=emit)
@@ -330,6 +421,8 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         _check(nxt2, "nxt2", torch.uint16, (Lq, B, W), dev)
     for name, t in (("lq", lq), ("lt", lt), ("t_off", t_off)):
         _check(t, name, torch.int32, (B,), dev)
+    if refills is not None:
+        _check(refills, "refills", torch.int32, (B, 2), dev)
     if flat:
         n_tiles, klo_p = 0, None
     elif tile_klo is not None:
@@ -343,6 +436,15 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         _check(klo, "klo", torch.int32, (B,), dev)
         n_tiles, klo_p = 0, klo.data_ptr()
     k = 4 if nxt2 is not None else (2 if nxt is not None else 1)
+    if plan is None:
+        plan = walk_plan(B, k, layout=layout, n_tiles=n_tiles,
+                         sms=torch.cuda.get_device_properties(
+                             dev).multi_processor_count)
+    if W % 16 or any(p is not None and p.data_ptr() % 16
+                     for p in (cells, nxt, nxt2)):
+        raise KernelError(f"[racon_tpu_torch::kernels] col_walk stages rows "
+                          f"as 16-byte pieces: W={W} must be a multiple of "
+                          "16 and the planes 16-byte aligned")
     out = torch.empty((B, LA + 2, 4), dtype=emit, device=dev)
     sat = torch.empty((B,), dtype=torch.bool, device=dev)
     rc = _lib().racon_col_walk(
@@ -350,11 +452,13 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
         None if nxt2 is None else nxt2.data_ptr(), lq.data_ptr(),
         lt.data_ptr(), klo_p, t_off.data_ptr(),
         None if tile_klo is None else tile_klo.data_ptr(), out.data_ptr(),
-        sat.data_ptr(), B, Lq, W, LA, n_tiles, int(tile_len), k,
-        out.element_size(), int(flat), _stream(dev))
+        sat.data_ptr(), None if refills is None else refills.data_ptr(), B,
+        Lq, W, LA, n_tiles, int(tile_len), k, out.element_size(), int(flat),
+        plan["G"], plan["R"], plan["S"], plan["lanes_per_block"],
+        _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] col_walk launch "
-                          f"failed (cudaError {rc})")
+                          f"failed (cudaError {rc}, plan {plan})")
     LAUNCHES["col_walk"] += 1
     return {"ins_len": out[..., 0], "qstart": out[..., 1],
             "op_c": out[..., 2], "qi_c": out[..., 3], "sat": sat}
@@ -491,17 +595,28 @@ def chain_of_loads(steps: int, stride: int, device, lanes: int = 1,
             stride).clamp_(min=0)
 
 
+# Most entries (int32) the probe's shared mode holds: 48 KB.
+CHASE_SHARED_ENTRIES = 12288
+
+
 def chase(nxt: torch.Tensor, steps: int, lanes: int = 1,
-          lane_stride: int = 0) -> torch.Tensor:
+          lane_stride: int = 0, shared: bool = False) -> torch.Tensor:
     """Lane b follows ``steps`` dependent loads ``i = nxt[i]`` from entry
     ``nxt.numel() - 1 - lane_stride * b``; returns the index each lane
     reaches (int32[lanes]). The latency probe of csrc/probe.cu on a CUDA
-    tensor, a Python loop on a CPU tensor."""
+    tensor (``shared``: through a copy of ``nxt`` in shared memory, at
+    most CHASE_SHARED_ENTRIES entries and 1024 lanes), a Python loop on a
+    CPU tensor."""
     start = nxt.numel() - 1
     if start - lane_stride * (lanes - 1) < 0:
         raise KernelError(f"[racon_tpu_torch::kernels] {lanes} lanes "
                           f"{lane_stride} entries apart start outside the "
                           f"{nxt.numel()}-entry chain")
+    if shared and (nxt.numel() > CHASE_SHARED_ENTRIES or lanes > 1024):
+        raise KernelError(f"[racon_tpu_torch::kernels] the shared-memory "
+                          f"chase takes at most {CHASE_SHARED_ENTRIES} "
+                          f"entries and 1024 lanes, got {nxt.numel()} and "
+                          f"{lanes}")
     if nxt.device.type == "cpu":
         ends = []
         for b in range(lanes):
@@ -517,8 +632,8 @@ def chase(nxt: torch.Tensor, steps: int, lanes: int = 1,
     _check(nxt, "nxt", torch.int32, (nxt.numel(),), dev)
     end = torch.empty((lanes,), dtype=torch.int32, device=dev)
     rc = _lib().racon_chase(nxt.data_ptr(), start, int(lane_stride),
-                            int(lanes), int(steps), end.data_ptr(),
-                            _stream(dev))
+                            int(lanes), int(steps), int(shared),
+                            end.data_ptr(), _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] chase launch failed "
                           f"(cudaError {rc})")

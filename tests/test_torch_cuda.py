@@ -16,12 +16,15 @@ import pytest
 import torch
 
 from racon_tpu_torch.ops import align, kernels, ovl_align
-from racon_tpu_torch.ops.band import (band_geometry, fw_dirs_band_plain,
+from racon_tpu_torch.ops.band import (band_geometry, band_targets,
+                                      fw_dirs_band_plain,
                                       fw_dirs_band_tile_plain, row0_scores,
                                       uc_boundary)
 from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.ops.device_merge import monotone_count_plain
+from racon_tpu_torch.ops.encode import encode_bases
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
+from racon_tpu_torch.utils.synth import _BASES, mutate
 
 pytestmark = pytest.mark.cuda
 
@@ -187,6 +190,202 @@ def test_col_walk_kernel_matches_plain(cuda, k, tiled):
         assert torch.equal(ref[name], out[name].cpu()), name
 
 
+def _reads(seed, B, Lq, err=0.08):
+    """B targets of 3/4 to all of Lq - 8 bases and err-error reads of
+    them cut to Lq, as base codes zero-padded to Lq: (q, t, lq, lt)."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lq), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    for b in range(B):
+        tt = _BASES[rng.integers(0, 4, int(rng.integers(Lq * 3 // 4,
+                                                         Lq - 7)))]
+        qq = mutate(rng, tt, err)[0][:Lq]
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        t[b, :len(tt)] = encode_bases(tt.tobytes())
+        lq[b], lt[b] = len(qq), len(tt)
+    return (torch.from_numpy(q), torch.from_numpy(t), torch.from_numpy(lq),
+            torch.from_numpy(lt))
+
+
+def _reads_case(seed, B, Lq, W):
+    """Band inputs of 8%-error reads of their targets: paths stay near
+    the diagonal. Returns (tband, qT, klo, lq, lt)."""
+    q, t, lq, lt = _reads(seed, B, Lq)
+    klo, _ = band_geometry(lq, lt, W)
+    base = torch.arange(B, dtype=torch.int64) * Lq
+    tband = band_targets(t.reshape(-1), base, klo, lt, W + Lq)
+    return tband, q.t().contiguous(), klo, lq, lt
+
+
+def _edge_case(seed, B, Lq, W):
+    """Random planes whose lanes reach the plane's edges: targets up to W
+    longer or shorter than their queries (paths along slot 0 and slot
+    W - 1), queries far shorter than their targets (the walk reaches row
+    0 long before column 0), and one-base queries and targets."""
+    tband, qT, klo, lq = _band_case(seed, B, Lq, W, W)
+    rng = np.random.default_rng(seed + 1)
+    lt = (lq + torch.from_numpy(rng.integers(-W, W + 1, B)).to(torch.int32)
+          ).clamp(min=1)
+    lq = lq.clone()
+    lq[:4] = torch.tensor([1, 1, 2, Lq], dtype=torch.int32)
+    lt[:4] = torch.tensor([1, Lq, 1, 1], dtype=torch.int32)
+    klo, _ = band_geometry(lq, lt, W)
+    return tband, qT, klo, lq, lt
+
+
+# Walk plans beside the planner's default (None): tiny windows that miss
+# often, four threads a lane with lanes sharing a warp, one lane a warp
+# with windows wider than some planes, and one-row windows (one read a
+# window, nothing prefetched) with eight lanes a warp.
+_WALK_PLANS = [None, {"G": 4, "R": 8, "S": 16, "lanes_per_block": 3},
+               {"G": 8, "R": 24, "S": 32, "lanes_per_block": 5},
+               {"G": 32, "R": 64, "S": 64, "lanes_per_block": 2},
+               {"G": 4, "R": 1, "S": 32, "lanes_per_block": 9}]
+
+
+def _walk_both(cuda, cells, lq, lt, klo, t_off, plans=_WALK_PLANS, **kw):
+    """The plain walk on the CPU and W1 under each plan on the card, with
+    a refill counter: every field equal, bitwise."""
+    ref = col_walk(cells, lq, lt, klo, t_off, **kw)
+    kw_d = {n: (v.to(cuda) if isinstance(v, torch.Tensor) else v)
+            for n, v in kw.items()}
+    args = [None if a is None else a.to(cuda)
+            for a in (cells, lq, lt, klo, t_off)]
+    counts = []
+    for plan in plans:
+        refills = torch.zeros((lq.shape[0], 2), dtype=torch.int32,
+                              device=cuda)
+        out = kernels.col_walk_kernel(*args, plan=plan, refills=refills,
+                                      **kw_d)
+        torch.cuda.synchronize()
+        for name in ("ins_len", "qstart", "op_c", "qi_c", "sat"):
+            assert out[name].dtype == ref[name].dtype
+            assert torch.equal(ref[name], out[name].cpu()), (name, plan)
+        counts.append(refills.cpu())
+    return counts
+
+
+@pytest.mark.parametrize("emit", [torch.int16, torch.int32])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("case", ["reads", "random", "edges"])
+def test_col_walk_kernel_cases(cuda, case, k, emit):
+    """W1 bitwise against the plain walk on a forward of 8%-error reads
+    (near-diagonal paths: windows hit), on random planes (paths wander:
+    windows miss) and on lanes that reach row 0, slot 0 and slot W - 1;
+    B = 37 is no multiple of any plan's lanes a block, and LA + 2 = 4m + 3
+    leaves the last group of four positions partial."""
+    B, Lq, W = 37, 160, 128
+    if case == "reads":
+        tband, qT, klo, lq, lt = _reads_case(31, B, Lq, W)
+    elif case == "random":
+        tband, qT, klo, lq = _band_case(32, B, Lq, W, 20)
+        lt = (lq + torch.from_numpy(np.random.default_rng(33).integers(
+            -20, 21, B)).to(torch.int32)).clamp(min=1)
+    else:
+        tband, qT, klo, lq, lt = _edge_case(34, B, Lq, W)
+    cells, nxt, nxt2, _ = fw_dirs_band_plain(tband, qT, klo, lq, match=5,
+                                             mismatch=-4, gap=-8, W=W,
+                                             nxt_k=k)
+    LA = int(lt.max()) + 24
+    LA += (3 - (LA + 2)) % 4
+    t_off = torch.from_numpy(np.random.default_rng(35).integers(
+        0, 24, B).astype(np.int32))
+    counts = _walk_both(cuda, cells, lq, lt, klo, t_off, LA=LA,
+                        layout="band", nxt=nxt, nxt2=nxt2, emit=emit)
+    for c in counts:
+        assert (c[:, 1] >= 1).all() and (c[:, 0] >= c[:, 1]).all()
+    if case == "reads":
+        # Near-diagonal paths walk from window to window, and most
+        # prefetched windows hold the next cell (24 x 32 windows).
+        per_lane = counts[2].to(torch.float64).mean(dim=0)
+        assert per_lane[1] < per_lane[0] / 2
+
+
+@pytest.mark.parametrize("shift", ["within", "beyond"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_col_walk_kernel_tile_shifts(cuda, k, shift):
+    """The tiled route (int32): tile origins shifted between tiles by less
+    than the windows' 16 slots and by more than their 64, on the planes of
+    a forward of 8%-error reads."""
+    B, Lq, W, T = 29, 192, 128, 32
+    tband, qT, klo, lq, lt = _reads_case(41, B, Lq, W)
+    cells, nxt, nxt2, _ = fw_dirs_band_plain(tband, qT, klo, lq, match=0,
+                                             mismatch=-1, gap=-1, W=W,
+                                             nxt_k=k)
+    rng = np.random.default_rng(42)
+    step = rng.integers(-3, 4, (Lq // T, B)) if shift == "within" else \
+        rng.choice([-70, 70], (Lq // T, B))
+    step[0] = 0
+    tile_klo = (klo[None, :] + torch.from_numpy(
+        np.cumsum(step, axis=0).astype(np.int32))).contiguous()
+    _walk_both(cuda, cells, lq, lt, None, torch.zeros_like(lq), LA=Lq,
+               layout="band", nxt=nxt, nxt2=nxt2, tile_klo=tile_klo,
+               tile_len=T, emit=torch.int32)
+
+
+@pytest.mark.parametrize("emit", [torch.int16, torch.int32])
+def test_flat_col_walk_kernel_plans(cuda, emit):
+    """The flat layout (k=1) under every plan, on full-width planes of
+    8%-error reads and of random codes; LA + 2 not a multiple of four."""
+    B, Lq, Lt = 37, 96, 112
+    rng = np.random.default_rng(51)
+    q, t, lq, lt = _reads(52, B, Lq)
+    tbuf = torch.zeros((B, Lt), dtype=torch.uint8)
+    tbuf[:, :Lq] = t
+    for planes in ("reads", "random"):
+        if planes == "random":
+            q = torch.from_numpy(rng.integers(0, 4, (B, Lq)).astype(np.uint8))
+            tbuf = torch.from_numpy(rng.integers(0, 4, (B, Lt)).astype(
+                np.uint8))
+        cells = fw_dirs_flat_plain(tbuf, q.t().contiguous(), match=5,
+                                   mismatch=-4, gap=-8)
+        t_off = torch.from_numpy(rng.integers(0, 12, B).astype(np.int32))
+        _walk_both(cuda, cells, lq, lt, None, t_off, LA=Lt + 13,
+                   layout="flat", emit=emit)
+
+
+def test_col_walk_kernel_rejects_bad_plans(cuda):
+    """A plan the kernel cannot launch (threads a lane not a power of two,
+    a block past 1024 threads, windows past the shared memory a block may
+    hold) raises, as do planes whose rows are no whole 16-byte pieces (W
+    not a multiple of 16, a plane off 16-byte alignment); nothing falls
+    back."""
+    B, Lq, W = 8, 16, 128
+    cells = torch.zeros((Lq, B, W), dtype=torch.uint8, device=cuda)
+    lq = torch.full((B,), Lq, dtype=torch.int32, device=cuda)
+    for plan in ({"G": 6, "R": 8, "S": 16, "lanes_per_block": 1},
+                 {"G": 32, "R": 8, "S": 16, "lanes_per_block": 64},
+                 {"G": 32, "R": 2048, "S": 128, "lanes_per_block": 1}):
+        with pytest.raises(kernels.KernelError):
+            kernels.col_walk_kernel(cells, lq, lq, lq * 0, lq * 0, LA=Lq,
+                                    layout="band", plan=plan)
+    odd = torch.zeros((Lq, B, 100), dtype=torch.uint8, device=cuda)
+    off = torch.zeros(Lq * B * W + 8, dtype=torch.uint8, device=cuda)[8:]
+    for planes in (odd, off.view(Lq, B, W)):
+        with pytest.raises(kernels.KernelError):
+            kernels.col_walk_kernel(planes, lq, lq, lq * 0, lq * 0, LA=Lq,
+                                    layout="band")
+
+
+def test_walk_plans_fit_the_card(cuda):
+    """The planner's plans for the main path's four walks launch on this
+    card: at least one block an SM, no spills, and every lane of a
+    one-wave launch resident at once."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for B, k, layout, n_tiles, emit in ((384, 2, "band", 5, torch.int32),
+                                        (128, 4, "band", 0, torch.int16),
+                                        (4096, 4, "band", 0, torch.int16),
+                                        (1024, 1, "flat", 0, torch.int16)):
+        plan = kernels.walk_plan(B, k, layout=layout, n_tiles=n_tiles,
+                                 sms=sms)
+        occ = kernels.walk_occupancy(k, layout=layout, emit=emit, plan=plan)
+        assert occ["spills"] == 0
+        blocks = -(-B // plan["lanes_per_block"])
+        assert occ["blocks_per_sm"] * sms >= blocks, (B, plan, occ)
+
+
 @pytest.mark.parametrize("emit", [torch.int16, torch.int32])
 @pytest.mark.parametrize("scoring", [(5, -4, -8), (0, -1, -1)])
 def test_flat_col_walk_kernel_matches_plain(cuda, emit, scoring):
@@ -281,15 +480,20 @@ def test_nw_align_batch_cuda_matches_cpu(cuda, scoring):
 def test_chase_kernel_matches_plain(cuda):
     """The latency probe (csrc/probe.cu) reaches the indices its plain
     version reaches, one lane and 40 lanes, chains cut at several
-    depths."""
-    for lanes, lane_stride in ((1, 0), (40, 7)):
-        loads = kernels.chain_of_loads(300, 1000, "cpu", lanes=lanes,
+    depths, through device memory and through shared memory."""
+    for lanes, lane_stride, stride in ((1, 0, 1000), (40, 7, 1000),
+                                       (1, 0, 30), (40, 7, 30)):
+        loads = kernels.chain_of_loads(300, stride, "cpu", lanes=lanes,
                                        lane_stride=lane_stride)
         on_card = loads.to(cuda)
         for steps in (0, 1, 123, 300):
             want = kernels.chase(loads, steps, lanes, lane_stride)
             got = kernels.chase(on_card, steps, lanes, lane_stride)
             assert torch.equal(got.cpu(), want)
+            if loads.numel() <= kernels.CHASE_SHARED_ENTRIES:
+                got = kernels.chase(on_card, steps, lanes, lane_stride,
+                                    shared=True)
+                assert torch.equal(got.cpu(), want)
     with pytest.raises(kernels.KernelError):
         kernels.chase(on_card, 1, lanes=10 ** 6, lane_stride=1000)
 

@@ -2,8 +2,8 @@
 
 A fresh interpreter imports ``racon_tpu_torch`` and every module of the
 package, then reports which modules are loaded; a static scan checks
-that no source file of the port names ``jax`` or ``racon_tpu.`` in an
-import statement.
+that no source file of the port, nor its scripts at the repository root,
+names ``jax`` or ``racon_tpu.`` in an import statement.
 """
 
 import ast
@@ -35,7 +35,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    for script in ("chip_smoke.py", "band_edits.py", "walk_bench.py"):
+        yield os.path.join(ROOT, script)
 
 
 def _forbidden(name: str) -> bool:
