@@ -22,37 +22,46 @@ row. The edits tried, kept or not:
   384-thread blocks an SM (the W=1536 tier's block);
 - ``left`` (not kept): slot x0-1 recomputed by each thread from the
   scan's exclusive prefix, instead of exchanged through shared memory
-  behind a block barrier.
+  behind a block barrier;
+- ``spt2`` (kept; variant ``spt4`` is the kept body without it): K1 at
+  1024 <= W <= 2048 with two band slots a thread instead of four (W/2
+  threads a block, a two-slot vector store), twice the warps to hide
+  each row's latency at half the blocks an SM. The tiled kernel keeps
+  four.
 
 The base variant ``before`` is the source with the kept edits reverted
 by text replacement (the body before the edits); every other variant
 applies some edits to that base, and applying the kept ones must give
 the source back (variant ``kept``). All variants compile at once (one
 nvcc each) under the build directory and load with ctypes. Each runs
-the same inputs: K3
-on tile 1 of an overlap group of G x 64 lanes (G from the group planner
-at W=1536, T=2048, k=2) from tile 0's frontier, K3 on the first 64 of
-those lanes, and K1 at the consensus shape (B=4096, Lq=640, W=256, k=4)
-and on an untiled overlap chunk (B=128, Lq=6144, W=1024, k=4). Every
+the same inputs: K3 on tile 1 of an overlap group of G x 64 lanes (G
+from the group planner at W=1536, T=2048, k=2) from tile 0's frontier,
+K3 on the first 64 of those lanes, K1 at the consensus shape (B=4096,
+Lq=640, W=256, k=4), on an untiled overlap chunk as phase 3 of
+chip_smoke.py runs it (B=128, Lq=6144, W=1024, k=4), and on the main
+path's untiled overlap bucket (3 chunks of 128 lanes at Lq=8192, W=1536,
+k=2) in one launch of 384 lanes, which runs in as many waves as the
+variant's occupancy gives (as its groups would), and on its first chunk
+(B=128). ``--variants a,b`` builds and times only those. Every
 variant's outputs must equal the current library's bitwise
 (chip_smoke.py holds that library against the plain versions). Times
-are medians of CUDA-event timings taken in turns (variants in order,
-then in reverse, ``reps`` times). Prints one JSON line a case, with each
-variant's ms, registers, spills and blocks an SM, then the card's name
-and power limit.
+are warm medians of CUDA-event timings taken in turns (variants in
+order, then in reverse, ``reps`` times: chip_smoke.time_turns). Prints one JSON line a case, with each
+variant's ms, ms a lane, registers, spills and blocks an SM, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import sys
 
-import numpy as np
-
-from chip_smoke import (band_inputs, card, fail, max_abs_err, overlap_chunk)
+from chip_smoke import (band_inputs, card, fail, max_abs_err, overlap_chunk,
+                        time_turns)
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "racon_tpu_torch", "csrc", "band_fwd.cu")
@@ -144,15 +153,48 @@ EDITS = {
                          : dl;
       }
 """)],
+    "spt2": [(
+        """template <>
+struct Vec<4> {
+""",
+        """template <>
+struct Vec<2> {
+  static __device__ void put8(uint8_t* p, const int* v) {
+    *reinterpret_cast<uint16_t*>(p) =
+        (uint16_t)((v[0] & 0xff) | ((v[1] & 0xff) << 8));
+  }
+  static __device__ void put16(uint16_t* p, const int* v) {
+    *reinterpret_cast<uint32_t*>(p) =
+        (uint32_t)(v[0] & 0xffff) | ((uint32_t)(v[1] & 0xffff) << 16);
+  }
+};
+template <>
+struct Vec<4> {
+"""), (
+        """  (void)tiled;
+  return (W % 4) == 0 ? 4 : 1;
+""",
+        """  if (!tiled && W >= 1024 && W <= 2048 && W % 2 == 0) return 2;
+  return (W % 4) == 0 ? 4 : 1;
+"""), (
+        """  return band_spt(tiled, W) == 4 ? band_kernel_spt<4>(tiled, k)
+                                 : band_kernel_spt<1>(tiled, k);
+""",
+        """  switch (band_spt(tiled, W)) {
+    case 4: return band_kernel_spt<4>(tiled, k);
+    case 2: return band_kernel_spt<2>(tiled, k);
+    default: return band_kernel_spt<1>(tiled, k);
+  }
+""")],
 }
-KEPT = ("reduce", "i32", "active")
+KEPT = ("reduce", "i32", "active", "spt2")
 VARIANTS = {"before": (), "reduce": ("reduce",), "i32": ("i32",),
             "active": ("active",), "prmt": ("prmt",),
             "bounds2": ("bounds2",), "bounds3": ("bounds3",),
             "left": ("left",), "reduce+i32": ("reduce", "i32"),
             "kept": KEPT, "kept+prmt": KEPT + ("prmt",),
             "kept+bounds2": KEPT + ("bounds2",),
-            "kept+left": KEPT + ("left",)}
+            "kept+left": KEPT + ("left",), "spt4": KEPT[:-1]}
 
 
 def _swap(src: str, name: str, pairs) -> str:
@@ -172,9 +214,9 @@ def variant_source(src: str, applied) -> str:
     return src
 
 
-def build_variants() -> dict:
-    """One shared library a variant, compiled at once; returns name ->
-    ctypes library."""
+def build_variants(names) -> dict:
+    """One shared library for each variant in ``names``, compiled at once;
+    returns name -> ctypes library."""
     from racon_tpu_torch.native.build import build_dir, content_tag, run_build
     from racon_tpu_torch.ops import kernels
     with open(_SRC) as f:
@@ -185,10 +227,10 @@ def build_variants() -> dict:
     out = os.path.join(build_dir(), "band_edits")
     os.makedirs(out, exist_ok=True)
     paths, cmds = {}, []
-    for name, reverted in VARIANTS.items():
+    for name in names:
         cu = os.path.join(out, f"{name}.cu")
         with open(cu, "w") as f:
-            f.write(variant_source(src, reverted))
+            f.write(variant_source(src, VARIANTS[name]))
         tag = content_tag([cu], kernels.NVCC_FLAGS)
         paths[name] = os.path.join(out, f"lib{name}.{tag}.so")
         if not os.path.isfile(paths[name]):
@@ -269,13 +311,15 @@ def untiled_case(device, args, Lq, W, k, sc):
     B = args[0].shape[0]
     cells = torch.empty((Lq, B, W), dtype=torch.uint8, device=device)
     nxt = torch.empty_like(cells)
-    nxt2 = torch.empty((Lq, B, W), dtype=torch.uint16, device=device)
+    nxt2 = (torch.empty((Lq, B, W), dtype=torch.uint16, device=device)
+            if k >= 4 else None)
     hl = torch.empty((B, W), dtype=torch.int32, device=device)
 
     def run(lib):
         rc = lib.racon_band_fwd(*(a.data_ptr() for a in args),
                                 cells.data_ptr(), nxt.data_ptr(),
-                                nxt2.data_ptr(), hl.data_ptr(), B, Lq, W,
+                                None if nxt2 is None else nxt2.data_ptr(),
+                                hl.data_ptr(), B, Lq, W,
                                 sc["match"], sc["mismatch"], sc["gap"], k,
                                 torch.cuda.current_stream().cuda_stream)
         if rc:
@@ -290,11 +334,12 @@ def consensus_case(device, B=4096, Lq=640, W=256, k=4):
                         dict(match=5, mismatch=-4, gap=-8))
 
 
-def overlap_case(device, B=128, W=1024, k=4):
-    """An untiled overlap chunk as phase 3 of chip_smoke.py runs it."""
+def overlap_case(device, B=128, L=5400, W=1024, k=4, seed=6):
+    """Untiled overlap lanes of L-base reads: by default a chunk as phase
+    3 of chip_smoke.py runs it."""
     import torch
     from racon_tpu_torch.ops.band import band_targets
-    c = overlap_chunk(device, B, 5400, W, T=2048, tiled=False, seed=6)
+    c = overlap_chunk(device, B, L, W, T=2048, tiled=False, seed=seed)
     Lq = c["Lq"]
     base = torch.arange(B, dtype=torch.int64, device=device) * Lq
     args = (band_targets(c["t"].reshape(-1), base, c["klo"], c["lt"],
@@ -306,15 +351,23 @@ def overlap_case(device, B=128, W=1024, k=4):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variants to build and time")
     opts = ap.parse_args()
+    names = opts.variants.split(",")
+    if any(n not in VARIANTS for n in names):
+        fail(f"--variants: choose from {', '.join(VARIANTS)}")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     from racon_tpu_torch.ops import ovl_align
     name_limit = card()
-    libs = build_variants()
+    libs = build_variants(names)
     dev = "cuda"
     G = ovl_align.group_size(64, 1536, 2048, 2, dev)
+    # The main path's untiled bucket: 3 chunks of reads up to ~8 kb,
+    # Lq=8192, W=1536.
+    main_untiled = dict(L=7500, W=1536, k=2, seed=12)
     cases = [("band_tile_fwd group", G * 64, (True, 1536, 2048, 2),
               lambda: tile_case(dev, G * 64)),
              ("band_tile_fwd 64 lanes", 64, (True, 1536, 2048, 2),
@@ -322,30 +375,26 @@ def main() -> int:
              ("band_fwd consensus k=4", 4096, (False, 256, 640, 4),
               lambda: consensus_case(dev)),
              ("band_fwd overlap untiled k=4", 128, (False, 1024, 6144, 4),
-              lambda: overlap_case(dev))]
+              lambda: overlap_case(dev)),
+             ("band_fwd overlap untiled bucket of 3 chunks k=2",
+              3 * ovl_align.TB, (False, 1536, 8192, 2),
+              lambda: overlap_case(dev, 3 * ovl_align.TB, **main_untiled)),
+             ("band_fwd overlap untiled chunk k=2", ovl_align.TB,
+              (False, 1536, 8192, 2),
+              lambda: overlap_case(dev, ovl_align.TB, **main_untiled))]
     for case, B, geo, make in cases:
         run, ref = make()
         rec = {}
-        times = {n: [] for n in libs}
         for name, lib in libs.items():
             err = max_abs_err(ref, run(lib))
             if err:
                 fail(f"{case}: variant {name!r} disagrees with the current "
                      f"library (max_abs_err={err})")
             rec[name] = occupancy(lib, *geo)
-        order = list(libs) + list(reversed(libs))
-        for _ in range(opts.reps):
-            for name in order:
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                run(libs[name])
-                b.record()
-                torch.cuda.synchronize()
-                times[name].append(a.elapsed_time(b))
-        for name in libs:
-            rec[name]["ms"] = float(np.median(times[name]))
-            rec[name]["max_abs_err"] = 0
+        times = time_turns([functools.partial(run, lib)
+                            for lib in libs.values()], opts.reps)
+        for name, ms in zip(libs, times):
+            rec[name].update(ms=ms, ms_per_lane=ms / B, max_abs_err=0)
         print(json.dumps({"case": case, "B": B, "card": name_limit,
                           "variants": rec}), flush=True)
         del run, ref

@@ -12,15 +12,22 @@ any failure exits non-zero and prints no result):
               blocks an SM on this card;
 2. kernels    each kernel against its plain PyTorch version on the card,
               bitwise, at the main path's shapes; kernel and plain times
-              from CUDA events: band_fwd (K1) at the consensus shape and
-              on an untiled overlap chunk (128 lanes, Lq=6144, W=1024,
-              k=4), band_tile_fwd (K3) on tile 1 of an overlap group of
-              G chunks of 64 lanes (G from the group planner, as the
-              main path launches it) from tile 0's frontier and on its
-              first 64 lanes, flat_fwd (K2), and col_walk (W1) on the
-              group's stitched planes (tiled, int32), on the untiled
-              chunk (int16), at the consensus shape (k=4, int16) on K1's
-              planes of random inputs and of 8%-error reads, and on K2's
+              from CUDA events: band_fwd (K1) at the consensus shape, on
+              an untiled overlap chunk as phase 3 runs it (128 lanes,
+              Lq=6144, W=1024, k=4) and on the main path's untiled
+              bucket as the path launches it (3 chunks of 128 lanes at
+              Lq=8192, W=1536, k=2, in the group planner's launch groups
+              of G chunks; each chunk launched alone must give its slice
+              of its group's outputs, and the groups are timed in turns
+              against the chunks launched one at a time), band_tile_fwd
+              (K3) on tile 1 of an overlap group of G chunks of 64 lanes
+              (G from the group planner, as the main path launches it)
+              from tile 0's frontier and on its first 64 lanes, flat_fwd
+              (K2), and col_walk (W1) on the group's stitched planes
+              (tiled, int32), on the untiled chunk and the untiled
+              bucket's groups (int16; timed in turns against its chunks'
+              walks), at the consensus shape (k=4, int16) on K1's planes
+              of random inputs and of 8%-error reads, and on K2's
               full-width planes (flat layout, k=1). Each walk's bound is
               the larger of its bytes bound and its serial floor, its
               chain_len dependent loads through shared memory; beside it
@@ -41,8 +48,10 @@ any failure exits non-zero and prints no result):
               30x, PAF overlaps aligned on the card (tiled route), w=500.
               Launch counts reset just before and read just after;
               band_fwd, band_tile_fwd and col_walk must have launched,
-              band_tile_fwd once a tile of each launch group, every
-              tiled bucket of more than one chunk in groups of G > 1, the
+              band_tile_fwd once a tile of each launch group, band_fwd
+              once for each untiled launch group beside the consensus
+              forward's launches, every bucket of more than one chunk
+              (tiled or untiled) in groups of G > 1, the
               consensus engine must have walked on the card (col_walk
               launches inside the stage clock's walk stage) and the
               overlap aligner must have handled jobs on the card. The
@@ -136,6 +145,26 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, "card": CARD, **kw}), flush=True)
 
 
+def time_turns(fns, reps: int = 5):
+    """Warm medians of ``reps`` timed calls of each function (CUDA
+    events), taken in turns: in order, then in reverse."""
+    import torch
+    for fn in fns:
+        fn()
+    ts = [[] for _ in fns]
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    for _ in range(reps):
+        for i in order:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[i]()
+            b.record()
+            torch.cuda.synchronize()
+            ts[i].append(a.elapsed_time(b))
+    return [float(np.median(t)) for t in ts]
+
+
 def time_ms(fn, reps: int = 5) -> float:
     """Warm median of ``reps`` timed calls (CUDA events)."""
     import torch
@@ -174,7 +203,10 @@ def bound(nbytes: float, ops: float):
     return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
 
-def max_abs_err(ref, out) -> int:
+def max_abs_err(ref, out, block: int = 1 << 27) -> int:
+    """Largest |ref - out| over pairs of tensors (u8/u16/i16 compared as
+    unsigned), a block of about ``block`` elements at a time along dim 0,
+    so that a group's planes (billions of elements) need little scratch."""
     import torch
     err = 0
     for r, o in zip(ref, out):
@@ -184,13 +216,16 @@ def max_abs_err(ref, out) -> int:
             continue
         if r.dtype == torch.uint16:
             r, o = r.view(torch.int16), o.view(torch.int16)
-        if r.dtype in (torch.int16, torch.uint8):
-            r = r.to(torch.int32) & (0xFFFF if r.dtype == torch.int16
-                                     else 0xFF)
-            o = o.to(torch.int32) & (0xFFFF if o.dtype == torch.int16
-                                     else 0xFF)
-        d = (r.to(torch.int64) - o.to(torch.int64)).abs().max().item()
-        err = max(err, int(d))
+        mask = {torch.int16: 0xFFFF, torch.uint8: 0xFF}.get(r.dtype)
+        if r.dim() == 0:
+            r, o = r.reshape(1), o.reshape(1)
+        step = max(1, block // max(1, r[0].numel()))
+        for i in range(0, r.shape[0], step):
+            a = r[i:i + step].to(torch.int64)
+            b = o[i:i + step].to(torch.int64)
+            if mask is not None:
+                a, b = a & mask, b & mask
+            err = max(err, int((a - b).abs().max().item()))
     return err
 
 
@@ -391,7 +426,7 @@ def phase_build_occupancy():
     at each tiled tier (ops/budget.py TILE_TIERS) and walk depth."""
     from racon_tpu_torch.ops.budget import TILE_TIERS
     cases = [("band_fwd", 256, 640, 4), ("band_fwd", 256, 640, 2),
-             ("band_fwd", 1024, 6144, 4)]
+             ("band_fwd", 1024, 6144, 4), ("band_fwd", 1536, 8192, 2)]
     cases += sorted({("band_tile_fwd", W, T, k) for _, W, T, _ in TILE_TIERS
                      for k in (2, 4)})
     return [dict(kernel=n, W=W, rows=rows, nxt_k=k,
@@ -478,10 +513,11 @@ def phase_overlap_kernels(device, lanes=64, L=9900, W=1536, T=2048):
 
 
 def phase_untiled_overlap_kernels(device, B=128, L=5400, W=1024):
-    """K1 and W1 on an untiled overlap chunk as phase 3 and the main
-    path's short reads run it (128 lanes of ~5.4 kb, W=1024, Lq = LA =
-    6144, the untiled route's walk depth, int16 emission): both bitwise
-    against their plain versions."""
+    """K1 and W1 on an untiled overlap chunk as phase 3 runs it (128 lanes
+    of ~5.4 kb, W=1024, Lq = LA = 6144, the untiled route's walk depth,
+    int16 emission): both bitwise against their plain versions. Then the
+    main path's untiled launch group (:func:`untiled_group_kernels`),
+    whose records it returns."""
     import torch
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.band import band_targets, fw_dirs_band_plain
@@ -506,9 +542,106 @@ def phase_untiled_overlap_kernels(device, B=128, L=5400, W=1024):
         fail(f"band_fwd (overlap untiled) disagrees with its plain version "
              f"(max_abs_err={err})")
     cells, nxt, nxt2, _ = out
-    return walk_case("overlap untiled", cells, c["lq"], c["lt"], c["klo"],
-                     torch.zeros_like(c["lq"]), LA=Lq, layout="band",
-                     nxt=nxt, nxt2=nxt2)
+    walk_case("overlap untiled", cells, c["lq"], c["lt"], c["klo"],
+              torch.zeros_like(c["lq"]), LA=Lq, layout="band", nxt=nxt,
+              nxt2=nxt2)
+    del out, cells, nxt, nxt2
+    return untiled_group_kernels(device)
+
+
+def untiled_group_kernels(device, n_chunks=3, L=7500, W=1536, Lq=8192,
+                          LA=10240):
+    """K1 and W1 on the main path's untiled bucket as the path launches it:
+    ``n_chunks`` chunks of 128 lanes of reads up to ~8 kb (those at
+    contig ends: Lq = 8192, LA = 10240, W = 1536, the route's walk depth),
+    in the group planner's launch groups (G chunks a group from K1's
+    occupancy, one wave of the card), one K1 launch and one walk a group.
+    Each group is held bitwise against the plain versions, and each chunk
+    launched alone must give its slice of its group's outputs. The
+    records' ms is the first group's launch (G x 128 lanes, beside its
+    bound); ``bucket_ms`` is every group of the bucket and ``chunks_ms``
+    the bucket's chunks launched one at a time, timed in turns in this
+    call. Returns the K1 and W1 records."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.band import band_targets, fw_dirs_band_plain
+    from racon_tpu_torch.ops.ovl_align import (TB, group_mem_cap, group_size,
+                                               plan_groups, untiled_walk_k)
+    k = 4 if untiled_walk_k(Lq, W) >= 4 else 2
+    G = group_size(TB, W, Lq, k, device, tiled=False)
+    groups = plan_groups([TB] * n_chunks, G, Lq * W * (4 if k >= 4 else 2),
+                         group_mem_cap(device))
+    B = n_chunks * TB
+    c = overlap_chunk(device, B, L, W, T=2048, tiled=False, seed=12)
+    if c["Lq"] != Lq:
+        fail(f"untiled bucket: reads padded to {c['Lq']} rows, not {Lq}")
+    base = torch.arange(B, dtype=torch.int64, device=device) * Lq
+    tband = band_targets(c["t"].reshape(-1), base, c["klo"], c["lt"], W + Lq)
+    qT = c["q"].t().contiguous()
+    zeros = torch.zeros_like(c["lq"])
+    sc = dict(match=0, mismatch=-1, gap=-1, W=W, nxt_k=k)
+
+    def lanes(s):
+        """(K1 arguments, walk lane arguments) of the lanes in slice s."""
+        return ((tband[s], qT[:, s].contiguous(), c["klo"][s], c["lq"][s]),
+                (c["lq"][s], c["lt"][s], c["klo"][s], zeros[s]))
+    g_lanes = [lanes(slice(g[0] * TB, (g[-1] + 1) * TB)) for g in groups]
+    c_lanes = [lanes(slice(i * TB, (i + 1) * TB)) for i in range(n_chunks)]
+    case = f"untiled overlap group of {len(groups[0])} chunks"
+    outs, plain_ms, err = [], [], 0
+    for ka, _ in g_lanes:
+        outs.append(kernels.fw_dirs_band(*ka, **sc))
+        ref, ms_plain = timed_once(lambda: fw_dirs_band_plain(*ka, **sc))
+        plain_ms.append(ms_plain)
+        err = max(err, max_abs_err(ref, outs[-1]))
+        del ref
+    alone = [kernels.fw_dirs_band(*ka, **sc) for ka, _ in c_lanes]
+    for g, out in zip(groups, outs):
+        for j, ci in enumerate(g):
+            s = slice(j * TB, (j + 1) * TB)
+            err = max(err, max_abs_err(
+                [None if p is None else p[:, s] for p in out[:3]] +
+                [out[3][s]], alone[ci]))
+    ms, bucket_ms, chunks_ms = time_turns(
+        [lambda: kernels.fw_dirs_band(*g_lanes[0][0], **sc),
+         lambda: [kernels.fw_dirs_band(*ka, **sc) for ka, _ in g_lanes],
+         lambda: [kernels.fw_dirs_band(*ka, **sc) for ka, _ in c_lanes]])
+    bms, by = band_bound(len(groups[0]) * TB, Lq, W, k)
+    k1 = dict(max_abs_err=err, ms=ms, bucket_ms=bucket_ms,
+              chunks_ms=chunks_ms, plain_ms=plain_ms[0], bound_ms=bms,
+              bound_by=by, G=G, **band_occ(W, Lq, k, False))
+    emit("kernels", kernel="band_fwd", case=case, nxt_k=k,
+         shape=[len(groups[0]) * TB, Lq, W], groups=groups, **k1)
+    if err:
+        fail(f"band_fwd ({case}) disagrees with its plain version or with "
+             f"its chunks launched alone (max_abs_err={err})")
+
+    def walks(planes, lane_args):
+        return [kernels.col_walk_kernel(p[0], *wa, LA=LA, layout="band",
+                                        nxt=p[1], nxt2=p[2])
+                for p, (_, wa) in zip(planes, lane_args)]
+    w1 = [walk_case(f"{case} (group {gi})", out[0], *wa, LA=LA,
+                    layout="band", nxt=out[1], nxt2=out[2])
+          for gi, (out, (_, wa)) in enumerate(zip(outs, g_lanes))][0]
+    for g, got in zip(groups, walks(outs, g_lanes)):
+        for j, want in enumerate(walks([alone[ci] for ci in g],
+                                       [c_lanes[ci] for ci in g])):
+            s = slice(j * TB, (j + 1) * TB)
+            err = max_abs_err([got[n][s] for n in WALK_FIELDS],
+                              [want[n] for n in WALK_FIELDS])
+            if err:
+                fail(f"col_walk ({case}): a chunk walked alone differs from "
+                     f"its slice of its group's walk (max_abs_err={err})")
+    w1["ms"], w1["bucket_ms"], w1["chunks_ms"] = time_turns(
+        [lambda: walks(outs[:1], g_lanes[:1]), lambda: walks(outs, g_lanes),
+         lambda: walks(alone, c_lanes)])
+    w1["G"] = G
+    emit("untiled_bucket", chunks=n_chunks, G=G, groups=groups,
+         shape=[B, Lq, W], LA=LA, nxt_k=k, band_fwd_ms=ms,
+         band_fwd_bucket_ms=bucket_ms, band_fwd_chunks_ms=chunks_ms,
+         col_walk_ms=w1["ms"], col_walk_bucket_ms=w1["bucket_ms"],
+         col_walk_chunks_ms=w1["chunks_ms"])
+    return {("band_fwd", "untiled"): k1, ("col_walk", "untiled"): w1}
 
 
 def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
@@ -790,8 +923,10 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     launches = dict(kernels.LAUNCHES)
     ovl = dict(ovl_align.STATS)
     groups = [dict(g) for g in ovl_align.TILED_GROUPS]
+    ugroups = [dict(g) for g in ovl_align.UNTILED_GROUPS]
     stages = clock.ms()
     walks = clock.launches().get("walk", {}).get("col_walk", 0)
+    k1_consensus = clock.launches().get("forward", {}).get("band_fwd", 0)
     device_poa.set_stage_clock(False)
     if rc:
         fail(f"main run failed: {err[-3000:]}")
@@ -812,7 +947,8 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
          consensus_s=cons_s, windows_per_s=n_windows / cons_s,
          windows_per_s_end_to_end=n_windows / wall,
          align_s=phases.get("aligned overlaps"), phase_s=phases,
-         ovl=ovl, tiled_groups=groups, stage_ms=stages,
+         ovl=ovl, tiled_groups=groups, untiled_groups=ugroups,
+         stage_ms=stages,
          max_memory_allocated=peak,
          launches=launches, consensus_walks=walks, redo_windows=flagged,
          host_windows=host,
@@ -830,19 +966,29 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     if not launches["band_tile_fwd"] == ovl["tiles"] == tile_launches:
         fail(f"main run: band_tile_fwd launched {launches['band_tile_fwd']} "
              f"times, not groups x tiles = {tile_launches}")
-    for g in groups:
+    for g in groups + ugroups:
         if g["chunks"] > 1 and (g["G"] <= 1 or g["groups"] >= g["chunks"]):
-            fail(f"main run: tiled bucket {g} was not grouped")
+            fail(f"main run: bucket {g} was not grouped")
+    # One K1 launch and one walk for each untiled group, beside the
+    # consensus forward's K1 launches.
+    untiled = sum(g["groups"] for g in ugroups)
+    if launches["band_fwd"] != k1_consensus + untiled:
+        fail(f"main run: band_fwd launched {launches['band_fwd']} times, not "
+             f"{k1_consensus} consensus + {untiled} untiled groups")
     if "aligned overlaps" not in phases:
         fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
         fail(f"main run: polished ED {ed_pol} > draft ED {ed_draft} / 3")
     # W1's launches by case: the tiled groups, the consensus walks and the
-    # untiled overlap chunks (the rest).
+    # untiled groups; K1's: the consensus forward and the untiled groups.
     tiled = sum(g["groups"] for g in groups)
-    walk_launches = {"tiled": tiled, "consensus": walks,
-                     "untiled": launches["col_walk"] - tiled - walks}
-    return launches, walk_launches, p
+    if launches["col_walk"] != tiled + walks + untiled:
+        fail(f"main run: col_walk launched {launches['col_walk']} times, not "
+             f"{tiled} tiled + {walks} consensus + {untiled} untiled")
+    by_case = {("col_walk", 0): tiled, ("col_walk", "consensus"): walks,
+               ("col_walk", "untiled"): untiled,
+               ("band_fwd", 4): k1_consensus, ("band_fwd", "untiled"): untiled}
+    return launches, by_case, p
 
 
 def phase_flat(device, tmp, contig_len=100000):
@@ -1033,43 +1179,46 @@ def main() -> int:
 
     recs = phase_kernels("cuda")
     recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
-    recs[("col_walk", "untiled")] = phase_untiled_overlap_kernels("cuda")
+    recs.update(phase_untiled_overlap_kernels("cuda"))
     recs.update({(n, 0): r for n, r in
                  phase_op_string_kernels("cuda").items()})
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
-        main_launches, walk_launches, main_paths = phase_main("cuda", tmp)
+        main_launches, main_by_case, main_paths = phase_main("cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
         op_launches = phase_op_strings("cuda", main_paths)
 
     rows = []
     for (name, k), r in recs.items():
-        if name == "band_fwd" and k != 4:
+        if (name, k) == ("band_fwd", 2):
             continue
         # Each kernel's launches on the path that runs it: the band-off
         # path for K2 and the flat walk, the op-string route for K4, T1
-        # and K5, the main path for the rest; W1's by case.
+        # and K5, the main path for the rest; K1's and W1's by case.
         if k == "flat":
             launches = flat_launches["col_walk_flat"]
-        elif name == "col_walk":
-            launches = walk_launches["tiled" if k == 0 else k]
+        elif (name, k) in main_by_case:
+            launches = main_by_case[(name, k)]
         else:
             launches = (flat_launches if name == "flat_fwd" else
                         op_launches if name in ("nw_fwd", "nw_traceback",
                                                 "monotone_count")
                         else main_launches)[name]
-        label = {"flat": "flat layout", "untiled": "untiled overlap chunk",
-                 "consensus": "consensus", 0: "tiled overlap group"}
+        label = {"flat": "flat layout", "untiled": "untiled overlap group",
+                 "consensus": "consensus", 4: "consensus",
+                 0: "tiled overlap group"}
         rows.append({
-            "name": f"{name} ({label[k]})" if name == "col_walk" else name,
+            "name": (f"{name} ({label[k]})" if name in ("col_walk", "band_fwd")
+                     else name),
             "route": "cuda",
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{n: r[n] for n in ("chain_floor_ms", "serial_floor_ms",
+            **{n: r[n] for n in ("bucket_ms", "chunks_ms", "G",
+                                 "chain_floor_ms", "serial_floor_ms",
                                  "windows_per_lane", "misses_per_lane",
                                  "regs", "spills", "blocks_per_sm",
                                  "smem_per_block") if n in r}})

@@ -14,7 +14,8 @@
 //   bitwise against ops/band.py::fw_dirs_band_tile_plain.
 //
 // Design: one block per lane (job); each thread owns SPT consecutive band
-// slots x; the query rows run in a loop inside the block. The lane's
+// slots x (4, or 2 for K1 at 1024 <= W <= 2048: band_spt below); the
+// query rows run in a loop inside the block. The lane's
 // pre-shifted target window tband[b, 0 : W+rows) and its query column are
 // staged in shared memory once. Per row:
 //   - diag neighbour = slot x of the previous row, up neighbour = slot
@@ -38,18 +39,23 @@
 // Output layout is the plain twin's "band" layout [Lq, B, W]: a lane's
 // row is W contiguous bytes, written as SPT-wide vector stores.
 //
-// Filling the card. A tiled overlap chunk has the reference's 64 lanes
-// (ops/budget.py admission rules), so one chunk is 64 blocks on 132 SMs.
-// The admission cap sizes a chunk; the group planner in ops/ovl_align.py
-// sizes a launch: it concatenates consecutive chunks of one tiled bucket
-// (they share Lq, W, T and k) into one launch of as many lanes as fill
-// one wave, blocks_per_SM x SMs, from racon_band_occupancy below. At
-// W=1536 the tiled body takes 56 registers a thread, so three 384-thread
-// blocks share an SM (G = 6 chunks a launch on an H100) and each SM
-// interleaves their row chains. The tiled kernel carries no
+// Filling the card. An overlap chunk has the reference's lanes: 64 on
+// the tiled route, 128 on the untiled one (ops/budget.py admission rules,
+// ops/ovl_align.py TB), so one chunk is 64 or 128 blocks on 132 SMs, one
+// block an SM. The admission cap sizes a chunk; the group planner in
+// ops/ovl_align.py sizes a launch: it concatenates consecutive chunks of
+// one bucket (they share Lq, W, k and, tiled, T) into one launch of as
+// many lanes as fill one wave, blocks_per_SM x SMs, from
+// racon_band_occupancy below, so each SM interleaves the row chains of
+// several lanes. At W=1536 and k=2 the tiled body takes 56 registers a
+// thread, so three 384-thread blocks share an SM (G = 6 tiled chunks a
+// launch on an H100); the untiled body there runs 768 threads of two
+// slots at 38 registers, two blocks an SM (G = 2 untiled chunks). The
+// kernels carry no
 // __launch_bounds__: a floor of 2 or 3 resident blocks on the body
 // before the cuts made ptxas schedule it differently and K3 8-14% slower
-// (band_edits.py).
+// (band_edits.py). A group's planes pass 2^31 elements (3 untiled chunks
+// at Lq=8192, W=1536: 4.8e9), so every plane offset is 64-bit.
 //
 // Bound. K1 at its main-path shape (B=4096, Lq=640, W=256, k=4): the
 // planes write B*Lq*W*(1+1+2) bytes ~ 2.7 GB (~0.8 ms at 3.35 TB/s), and
@@ -90,6 +96,17 @@ template <>
 struct Vec<1> {
   static __device__ void put8(uint8_t* p, const int* v) { p[0] = (uint8_t)v[0]; }
   static __device__ void put16(uint16_t* p, const int* v) { p[0] = (uint16_t)v[0]; }
+};
+template <>
+struct Vec<2> {
+  static __device__ void put8(uint8_t* p, const int* v) {
+    *reinterpret_cast<uint16_t*>(p) =
+        (uint16_t)((v[0] & 0xff) | ((v[1] & 0xff) << 8));
+  }
+  static __device__ void put16(uint16_t* p, const int* v) {
+    *reinterpret_cast<uint32_t*>(p) =
+        (uint32_t)(v[0] & 0xffff) | ((uint32_t)(v[1] & 0xffff) << 16);
+  }
 };
 template <>
 struct Vec<4> {
@@ -339,10 +356,21 @@ using BandKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*,
                             int32_t*, Frontier, int, int, int, int, int, int,
                             int);
 
-// Threads a block: W/4 (4 slots a thread) when W % 4 == 0, else W, in
-// whole warps.
-int band_threads(int W) {
-  const int slots = (W % 4) == 0 ? W / 4 : W;
+// Slots a thread of the instantiation for (tiled, W): 4 when W % 4 == 0,
+// else 1; K1 at 1024 <= W <= 2048 takes 2, twice the warps on each row's
+// chain at half the blocks an SM. Measured on an H100 (band_edits.py,
+// variant spt2): the untiled overlap chunks' K1 8% faster a lane over the
+// main path's 3-chunk bucket and 19-29% faster on one chunk, K1 at the
+// consensus shape (W=256, 4 slots) unchanged. K3 keeps four: its groups
+// already hold three blocks an SM.
+int band_spt(bool tiled, int W) {
+  if (!tiled && W >= 1024 && W <= 2048 && W % 2 == 0) return 2;
+  return (W % 4) == 0 ? 4 : 1;
+}
+
+// Threads a block: W / band_spt, in whole warps.
+int band_threads(bool tiled, int W) {
+  const int slots = W / band_spt(tiled, W);
   return ((slots + 31) / 32) * 32;
 }
 
@@ -353,22 +381,26 @@ size_t band_smem(int W, int rows, int nthr) {
          (size_t)(W + rows) + (size_t)rows;
 }
 
-// The instantiation for (tiled, W, depth k), or nullptr where none
-// exists: up to 1024 threads a block; the untiled entry takes k in
-// {1, 2, 4}, the tiled entry k in {2, 4}.
-BandKernel band_kernel_for(bool tiled, int W, int k) {
-  const bool vec = (W % 4) == 0;
-  if (W <= 0 || band_threads(W) > 1024) return nullptr;
-  if (!tiled) {
-    if (vec)
-      return k >= 4 ? &band_fwd_kernel<4, 4>
-                    : (k >= 2 ? &band_fwd_kernel<4, 2> : &band_fwd_kernel<4, 1>);
-    return k >= 4 ? &band_fwd_kernel<1, 4>
-                  : (k >= 2 ? &band_fwd_kernel<1, 2> : &band_fwd_kernel<1, 1>);
-  }
+// The untiled entry takes k in {1, 2, 4}, the tiled entry k in {2, 4}.
+template <int SPT>
+BandKernel band_kernel_spt(bool tiled, int k) {
+  if (!tiled)
+    return k >= 4 ? &band_fwd_kernel<SPT, 4>
+                  : (k >= 2 ? &band_fwd_kernel<SPT, 2>
+                            : &band_fwd_kernel<SPT, 1>);
   if (k != 2 && k != 4) return nullptr;
-  if (vec) return k == 4 ? &band_tile_kernel<4, 4> : &band_tile_kernel<4, 2>;
-  return k == 4 ? &band_tile_kernel<1, 4> : &band_tile_kernel<1, 2>;
+  return k == 4 ? &band_tile_kernel<SPT, 4> : &band_tile_kernel<SPT, 2>;
+}
+
+// The instantiation for (tiled, W, depth k), or nullptr where none
+// exists (past 1024 threads a block, or no such k).
+BandKernel band_kernel_for(bool tiled, int W, int k) {
+  if (W <= 0 || band_threads(tiled, W) > 1024) return nullptr;
+  switch (band_spt(tiled, W)) {
+    case 4: return band_kernel_spt<4>(tiled, k);
+    case 2: return band_kernel_spt<2>(tiled, k);
+    default: return band_kernel_spt<1>(tiled, k);
+  }
 }
 
 cudaError_t allow_smem(BandKernel kern, size_t shm) {
@@ -385,7 +417,7 @@ cudaError_t launch(bool tiled, int nxt_k, const uint8_t* tband,
                    int match, int mismatch, int gap, cudaStream_t stream) {
   BandKernel kern = band_kernel_for(tiled, W, nxt_k);
   if (kern == nullptr) return cudaErrorInvalidValue;
-  const int nthr = band_threads(W);
+  const int nthr = band_threads(tiled, W);
   const size_t shm = band_smem(W, Lq, nthr);
   cudaError_t e = allow_smem(kern, shm);
   if (e != cudaSuccess) return e;
@@ -445,7 +477,7 @@ extern "C" int racon_band_occupancy(int tiled, int W, int rows, int nxt_k,
                                     int* out) {
   BandKernel kern = band_kernel_for(tiled != 0, W, nxt_k);
   if (kern == nullptr || rows <= 0) return (int)cudaErrorInvalidValue;
-  const int nthr = band_threads(W);
+  const int nthr = band_threads(tiled != 0, W);
   const size_t shm = band_smem(W, rows, nthr);
   cudaError_t e = allow_smem(kern, shm);
   if (e != cudaSuccess) return (int)e;

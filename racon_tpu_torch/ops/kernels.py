@@ -191,7 +191,7 @@ def fw_dirs_band(tband: torch.Tensor, qT: torch.Tensor, klo: torch.Tensor,
     _check(qT, "qT", torch.uint8, (Lq, B), dev)
     _check(klo, "klo", torch.int32, (B,), dev)
     _check(lq, "lq", torch.int32, (B,), dev)
-    _band_block_check(W, Lq)
+    _band_block_check(W, Lq, tiled=False)
     k = int(nxt_k)
     cells = torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
     nxt = (torch.empty((Lq, B, W), dtype=torch.uint8, device=dev)
@@ -211,11 +211,20 @@ def fw_dirs_band(tband: torch.Tensor, qT: torch.Tensor, klo: torch.Tensor,
     return cells, nxt, nxt2, hlast
 
 
-def _band_block_check(W: int, rows: int) -> None:
-    """The band kernels' launch limits: W/4 (or W) threads a block, and
-    the shared memory of two score rows, the scan scratch and the lane's
-    target window and query column."""
-    nthr = W // 4 if W % 4 == 0 else W
+def _band_slots(W: int, *, tiled: bool) -> int:
+    """Band slots a thread of the band kernel instantiation for (W, tiled)
+    (csrc/band_fwd.cu ``band_spt``): 4 when W % 4 == 0, else 1; the
+    untiled kernel (K1) takes 2 at 1024 <= W <= 2048."""
+    if not tiled and 1024 <= W <= 2048 and W % 2 == 0:
+        return 2
+    return 4 if W % 4 == 0 else 1
+
+
+def _band_block_check(W: int, rows: int, *, tiled: bool) -> None:
+    """The band kernels' launch limits: W / _band_slots threads a block,
+    and the shared memory of two score rows, the scan scratch and the
+    lane's target window and query column."""
+    nthr = W // _band_slots(W, tiled=tiled)
     if nthr > 1024:
         raise KernelError(f"[racon_tpu_torch::kernels] band width {W} "
                           "exceeds the kernel's 1024-thread block")
@@ -234,7 +243,7 @@ def band_occupancy(W: int, rows: int, nxt_k: int, *, tiled: bool) -> dict:
     local-memory bytes a thread (where spills go; 0 means none) and
     ``threads`` a block. Raises KernelError when the query fails or no
     block fits."""
-    _band_block_check(W, rows)
+    _band_block_check(W, rows, tiled=tiled)
     out = (ctypes.c_int * 4)()
     rc = _lib().racon_band_occupancy(int(tiled), W, rows, int(nxt_k), out)
     if rc != 0 or out[0] < 1:
@@ -275,7 +284,7 @@ def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,
     _check(lq, "lq", torch.int32, (B,), dev)
     for name, t in (("prev", prev), ("uc", uc), ("hlast", hlast)):
         _check(t, name, torch.int32, (B, W), dev)
-    _band_block_check(W, T)
+    _band_block_check(W, T, tiled=True)
     cells, nxt, nxt2 = out
     rows = cells.shape[0]
     if i0 < 0 or i0 + T > rows:

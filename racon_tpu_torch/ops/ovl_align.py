@@ -20,12 +20,14 @@ Two routes, by length (admission rules of ops/budget.py, the reference's):
 
 The admission rules size a chunk (its lanes, W, T and walk depth are the
 reference's); the group planner (:func:`plan_groups`) sizes a launch.
-Consecutive tiled chunks of one bucket share (Lq, LA, W, T, k), so a
-group of them runs as one chunk over their concatenated lanes: one K3
-launch per tile, one re-centering pass, one walk, with as many chunks as
-fill one wave of the card (:func:`group_size`) under a ceiling on the
-group's planes. Lanes never interact, so each chunk's rows are what it
-gives alone.
+Consecutive chunks of one bucket share their geometry ((Lq, LA, W, k),
+and T on the tiled route), so a group of them runs as one chunk over
+their concatenated lanes: on the untiled route one K1 launch and one
+walk, on the tiled route one K3 launch per tile, one re-centering pass
+and one walk. A group holds as many chunks as fill one wave of the card
+(:func:`group_size`, from the occupancy of the route's kernel) under a
+ceiling on the group's planes. Lanes never interact, so each chunk's
+rows are what it gives alone.
 
 Both walks run on the CUDA column walk (W1, csrc/col_walk.cu). A lane
 whose band optimality is not certified, or whose walk saturated, goes
@@ -58,15 +60,17 @@ HUGE = 2 ** 30
 # launches (one a tile of each group), summed over calls since the last
 # reset_stats().
 STATS = {"device_jobs": 0, "native_jobs": 0, "tiles": 0}
-# One record a tiled bucket since the last reset_stats(): its chunk
-# geometry, chunks, chunks a group (G) and groups.
+# One record a bucket since the last reset_stats(), a list for each
+# route: its chunk geometry, chunks, chunks a group (G) and groups.
 TILED_GROUPS: List[dict] = []
+UNTILED_GROUPS: List[dict] = []
 
 
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
     TILED_GROUPS.clear()
+    UNTILED_GROUPS.clear()
 
 
 def band_width_for_read(lq: int, lt: int) -> int:
@@ -253,15 +257,31 @@ def _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, *, match, mismatch,
                         LA=LA) + (fail, klos)
 
 
+def _split_lanes(out, lanes):
+    """A group's chunk tuple split back per chunk (``lanes[c]`` lanes for
+    chunk c, in order): the six lane fields on dim 0, the tiled route's
+    ``klos`` on dim 1."""
+    parts = [a.split(lanes) for a in out[:6]] + [a.split(lanes, dim=1)
+                                                 for a in out[6:]]
+    return [tuple(p[c] for p in parts) for c in range(len(lanes))]
+
+
+def _untiled_group_breaking_points(q, t, lq, lt, t_begin, *, lanes, **kw):
+    """A group of untiled chunks, their lanes concatenated, as one untiled
+    chunk: one K1 launch over every lane, one walk. Returns, per chunk,
+    the tuple :func:`_chunk_breaking_points` gives for that chunk alone."""
+    return _split_lanes(_chunk_breaking_points(q, t, lq, lt, t_begin, **kw),
+                        lanes)
+
+
 def _tiled_group_breaking_points(q, t, lq, lt, t_begin, *, lanes, **kw):
     """A group of tiled chunks, their lanes concatenated (``lanes[c]``
     lanes for chunk c, in order), as one tiled chunk: one K3 launch a
     tile over every lane, one re-centering pass between tiles, one walk.
     Returns, per chunk, the tuple :func:`_tiled_chunk_breaking_points`
     gives for that chunk alone (lane fields and ``klos`` split back)."""
-    out = _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, **kw)
-    parts = [a.split(lanes) for a in out[:6]] + [out[6].split(lanes, dim=1)]
-    return [tuple(p[c] for p in parts) for c in range(len(lanes))]
+    return _split_lanes(
+        _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, **kw), lanes)
 
 
 def plan_groups(chunk_lanes, group: int, lane_bytes: int, cap_bytes=None):
@@ -285,16 +305,18 @@ def plan_groups(chunk_lanes, group: int, lane_bytes: int, cap_bytes=None):
     return groups
 
 
-def group_size(lanes: int, W: int, T: int, nxt_k: int, device) -> int:
-    """Chunks of ``lanes`` lanes a tiled launch carries: as many as fill
-    one wave of the card, ``max(1, blocks_per_SM * SMs // lanes)``, with
-    blocks_per_SM the K3 instantiation's occupancy at (W, T, k). 1 on the
-    CPU. A failed occupancy query raises."""
+def group_size(lanes: int, W: int, rows: int, nxt_k: int, device, *,
+               tiled: bool = True) -> int:
+    """Chunks of ``lanes`` lanes a launch carries: as many as fill one
+    wave of the card, ``max(1, blocks_per_SM * SMs // lanes)``, with
+    blocks_per_SM the occupancy of the route's band kernel at (W, rows,
+    k): K3 at rows = T (``tiled``), K1 at rows = Lq. 1 on the CPU. A
+    failed occupancy query raises."""
     device = torch.device(device)
     if device.type != "cuda":
         return 1
     with torch.cuda.device(device):
-        occ = kernels.band_occupancy(W, T, nxt_k, tiled=True)
+        occ = kernels.band_occupancy(W, rows, nxt_k, tiled=tiled)
         sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, occ["blocks_per_sm"] * sms // lanes)
 
@@ -344,7 +366,7 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     Sets ``o.breaking_points`` (int64[N, 4], the reference's row format)
     on every handled overlap, so ``find_breaking_points`` then returns at
     once. ``tiers`` replaces budget.TILE_TIERS; ``group`` fixes the
-    chunks a tiled launch carries (default :func:`group_size`).
+    chunks a launch carries on both routes (default :func:`group_size`).
     """
     device = torch.device(device)
     tiled_on = env.ovl_tiled()
@@ -422,15 +444,27 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     # its walk is queued.
     sc = dict(match=match, mismatch=mismatch, gap=gap)
     untiled_calls, group_calls = [], []
-    for bucket, Lq, LA, W in buckets:
-        kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, nxt_k=untiled_walk_k(Lq, W), **sc)
-        for s in range(0, len(bucket), TB):
-            sub = bucket[s:s + TB]
-            untiled_calls.append((sub, _pack([(sub, TB)], Lq, LA, device),
-                                  kw))
-    n_tiles_exec = 0
     mem_cap = group_mem_cap(device)
+    for bucket, Lq, LA, W in buckets:
+        nxt_k = untiled_walk_k(Lq, W)
+        kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
+                  Lq=Lq, LA=LA, nxt_k=nxt_k, **sc)
+        # K1's depth in _chunk_breaking_points, and its planes' bytes a
+        # cell (cells and nxt, and the u16 nxt2 at k = 4).
+        k = 4 if nxt_k >= 4 else 2
+        chunks = [(bucket[s:s + TB], TB) for s in range(0, len(bucket), TB)]
+        G = (group_size(TB, W, Lq, k, device, tiled=False) if group is None
+             else group)
+        groups = plan_groups([TB] * len(chunks), G, Lq * W * k, mem_cap)
+        for idx in groups:
+            part = [chunks[c] for c in idx]
+            untiled_calls.append(([sub for sub, _ in part],
+                                  _pack(part, Lq, LA, device),
+                                  dict(kw, lanes=[TB] * len(part))))
+        UNTILED_GROUPS.append(dict(lanes=TB, W=W, Lq=Lq, LA=LA, nxt_k=nxt_k,
+                                   chunks=len(chunks), G=G,
+                                   groups=len(groups)))
+    n_tiles_exec = 0
     for bucket, lanes, W, T, Lq, LA, nxt_k in tiled_buckets:
         kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
                   Lq=Lq, LA=LA, T=T, nxt_k=nxt_k, **sc)
@@ -455,8 +489,9 @@ def device_breaking_points(pending, sequences, window_length: int, *,
         TILED_GROUPS.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
                                  chunks=len(chunks), G=G,
                                  groups=len(groups)))
-    outs = [(sub, _chunk_breaking_points(*args, **kw))
-            for sub, args, kw in untiled_calls]
+    outs = []
+    for subs, args, kw in untiled_calls:
+        outs.extend(zip(subs, _untiled_group_breaking_points(*args, **kw)))
     for subs, args, kw in group_calls:
         outs.extend(zip(subs, _tiled_group_breaking_points(*args, **kw)))
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, bitwise:
-the banded forward (untiled and tiled, the tiled one also over a group of
-chunks' lanes at the overlap tiers' widths), the full-width forward, the
+the banded forward (untiled and tiled, each also over a group of
+chunks' lanes at the overlap routes' widths), the full-width forward, the
 column walk (band and flat layouts) and the walk's latency probe, the
 batched NW forward (K4) and its traceback (T1), the monotone count (K5)
 and the batched aligner end to end.
@@ -141,6 +141,51 @@ def test_band_tile_kernel_group_matches_plain(cuda, W, k):
     torch.cuda.synchronize()
     for r, o in zip(ref, out):
         assert _same(r, o)
+
+
+@pytest.mark.parametrize("W,k,B,Lq", [(1536, 2, 768, 2048),
+                                      (1024, 4, 384, 256),
+                                      (2048, 4, 256, 256)])
+def test_band_kernel_untiled_group_matches_plain(cuda, W, k, B, Lq):
+    """K1 on a launch group of untiled overlap chunks (128 lanes each) at
+    the untiled route's band widths, where it runs two slots a thread
+    (512 to 1024 threads a block): the one launch over the group's lanes
+    is bitwise the plain version's (run on the card) and, chunk by chunk,
+    what each chunk launched alone gives. The 768-lane group's planes
+    hold 2.4e9 elements, past 2^31, as the main path's untiled groups'
+    do: every plane offset in the kernel is 64-bit."""
+    TB = ovl_align.TB
+    tband, qT, klo, lq = (a.to(cuda) for a in
+                          _band_case(23, B, Lq, W, 300))
+    sc = dict(match=0, mismatch=-1, gap=-1, W=W, nxt_k=k)
+    n0 = kernels.LAUNCHES["band_fwd"]
+    out = kernels.fw_dirs_band(tband, qT, klo, lq, **sc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_fwd"] == n0 + 1
+    ref = fw_dirs_band_plain(tband, qT, klo, lq, **sc)
+    for r, o in zip(ref, out):
+        assert _same(r, o)
+    del ref
+    for s in range(0, B, TB):
+        part = slice(s, s + TB)
+        alone = kernels.fw_dirs_band(tband[part], qT[:, part].contiguous(),
+                                     klo[part], lq[part], **sc)
+        for p, a in zip(out[:3], alone[:3]):
+            assert _same(None if p is None else p[:, part], a)
+        assert _same(out[3][part], alone[3])
+
+
+def test_band_untiled_occupancy(cuda):
+    """The main path's untiled K1 instantiation (W=1536, Lq=8192, k=2;
+    two slots a thread) holds two or more blocks an SM without spilling;
+    the group planner then carries blocks x SMs // 128 untiled chunks a
+    launch."""
+    occ = kernels.band_occupancy(1536, 8192, 2, tiled=False)
+    assert occ["threads"] == 768
+    assert occ["blocks_per_sm"] >= 2 and occ["spills"] == 0
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G = ovl_align.group_size(ovl_align.TB, 1536, 8192, 2, cuda, tiled=False)
+    assert G == occ["blocks_per_sm"] * sms // ovl_align.TB >= 2
 
 
 def test_band_tile_occupancy(cuda):
@@ -516,7 +561,7 @@ class _Ovl:
 def _breaking_point_runs(specs, cuda, **kw):
     """device_breaking_points on the CPU and on the card: per device the
     overlaps, the fallback indices, the launches made and the tiled
-    groups."""
+    groups (the untiled groups in ``untiled``)."""
     runs = {}
     for dev in ("cpu", cuda):
         ovls = [_Ovl(*sp) for sp in specs]
@@ -529,6 +574,7 @@ def _breaking_point_runs(specs, cuda, **kw):
         runs[str(dev)] = (ovls, [ovls.index(o) for o in fb],
                           {k: kernels.LAUNCHES[k] - n0[k] for k in n0},
                           list(ovl_align.TILED_GROUPS))
+        runs["untiled", str(dev)] = list(ovl_align.UNTILED_GROUPS)
     return runs
 
 
@@ -560,6 +606,37 @@ def test_device_breaking_points_grouped_cuda_matches_cpu(cuda):
         if c.breaking_points is not None:
             assert np.array_equal(c.breaking_points, g.breaking_points)
     assert sum(o.breaking_points is not None for o in g_ovl) >= 4
+
+
+def test_device_breaking_points_untiled_grouped_cuda_matches_cpu(
+        cuda, monkeypatch):
+    """Twenty 1.0-1.6 kb untiled jobs and one uncertified pair in chunks
+    of 8 lanes (TB cut from 128 so that the bucket spans three chunks):
+    on the card one group (G from the K1 occupancy; one K1 launch, one
+    walk), on the CPU the chunks one by one; same rows and fallbacks."""
+    monkeypatch.setattr(ovl_align, "TB", 8)
+    rng = np.random.default_rng(47)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    specs = []
+    for i in range(20):
+        t = acgt[rng.integers(0, 4, 1000 + 30 * i)]
+        r = rng.random(len(t))
+        q = np.where((r >= 0.03) & (r < 0.06),
+                     acgt[rng.integers(0, 4, len(t))], t)[r >= 0.03]
+        specs.append((q.tobytes(), t.tobytes(), 37 * i))
+    specs.append((acgt[rng.integers(0, 4, 1200)].tobytes(),
+                  acgt[rng.integers(0, 4, 1200)].tobytes(), 3))
+    runs = _breaking_point_runs(specs, cuda)
+    (c_ovl, c_fb, _, _), (g_ovl, g_fb, g_n, _) = runs["cpu"], runs["cuda"]
+    assert g_fb == c_fb == [20]
+    assert [(g["chunks"], g["G"], g["groups"])
+            for g in runs["untiled", "cpu"]] == [(3, 1, 3)]
+    g_groups = runs["untiled", "cuda"]
+    assert [(g["chunks"], g["groups"]) for g in g_groups] == [(3, 1)]
+    assert g_groups[0]["G"] >= 3
+    assert g_n["band_fwd"] == 1 and g_n["col_walk"] == 1
+    for c, g in zip(c_ovl[:20], g_ovl[:20]):
+        assert np.array_equal(c.breaking_points, g.breaking_points)
 
 
 def test_device_breaking_points_cuda_matches_cpu(cuda):

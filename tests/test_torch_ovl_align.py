@@ -15,12 +15,13 @@ versions on the CPU:
 - the admission rules (``tile_plan`` and the untiled gate) over a grid of
   (lq, lt);
 - the group planner (chunks into launch groups, a halved tail chunk, the
-  memory ceiling), and a group of three tiled chunks run as one against
-  each chunk alone, through the port and through the reference;
+  memory ceiling), and a group of three tiled chunks, and one of three
+  untiled chunks, run as one against each chunk alone, through the port
+  and through the reference;
 - ``device_breaking_points(device="cpu")`` on a small synthetic overlap
   set: rows equal to the reference's and to the host aligner's, and the
-  same fallback counts; grouped tiled launches give the rows of
-  ungrouped ones.
+  same fallback counts; grouped tiled launches, and grouped untiled
+  ones, give the rows of ungrouped ones.
 """
 
 import io
@@ -359,6 +360,11 @@ def test_group_size_is_one_on_cpu():
     assert povl.group_mem_cap("cpu") is None
 
 
+def test_untiled_group_size_is_one_on_cpu():
+    assert povl.group_size(povl.TB, 1536, 8192, 2, "cpu", tiled=False) == 1
+    assert povl.group_size(povl.TB, 1024, 6144, 4, "cpu", tiled=False) == 1
+
+
 def _group_chunks(seed):
     """Three tiled chunks of 8, 8 and 4 lanes (the last a halved tail):
     180-base reads at 5% error, and in chunk 1 one 240-base lane that
@@ -421,6 +427,62 @@ def test_tiled_group_matches_reference_per_chunk():
             a = np.asarray(a)
             assert a.dtype == b.numpy().dtype, f"field {i} dtype"
             assert np.array_equal(a, b.numpy()), f"field {i} differs"
+
+
+def _untiled_group_chunks(seed):
+    """Three untiled chunks of 8, 16 and 8 lanes: 250-400-base reads at 6%
+    error, and in chunk 2 one unrelated pair, whose certificate fails."""
+    rng = np.random.default_rng(seed)
+    Lq = LA = 512
+    chunks = []
+    for B in (8, 16, 8):
+        chunks.append(_mk_chunk(rng, int(rng.integers(250, 400)), 0.06, B,
+                                Lq, LA))
+    q, t, lq, lt, _ = chunks[2]
+    q[5], t[5] = 0, 0
+    q[5, :300] = rng.integers(0, 4, 300)
+    t[5, :320] = rng.integers(0, 4, 320)
+    lq[5], lt[5] = 300, 320
+    return chunks, dict(W=128, w_len=50, NW=LA // 50 + 2, Lq=Lq, LA=LA)
+
+
+@pytest.mark.parametrize("nxt_k", [2, 4])
+def test_untiled_group_matches_chunks_alone(nxt_k):
+    """One grouped run (one forward over all 32 lanes, one walk) gives
+    each chunk the breaking-point fields and fail flags of that chunk run
+    alone."""
+    chunks, kw = _untiled_group_chunks(41)
+    kw.update(match=0, mismatch=-1, gap=-1, nxt_k=nxt_k)
+    tch = [tuple(torch.from_numpy(a) for a in c) for c in chunks]
+    group = [torch.cat(f) for f in zip(*tch)]
+    outs = povl._untiled_group_breaking_points(*group, lanes=[8, 16, 8],
+                                               **kw)
+    assert len(outs) == 3
+    for c, out in zip(tch, outs):
+        alone = povl._chunk_breaking_points(*c, **kw)
+        assert len(out) == len(alone) == 6
+        for a, b in zip(alone, out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert outs[2][5][5] and not outs[0][5].any()
+
+
+def test_untiled_group_matches_reference_per_chunk():
+    """The same group against the reference's untiled chunk function run
+    on each chunk alone (XLA twins on the CPU), at both walk depths."""
+    chunks, kw = _untiled_group_chunks(42)
+    tch = [tuple(torch.from_numpy(a) for a in c) for c in chunks]
+    group = [torch.cat(f) for f in zip(*tch)]
+    for nxt_k in (2, 4):
+        kw.update(match=0, mismatch=-1, gap=-1, nxt_k=nxt_k)
+        outs = povl._untiled_group_breaking_points(*group, lanes=[8, 16, 8],
+                                                   **kw)
+        for c, out in zip(chunks, outs):
+            ref = rovl._chunk_breaking_points(*c, pallas=False, **kw)
+            assert len(ref) == len(out)
+            for i, (a, b) in enumerate(zip(ref, out)):
+                a = np.asarray(a)
+                assert a.dtype == b.numpy().dtype, f"field {i} dtype"
+                assert np.array_equal(a, b.numpy()), f"field {i} differs"
 
 
 # -------------------------------------------------------------- admission
@@ -531,6 +593,8 @@ def test_device_breaking_points_match_reference_and_native():
     assert povl.STATS == {"device_jobs": 5, "native_jobs": 2, "tiles": 5}
     assert povl.TILED_GROUPS == [dict(lanes=64, W=1536, T=2048, Lq=10240,
                                       nxt_k=2, chunks=1, G=1, groups=1)]
+    assert povl.UNTILED_GROUPS == [dict(lanes=128, W=512, Lq=2048, LA=2048,
+                                        nxt_k=4, chunks=1, G=1, groups=1)]
     for r, p in zip(ref, port):
         if p in pfb:
             assert p.breaking_points is None
@@ -582,6 +646,41 @@ def test_grouped_tiled_launches_give_ungrouped_rows():
     assert [(r["chunks"], r["G"], r["groups"]) for r in tg1] == [(3, 1, 3)]
     assert [(r["chunks"], r["G"], r["groups"]) for r in tg3] == [(3, 3, 1)]
     assert st3["device_jobs"] == 5 - len(fb3) >= 4
+    for a, b in zip(o1, o3):
+        assert (a.breaking_points is None) == (b.breaking_points is None)
+        if a.breaking_points is not None:
+            assert np.array_equal(a.breaking_points, b.breaking_points)
+
+
+def test_grouped_untiled_launches_give_ungrouped_rows(monkeypatch):
+    """Twenty 300-680 base untiled jobs and one uncertified pair in chunks
+    of 8 lanes (TB cut from 128 so that the bucket spans three chunks on
+    the CPU): one group of G=3 (one forward, one walk) gives the rows and
+    fallbacks of the three chunks run one by one."""
+    monkeypatch.setattr(povl, "TB", 8)
+    rng = np.random.default_rng(19)
+    specs = []
+    for i in range(20):
+        t = _BASES[rng.integers(0, 4, 300 + 20 * i)].tobytes()
+        q = _BASES[_mutate_codes(rng, encode_bases(t), 0.06)].tobytes()
+        specs.append((q, t, 41 * i, 2 * i, i % 3 == 1))
+    specs.append((_BASES[rng.integers(0, 4, 1200)].tobytes(),
+                  _BASES[rng.integers(0, 4, 1200)].tobytes(), 9, 0, False))
+    runs = []
+    for group in (1, 3):
+        ovls = [_Ovl(*s) for s in specs]
+        povl.reset_stats()
+        fb = povl.device_breaking_points(ovls, None, 500, match=0,
+                                         mismatch=-1, gap=-1, device="cpu",
+                                         group=group)
+        runs.append(([ovls.index(o) for o in fb], ovls, dict(povl.STATS),
+                     list(povl.UNTILED_GROUPS), list(povl.TILED_GROUPS)))
+    (fb1, o1, st1, ug1, tg1), (fb3, o3, st3, ug3, tg3) = runs
+    assert fb1 == fb3 == [20]
+    assert st1 == st3 == {"device_jobs": 20, "native_jobs": 1, "tiles": 0}
+    assert tg1 == tg3 == []
+    assert [(r["chunks"], r["G"], r["groups"]) for r in ug1] == [(3, 1, 3)]
+    assert [(r["chunks"], r["G"], r["groups"]) for r in ug3] == [(3, 3, 1)]
     for a, b in zip(o1, o3):
         assert (a.breaking_points is None) == (b.breaking_points is None)
         if a.breaking_points is not None:
