@@ -35,10 +35,17 @@ any failure exits non-zero and prints no result):
               the walk's addresses: csrc/probe.cu in both modes), the
               windows and misses a lane from the kernel's refill counter,
               and its launch plan's registers and shared memory a block.
-              Then the op-string route's kernels
-              at its batch shape: nw_fwd (K4), nw_traceback (T1, with its
-              chain floor) on K4's planes, and monotone_count (K5) on
-              T1's op strings, timed beside torch.searchsorted;
+              Then the op-string route's kernels: nw_fwd (K4) at the
+              route's batch shapes ([4096, 512, 512], [3072, 640, 512])
+              and at [4096, 640, 512], the warp kernel timed in turns
+              against the wide kernel forced at the same shape (both
+              bitwise, with registers, spills and blocks an SM);
+              nw_traceback (T1, with its chain floor) on K4's planes at
+              [4096, 640, 512]; monotone_count (K5) at the merge's shape
+              [14965, 532, 510] on route-like block keys and at [4096,
+              1152, 514] on T1's op strings, in turns with
+              torch.searchsorted (20 repetitions); K4 and K5 times are
+              device times from CUDA graphs of several calls;
 3. small      the CLI on a ~20 kb synthetic input with --device cuda and
               --device cpu: the FASTA must be byte-identical (the cuda run
               aligns the overlaps on the card, untiled; the cpu run with
@@ -102,8 +109,9 @@ INT32_OPS_S = 132 * 64 * 1.98e9
 # pass over a row needs: the substitution's compare and select (2), diag
 # and up (2), their max (1), the column's gap offset taken off and put
 # back (2), the prefix max (1), h == diag and h == up (2), two selects
-# (2) and the code packed into its stored word (2); the kernel's second
-# pass, which recomputes diag and up after the scan, is not counted.
+# (2) and the code packed into its stored word (2); the second sweep over
+# a row that both K4 variants make, which recomputes diag and up after
+# the scan, is not counted.
 OPS_PER_CELL = {("band_fwd", 4): 50, ("band_fwd", 2): 40,
                 ("band_fwd", 1): 30, ("flat_fwd", 0): 25,
                 ("nw_fwd", 0): 14}
@@ -117,12 +125,14 @@ REPLACES = {
     "flat_fwd": "racon_tpu/ops/pallas/flat_kernel.py:31",
     "col_walk": "racon_tpu/ops/colwalk.py:66",
     "nw_fwd": "racon_tpu/ops/pallas/nw_kernel.py:42",
+    "nw_fwd_wide": "racon_tpu/ops/pallas/nw_kernel.py:42",
     "nw_traceback": "racon_tpu/ops/align.py:75",
     "monotone_count": "racon_tpu/ops/pallas/count_kernel.py:33",
 }
 SOURCE = {"band_fwd": "band_fwd.cu", "band_tile_fwd": "band_fwd.cu",
           "flat_fwd": "flat_fwd.cu", "col_walk": "col_walk.cu",
-          "nw_fwd": "nw_fwd.cu", "nw_traceback": "nw_traceback.cu",
+          "nw_fwd": "nw_fwd.cu", "nw_fwd_wide": "nw_fwd.cu",
+          "nw_traceback": "nw_traceback.cu",
           "monotone_count": "count.cu"}
 
 
@@ -163,6 +173,27 @@ def time_turns(fns, reps: int = 5):
             torch.cuda.synchronize()
             ts[i].append(a.elapsed_time(b))
     return [float(np.median(t)) for t in ts]
+
+
+def time_graph_turns(fns, reps: int = 20, calls: int = 20):
+    """Device time of one call of each function: ``calls`` calls captured
+    in a CUDA graph, the graph's replays timed with CUDA events and
+    divided by ``calls``; warm medians of ``reps`` replays, taken in
+    turns (in order, then in reverse). For kernels of a few microseconds,
+    whose eager call costs the host more than the card: events around an
+    eager call time the host's launch."""
+    import torch
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+        graphs.append(g)
+    return [ms / calls for ms in time_turns([g.replay for g in graphs],
+                                            reps)]
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -754,39 +785,134 @@ def nw_pairs(device, B, Lq, Lt, seed=10):
     return tuple(torch.from_numpy(a).to(device) for a in (q, t, lq, lt))
 
 
-def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
-    """K4, T1 and K5 at the op-string route's batch shape, each bitwise
-    against its plain version: K4 on route-like pairs, T1 on K4's planes
-    (with its chain floor), K5 on the block keys of T1's op strings with
-    P = LA + 2 (LA = Lt), timed beside torch.searchsorted, which computes
-    the same counts on these non-decreasing keys."""
+def route_keys(device, B=14965, S=532, LA=508, seed=12):
+    """Block keys as the op-string route's merge gives K5 (its shape
+    [14965, 532, 510] in phase 6): right-aligned op strings of 8%-error
+    alignments (4% insertions, 3% deletions) of window slices (3/4 of LA
+    to LA - 12 columns) behind a PAD_OP prefix, at slice offsets that keep
+    every slice inside the anchor, through device_merge.block_keys."""
     import torch
+    from racon_tpu_torch.ops.align import PAD_OP
+    from racon_tpu_torch.ops.cigar import DIAG, LEFT, UP
+    from racon_tpu_torch.ops.device_merge import block_keys
+    rng = np.random.default_rng(seed)
+    lt = rng.integers(LA * 3 // 4, LA - 11, B)
+    u = rng.random((B, S))
+    ops = np.where(u < 0.04, UP, np.where(u < 0.07, LEFT, DIAG)).astype(
+        np.uint8)
+    ct = np.cumsum(ops != UP, axis=1)
+    reached = ct[:, -1] >= lt
+    n = np.where(reached, np.argmax(ct >= lt[:, None], axis=1) + 1, S)
+    idx = np.arange(S)[None, :] - (S - n)[:, None]
+    ops = np.where(idx >= 0, np.take_along_axis(ops, np.clip(idx, 0, None),
+                                                axis=1), PAD_OP)
+    t_off = rng.integers(0, LA - 8 - lt + 1).astype(np.int32)
+    return block_keys(torch.from_numpy(ops.astype(np.uint8)).to(device),
+                      torch.from_numpy(t_off).to(device))
+
+
+def nw_case(device, B, Lq, Lt, sc):
+    """K4 at one shape: the warp kernel (the planner's pick) and the wide
+    kernel forced at the same shape, each bitwise against the plain
+    version, timed in turns (warp, wide, wide, warp; device time a call
+    from CUDA graphs of 5 calls, median of 10 replays).
+    Returns (record, the warp kernel's planes, lq, lt)."""
     from racon_tpu_torch.ops import kernels
-    from racon_tpu_torch.ops.align import (PAD_OP, nw_dirs_plain,
-                                           traceback_plain)
-    from racon_tpu_torch.ops.device_merge import (block_keys,
-                                                  monotone_count_plain)
+    from racon_tpu_torch.ops.align import nw_dirs_plain
     q, t, lq, lt = nw_pairs(device, B, Lq, Lt)
-    sc = dict(match=5, mismatch=-4, gap=-8)
-    recs = {}
-
-    def record(name, err, **kw):
-        recs[name] = dict(max_abs_err=err, **kw)
-        emit("kernels", kernel=name, max_abs_err=err, **kw)
-        if err:
-            fail(f"{name} disagrees with its plain version "
-                 f"(max_abs_err={err})")
-
-    dirs = kernels.nw_dirs(q, t, **sc)
     ref, plain_ms = timed_once(lambda: nw_dirs_plain(q, t, **sc))
-    err = max_abs_err([ref], [dirs])
+    err = max_abs_err([ref], [kernels.nw_dirs(q, t, **sc)])
+    wide_err = max_abs_err([ref], [kernels.nw_dirs(q, t, variant="wide",
+                                                   **sc)])
     del ref
-    ms = time_ms(lambda: kernels.nw_dirs(q, t, **sc))
+    ms, wide_ms = time_graph_turns(
+        [lambda: kernels.nw_dirs(q, t, **sc),
+         lambda: kernels.nw_dirs(q, t, variant="wide", **sc)], reps=10,
+        calls=5)
     cells = B * Lq * Lt
     bms, by = bound(B * (Lq + Lt) + cells,
                     cells * OPS_PER_CELL[("nw_fwd", 0)])
-    record("nw_fwd", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-           bound_by=by, library_ms=None, shape=[B, Lq, Lt])
+    rec = dict(shape=[B, Lq, Lt], max_abs_err=err, wide_max_abs_err=wide_err,
+               ms=ms, wide_ms=wide_ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, warp=kernels.nw_occupancy(Lq, Lt),
+               wide=kernels.nw_occupancy(Lq, Lt, "wide"))
+    emit("kernels", kernel="nw_fwd", **rec)
+    if err or wide_err:
+        fail(f"nw_fwd at {[B, Lq, Lt]} disagrees with its plain version "
+             f"(warp max_abs_err={err}, wide {wide_err})")
+    return rec, kernels.nw_dirs(q, t, **sc), lq, lt
+
+
+def count_case(case, Xs, P):
+    """K5 on keys Xs at P bins, bitwise against the plain version, timed
+    in turns with torch.searchsorted (which computes the same counts on
+    these non-decreasing keys): device time a call from CUDA graphs of 20
+    calls (median of 20 replays), and beside it ``eager_ms``, events
+    around one eager call (median of 20), which the host's launch cost
+    dominates."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.device_merge import monotone_count_plain
+    B, S = Xs.shape
+    ref, plain_ms = timed_once(lambda: monotone_count_plain(Xs, P))
+    err = max_abs_err([ref], [kernels.monotone_count(Xs, P)])
+    pa = torch.arange(P, dtype=torch.int32, device=Xs.device).expand(
+        B, P).contiguous()
+    lib_same = torch.equal(torch.searchsorted(Xs, pa).to(torch.int32), ref)
+    del ref
+    fns = [lambda: kernels.monotone_count(Xs, P),
+           lambda: torch.searchsorted(Xs, pa)]
+    ms, lib_ms = time_graph_turns(fns, reps=20)
+    eager_ms, eager_lib_ms = time_turns(fns, reps=20)
+    bms, by = bound(4 * B * (S + P), B * (OPS_PER_X * S + OPS_PER_BIN * P))
+    occ = kernels.count_occupancy(P)
+    rec = dict(case=case, shape=[B, S, P], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               library_ms=lib_ms, library_equal=lib_same,
+               eager_ms=eager_ms, eager_library_ms=eager_lib_ms,
+               **{n: occ[n] for n in ("regs", "spills", "blocks_per_sm",
+                                      "lanes_per_block")})
+    emit("kernels", kernel="monotone_count", **rec)
+    if err:
+        fail(f"monotone_count ({case}) disagrees with its plain version "
+             f"(max_abs_err {err})")
+    if not lib_same:
+        fail(f"torch.searchsorted disagrees with monotone_count ({case}) "
+             "on non-decreasing keys")
+    return rec
+
+
+def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
+    """K4, T1 and K5 at the op-string route's shapes, each bitwise against
+    its plain version. K4 (both variants, in turns) at [4096, 640, 512]
+    and at the route's batch shapes [4096, 512, 512] and [3072, 640,
+    512]; T1 on K4's planes at [4096, 640, 512] (with its chain floor);
+    K5 on the block keys of T1's op strings with P = LA + 2 (LA = Lt),
+    [4096, 1152, 514], and on route keys at the merge's shape [14965,
+    532, 510], in turns with torch.searchsorted."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.align import PAD_OP, traceback_plain
+    from racon_tpu_torch.ops.device_merge import block_keys
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    recs = {}
+    shapes = [nw_case(device, 4096, 512, Lt, sc)[0],
+              nw_case(device, 3072, 640, Lt, sc)[0]]
+    rec, dirs, lq, lt = nw_case(device, B, Lq, Lt, sc)
+    shapes.append(rec)
+    # The rows: both variants at the route's first batch shape.
+    route = shapes[0]
+    occ_keys = ("regs", "spills", "blocks_per_sm")
+    recs["nw_fwd", 0] = dict(
+        route, library_ms=None, C=route["warp"]["C"],
+        shapes=[{n: r[n] for n in ("shape", "ms", "wide_ms", "plain_ms",
+                                   "bound_ms")} for r in shapes],
+        **{n: route["warp"][n] for n in occ_keys})
+    recs["nw_fwd_wide", 0] = dict(
+        shape=route["shape"], max_abs_err=route["wide_max_abs_err"],
+        ms=route["wide_ms"], plain_ms=route["plain_ms"],
+        bound_ms=route["bound_ms"], bound_by=route["bound_by"],
+        library_ms=None, **{n: route["wide"][n] for n in occ_keys})
 
     L = Lq + Lt
     ops, n = kernels.nw_traceback(dirs, lq, lt, L)
@@ -805,33 +931,24 @@ def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
     # dependent load one plane row (B * Lt bytes) below the last.
     rows = int(lq.max().item())
     floor_ms = chain_floor_ms(dirs.device, rows, B * Lt, B, Lt)
-    record("nw_traceback", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-           bound_by=by, library_ms=None, chain_floor_ms=floor_ms,
-           shape=[B, Lq, Lt], steps=steps, max_n=int(n.max().item()))
+    recs["nw_traceback", 0] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None, chain_floor_ms=floor_ms,
+        shape=[B, Lq, Lt], steps=steps, max_n=int(n.max().item()))
+    emit("kernels", kernel="nw_traceback", **recs["nw_traceback", 0])
+    if err:
+        fail(f"nw_traceback disagrees with its plain version "
+             f"(max_abs_err={err})")
     del dirs
 
     rng = np.random.default_rng(11)
     t_off = torch.from_numpy((rng.random(B) * (Lt - lt.cpu().numpy() + 1))
                              .astype(np.int32)).to(device)
-    Xs = block_keys(ops, t_off)
-    P = Lt + 2
-    S = Xs.shape[1]
-    F = kernels.monotone_count(Xs, P)
-    ref, plain_ms = timed_once(lambda: monotone_count_plain(Xs, P))
-    err = max_abs_err([ref], [F])
-    del ref
-    ms = time_ms(lambda: kernels.monotone_count(Xs, P))
-    pa = torch.arange(P, dtype=torch.int32, device=device).expand(
-        B, P).contiguous()
-    lib_same = torch.equal(torch.searchsorted(Xs, pa).to(torch.int32), F)
-    lib_ms = time_ms(lambda: torch.searchsorted(Xs, pa))
-    bms, by = bound(4 * B * (S + P), B * (OPS_PER_X * S + OPS_PER_BIN * P))
-    record("monotone_count", err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-           bound_by=by, library_ms=lib_ms, shape=[B, S, P],
-           library_equal=lib_same)
-    if not lib_same:
-        fail("torch.searchsorted disagrees with monotone_count on "
-             "non-decreasing keys")
+    LA = 508    # phase 6's merge shape: P = LA + 2 = 510
+    recs["monotone_count", "merge"] = count_case(
+        "route merge shape", route_keys(device, LA=LA), LA + 2)
+    recs["monotone_count", "T1"] = count_case(
+        "T1 op strings", block_keys(ops, t_off), Lt + 2)
     return recs
 
 
@@ -1180,8 +1297,7 @@ def main() -> int:
     recs = phase_kernels("cuda")
     recs.update({(n, 0): r for n, r in phase_overlap_kernels("cuda").items()})
     recs.update(phase_untiled_overlap_kernels("cuda"))
-    recs.update({(n, 0): r for n, r in
-                 phase_op_string_kernels("cuda").items()})
+    recs.update(phase_op_string_kernels("cuda"))
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
@@ -1194,22 +1310,29 @@ def main() -> int:
         if (name, k) == ("band_fwd", 2):
             continue
         # Each kernel's launches on the path that runs it: the band-off
-        # path for K2 and the flat walk, the op-string route for K4, T1
-        # and K5, the main path for the rest; K1's and W1's by case.
+        # path for K2 and the flat walk, the op-string route for K4 (each
+        # variant its own count), T1 and K5 (at the merge's shape; the
+        # T1 op-string shape is not one the route launches), the main
+        # path for the rest; K1's and W1's by case.
         if k == "flat":
             launches = flat_launches["col_walk_flat"]
         elif (name, k) in main_by_case:
             launches = main_by_case[(name, k)]
+        elif (name, k) == ("monotone_count", "T1"):
+            launches = 0
         else:
             launches = (flat_launches if name == "flat_fwd" else
-                        op_launches if name in ("nw_fwd", "nw_traceback",
+                        op_launches if name in ("nw_fwd", "nw_fwd_wide",
+                                                "nw_traceback",
                                                 "monotone_count")
                         else main_launches)[name]
         label = {"flat": "flat layout", "untiled": "untiled overlap group",
                  "consensus": "consensus", 4: "consensus",
-                 0: "tiled overlap group"}
+                 0: "tiled overlap group", "merge": "route merge shape",
+                 "T1": "T1 op strings"}
         rows.append({
-            "name": (f"{name} ({label[k]})" if name in ("col_walk", "band_fwd")
+            "name": (f"{name} ({label[k]})"
+                     if name in ("col_walk", "band_fwd", "monotone_count")
                      else name),
             "route": "cuda",
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
@@ -1217,10 +1340,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{n: r[n] for n in ("bucket_ms", "chunks_ms", "G",
+            **{n: r[n] for n in ("shape", "bucket_ms", "chunks_ms", "G",
                                  "chain_floor_ms", "serial_floor_ms",
                                  "windows_per_lane", "misses_per_lane",
-                                 "regs", "spills", "blocks_per_sm",
+                                 "wide_ms", "eager_ms", "eager_library_ms",
+                                 "C", "regs", "spills", "blocks_per_sm",
                                  "smem_per_block") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)

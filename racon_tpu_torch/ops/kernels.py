@@ -14,7 +14,9 @@ its column-walk scan:
   aligner (ops/ovl_align.py) and the consensus engine (ops/device_poa.py,
   band and flat layouts) run it;
 - ``nw_fwd`` (csrc/nw_fwd.cu) — racon_tpu/ops/pallas/nw_kernel.py
-  ``_kernel``; plain version ops/align.py::nw_dirs_plain;
+  ``_kernel``; plain version ops/align.py::nw_dirs_plain. Two variants,
+  the warp kernel (``nw_fwd``) and the wide kernel (``nw_fwd_wide`` in
+  ``LAUNCHES``), picked by shape by ``nw_plan``;
 - ``nw_traceback`` (csrc/nw_traceback.cu) — the XLA scan
   racon_tpu/ops/align.py ``_traceback_flat``; plain version
   ops/align.py::traceback_plain;
@@ -31,7 +33,9 @@ card (resident blocks an SM, registers, spills); the overlap aligner's
 group planner sizes a tiled launch from it. ``walk_plan`` sizes a walk
 launch (threads a lane, window shape, lanes a block) from the lane count,
 the walk depth and the SM count, and ``walk_occupancy`` reads what a plan
-gets on the card.
+gets on the card. ``nw_plan`` and ``count_plan`` size the K4 and K5
+launches from the shape; ``nw_occupancy`` and ``count_occupancy`` read
+what they get on the card.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -71,7 +75,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"band_fwd": 0, "band_tile_fwd": 0, "flat_fwd": 0,
-            "col_walk": 0, "nw_fwd": 0, "nw_traceback": 0,
+            "col_walk": 0, "nw_fwd": 0, "nw_fwd_wide": 0, "nw_traceback": 0,
             "monotone_count": 0}
 # Shared memory a block may use on an H100 (opt-in maximum).
 SMEM_MAX = 232448
@@ -140,11 +144,15 @@ def _lib():
             lib.racon_col_walk_occupancy.restype = ci
             lib.racon_col_walk_occupancy.argtypes = [ci] * 5 + [vp]
             lib.racon_nw_fwd.restype = ci
-            lib.racon_nw_fwd.argtypes = [vp] * 3 + [ci] * 6 + [vp]
+            lib.racon_nw_fwd.argtypes = [vp] * 3 + [ci] * 7 + [vp]
+            lib.racon_nw_occupancy.restype = ci
+            lib.racon_nw_occupancy.argtypes = [ci] * 3 + [vp]
             lib.racon_nw_traceback.restype = ci
             lib.racon_nw_traceback.argtypes = [vp] * 5 + [ci] * 4 + [vp]
             lib.racon_monotone_count.restype = ci
-            lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 3 + [vp]
+            lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 4 + [vp]
+            lib.racon_monotone_count_occupancy.restype = ci
+            lib.racon_monotone_count_occupancy.argtypes = [ci] * 2 + [vp]
             lib.racon_chase.restype = ci
             lib.racon_chase.argtypes = [vp] + [ci] * 5 + [vp, vp]
             _LIB = lib
@@ -503,16 +511,91 @@ def fw_dirs_flat(tbuf: torch.Tensor, qT: torch.Tensor, *, match: int,
 
 
 def nw_smem(Lq: int, Lt: int) -> int:
-    """Shared memory of one nw_fwd block: the score row and the 32 warp
-    totals (int32), the lane's target and query codes."""
+    """Shared memory of one block of the wide nw_fwd kernel: the score row
+    and the 32 warp totals (int32), the lane's target and query codes."""
     return 4 * (Lt + 32) + Lt + Lq
 
 
+# K4's variants (csrc/nw_fwd.cu). The warp kernel runs one warp a lane,
+# NW_WARP_LANES lanes a block, and holds the lane's score row in
+# registers: C columns a thread, C = ceil(Lt / 32) rounded up to a
+# multiple of 4, so it takes Lt <= NW_WARP_MAX_LT. The wide kernel runs
+# one block a lane with the row in shared memory, at any Lt whose row
+# fits (nw_smem).
+NW_WARP_LANES = 4
+NW_WARP_MAX_LT = 1024
+
+
+def nw_plan(Lq: int, Lt: int, variant: str | None = None) -> dict:
+    """The K4 launch for a query of Lq rows against a target of Lt
+    columns: ``variant`` "warp" (the default up to NW_WARP_MAX_LT) or
+    "wide" (past it), ``C`` columns a thread (0 for the wide kernel),
+    ``lanes_per_block``, ``threads`` and ``smem`` a block. A variant may
+    be asked for by name (to time one against the other); a shape the
+    variant cannot take raises KernelError."""
+    Lq, Lt = int(Lq), int(Lt)
+    if Lq <= 0 or Lt <= 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd needs Lq and "
+                          f"Lt of at least 1, got {Lq}, {Lt}")
+    if variant is None:
+        variant = "warp" if Lt <= NW_WARP_MAX_LT else "wide"
+    if variant == "warp":
+        if Lt > NW_WARP_MAX_LT:
+            raise KernelError(f"[racon_tpu_torch::kernels] the warp nw_fwd "
+                              f"kernel takes Lt <= {NW_WARP_MAX_LT}, got "
+                              f"{Lt}")
+        cols = -(-Lt // 32)
+        C = -(-cols // 4) * 4
+        return {"variant": "warp", "C": C, "lanes_per_block": NW_WARP_LANES,
+                "threads": 32 * NW_WARP_LANES, "smem": 0}
+    if variant == "wide":
+        smem = nw_smem(Lq, Lt)
+        if smem > SMEM_MAX:
+            raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd at "
+                              f"Lq={Lq}, Lt={Lt} needs {smem} bytes of "
+                              f"shared memory, past the block's {SMEM_MAX}")
+        groups = -(-Lt // 4)
+        threads = min(1024, -(-groups // 32) * 32)
+        return {"variant": "wide", "C": 0, "lanes_per_block": 1,
+                "threads": threads, "smem": smem}
+    raise KernelError(f"[racon_tpu_torch::kernels] unknown nw_fwd variant "
+                      f"{variant!r}")
+
+
+def nw_occupancy(Lq: int, Lt: int, variant: str | None = None) -> dict:
+    """What the K4 launch :func:`nw_plan` makes gets on the current card:
+    the plan with ``blocks_per_sm``, ``regs`` a thread and ``spills``
+    (local-memory bytes a thread). Raises KernelError when the query
+    fails or no block fits."""
+    plan = nw_plan(Lq, Lt, variant)
+    out = (ctypes.c_int * 4)()
+    rc = _lib().racon_nw_occupancy(int(Lq), int(Lt), plan["C"], out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"nw_fwd ({plan}) failed (cudaError {rc}, "
+                          f"{out[0]} blocks an SM)")
+    return {**plan, "blocks_per_sm": out[0], "regs": out[1],
+            "spills": out[2]}
+
+
 def nw_dirs(q: torch.Tensor, t: torch.Tensor, *, match: int, mismatch: int,
-            gap: int) -> torch.Tensor:
+            gap: int, variant: str | None = None) -> torch.Tensor:
     """NW direction codes u8 [Lq, B, Lt] of q u8 [B, Lq] against t u8
-    [B, Lt] (ops/align.py::nw_dirs_plain's contract)."""
+    [B, Lt] (ops/align.py::nw_dirs_plain's contract).
+
+    On the card, K4 (csrc/nw_fwd.cu, replacing racon_tpu/ops/pallas/
+    nw_kernel.py::_kernel) in the variant :func:`nw_plan` picks, or in
+    ``variant`` where one is named: the warp kernel (one warp a lane, the
+    score row in registers, one pass a row, no block barrier; Lt <= 1024)
+    or the wide kernel (one block a lane, the row in shared memory).
+    Bound: 14 integer operations a cell against the int32 rate
+    (operations bound at every shape of the op-string route). The warp
+    kernel counts its launches under "nw_fwd", the wide one under
+    "nw_fwd_wide". ``variant`` is not taken on the CPU."""
     if q.device.type == "cpu":
+        if variant is not None:
+            raise KernelError("[racon_tpu_torch::kernels] nw_fwd variants "
+                              "are the card's")
         return nw_dirs_plain(q, t, match=match, mismatch=mismatch, gap=gap)
     if q.device.type != "cuda":
         raise KernelError("[racon_tpu_torch::kernels] nw_fwd needs a CPU or "
@@ -522,17 +605,15 @@ def nw_dirs(q: torch.Tensor, t: torch.Tensor, *, match: int, mismatch: int,
     dev = q.device
     _check(q, "q", torch.uint8, (B, Lq), dev)
     _check(t, "t", torch.uint8, (B, Lt), dev)
-    if nw_smem(Lq, Lt) > SMEM_MAX:
-        raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd at Lq={Lq}, "
-                          f"Lt={Lt} needs {nw_smem(Lq, Lt)} bytes of shared "
-                          f"memory, past the block's {SMEM_MAX}")
+    plan = nw_plan(Lq, Lt, variant)
     dirs = torch.empty((Lq, B, Lt), dtype=torch.uint8, device=dev)
     rc = _lib().racon_nw_fwd(q.data_ptr(), t.data_ptr(), dirs.data_ptr(), B,
-                             Lq, Lt, match, mismatch, gap, _stream(dev))
+                             Lq, Lt, match, mismatch, gap, plan["C"],
+                             _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd launch failed "
-                          f"(cudaError {rc})")
-    LAUNCHES["nw_fwd"] += 1
+                          f"(cudaError {rc}, plan {plan})")
+    LAUNCHES["nw_fwd" if plan["variant"] == "warp" else "nw_fwd_wide"] += 1
     return dirs
 
 
@@ -566,9 +647,55 @@ def nw_traceback(dirs: torch.Tensor, lq: torch.Tensor, lt: torch.Tensor,
     return ops, n
 
 
+# K5 (csrc/count.cu) runs one warp a lane with the lane's histogram of P
+# bins (rounded up to whole 16-byte pieces) in shared memory: COUNT_LANES
+# lanes a block, fewer where their histograms pass SMEM_MAX.
+COUNT_LANES = 8
+
+
+def count_plan(P: int) -> dict:
+    """The K5 launch for P output bins: ``lanes_per_block`` (warps a
+    block, one a lane) and ``smem`` a block. Raises KernelError for P < 1
+    or a histogram past the block's shared memory."""
+    P = int(P)
+    if P < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] monotone_count needs "
+                          f"P >= 1, got {P}")
+    lane = 4 * (-(-P // 4) * 4)
+    lanes = min(COUNT_LANES, SMEM_MAX // lane)
+    if lanes < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] monotone_count at "
+                          f"P={P} needs {lane} bytes of shared memory, past "
+                          f"the block's {SMEM_MAX}")
+    return {"lanes_per_block": lanes, "smem": lanes * lane}
+
+
+def count_occupancy(P: int) -> dict:
+    """What the K5 launch :func:`count_plan` makes gets on the current
+    card: the plan with ``blocks_per_sm``, ``regs`` a thread, ``spills``
+    and ``threads`` a block. Raises KernelError when the query fails."""
+    plan = count_plan(P)
+    out = (ctypes.c_int * 4)()
+    rc = _lib().racon_monotone_count_occupancy(int(P),
+                                               plan["lanes_per_block"], out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"monotone_count ({plan}) failed (cudaError {rc}, "
+                          f"{out[0]} blocks an SM)")
+    return {**plan, "blocks_per_sm": out[0], "regs": out[1],
+            "spills": out[2], "threads": out[3]}
+
+
 def monotone_count(X: torch.Tensor, P: int) -> torch.Tensor:
     """``F[b, p] = #{s : X[b, s] < p}``, int32 [B, P], from X int32 [B, S]
-    (ops/device_merge.py::monotone_count_plain's contract)."""
+    (ops/device_merge.py::monotone_count_plain's contract), for any X,
+    sorted or not.
+
+    On the card, K5 (csrc/count.cu, replacing racon_tpu/ops/pallas/
+    count_kernel.py::_kernel): one warp a lane, a shared-memory histogram
+    and a warp scan, no block barrier, lanes a block from
+    :func:`count_plan`. Bound: 4*B*(S + P) bytes against the memory rate
+    (bytes bound)."""
     if X.device.type == "cpu":
         return monotone_count_plain(X, P)
     if X.device.type != "cuda":
@@ -577,16 +704,13 @@ def monotone_count(X: torch.Tensor, P: int) -> torch.Tensor:
     B, S = X.shape
     dev = X.device
     _check(X, "X", torch.int32, (B, S), dev)
-    if 4 * (P + 32) > SMEM_MAX:
-        raise KernelError(f"[racon_tpu_torch::kernels] monotone_count at "
-                          f"P={P} needs {4 * (P + 32)} bytes of shared "
-                          f"memory, past the block's {SMEM_MAX}")
+    plan = count_plan(P)
     F = torch.empty((B, P), dtype=torch.int32, device=dev)
     rc = _lib().racon_monotone_count(X.data_ptr(), F.data_ptr(), B, S, int(P),
-                                     _stream(dev))
+                                     plan["lanes_per_block"], _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] monotone_count launch "
-                          f"failed (cudaError {rc})")
+                          f"failed (cudaError {rc}, plan {plan})")
     LAUNCHES["monotone_count"] += 1
     return F
 

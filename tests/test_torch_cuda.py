@@ -469,46 +469,103 @@ def _nw_case(seed, B, Lq, Lt):
     return q, t, lq, lt
 
 
+@pytest.mark.parametrize("variant", [None, "wide"])
 @pytest.mark.parametrize("B", [3, 128, 1030])
-@pytest.mark.parametrize("Lt", [56, 640, 4224])
-def test_nw_kernels_match_plain(cuda, B, Lt):
-    """K4 (direction codes; Lt=4224 gives a thread two 4-column groups)
-    and T1 (op strings and counts) on its planes."""
+@pytest.mark.parametrize("Lt", [50, 56, 128, 200, 384, 512, 640, 768, 896,
+                                1024, 1056, 4224])
+def test_nw_kernels_match_plain(cuda, B, Lt, variant):
+    """K4 (direction codes) in the variant the planner picks (the warp
+    kernel at every column count a thread, C = 4, 8, ..., 32, with 16-byte,
+    word and byte stores; the wide kernel past Lt = 1024, where Lt=4224
+    gives a thread two 4-column groups) and in the wide kernel forced, on
+    B not a multiple of the warp kernel's lanes a block; T1 (op strings
+    and counts) on its planes."""
     Lq = 64
     q, t, lq, lt = _nw_case(B + Lt, B, Lq, Lt)
     sc = dict(match=5, mismatch=-4, gap=-8)
     ref = align.nw_dirs_plain(q, t, **sc)
+    plan = kernels.nw_plan(Lq, Lt, variant)
+    key = "nw_fwd" if plan["variant"] == "warp" else "nw_fwd_wide"
     n0 = dict(kernels.LAUNCHES)
-    dirs = kernels.nw_dirs(q.to(cuda), t.to(cuda), **sc)
+    dirs = kernels.nw_dirs(q.to(cuda), t.to(cuda), variant=variant, **sc)
     torch.cuda.synchronize()
     assert torch.equal(ref, dirs.cpu())
     r_ops, r_n = kernels.nw_traceback(ref, lq, lt, Lq + Lt)
     ops, n = kernels.nw_traceback(dirs, lq.to(cuda), lt.to(cuda), Lq + Lt)
     torch.cuda.synchronize()
     assert torch.equal(r_ops, ops.cpu()) and torch.equal(r_n, n.cpu())
-    assert kernels.LAUNCHES["nw_fwd"] == n0["nw_fwd"] + 1
+    assert kernels.LAUNCHES[key] == n0[key] + 1
     assert kernels.LAUNCHES["nw_traceback"] == n0["nw_traceback"] + 1
+    other = "nw_fwd_wide" if key == "nw_fwd" else "nw_fwd"
+    assert kernels.LAUNCHES[other] == n0[other]
 
 
-@pytest.mark.parametrize("kind", ["monotone", "unsorted"])
-def test_monotone_count_kernel_matches_plain(cuda, kind):
-    """K5 on non-decreasing rows (the op-string route's keys, with their
-    negative pad prefix) and on unsorted rows with values on both sides
-    of [0, P)."""
-    rng = np.random.default_rng(17)
-    B, S, P = 130, 700, 300
+@pytest.mark.parametrize("Lt", [56, 512, 1024, 4224])
+def test_nw_occupancy(cuda, Lt):
+    """The warp kernel at the op-string route's width (C = 16) and below
+    runs with no spills and at least 7 blocks of 4 lanes an SM (72
+    registers at C = 16: a cap at 64 spilled and ran slower); every
+    variant fits at least one block."""
+    for variant in ([None, "wide"] if Lt <= kernels.NW_WARP_MAX_LT
+                    else [None]):
+        occ = kernels.nw_occupancy(640, Lt, variant)
+        assert occ["blocks_per_sm"] >= 1
+        if occ["variant"] == "warp" and occ["C"] <= 16:
+            assert occ["spills"] == 0 and occ["blocks_per_sm"] >= 7
+
+
+def _count_case(kind, B, S, P, seed=17):
+    """K5 inputs: non-decreasing rows with a negative pad prefix (the
+    op-string route's block keys), unsorted rows with values on both
+    sides of [0, P), or rows made mostly of one repeated key."""
+    rng = np.random.default_rng(seed)
     if kind == "monotone":
         X = np.cumsum(rng.integers(0, 2, (B, S)), axis=1) - \
             rng.integers(1, 60, (B, 1))
-    else:
+    elif kind == "unsorted":
         X = rng.integers(-50, P + 50, (B, S))
-    X = torch.from_numpy(X.astype(np.int32))
-    ref = monotone_count_plain(X, P)
+    else:
+        X = np.where(rng.random((B, S)) < 0.9,
+                     rng.integers(-2, P + 1, (B, 1)),
+                     rng.integers(-5, P + 5, (B, S)))
+    return torch.from_numpy(X.astype(np.int32))
+
+
+@pytest.mark.parametrize("kind,B,S,P", [
+    ("monotone", 130, 700, 300),
+    ("unsorted", 130, 700, 300),
+    # Rows of 531 values: 2124 bytes, so rows start off a 16-byte
+    # boundary and the head and tail are read singly.
+    ("monotone", 37, 531, 300),
+    ("unsorted", 37, 531, 33),
+    ("repeated", 130, 700, 300),
+    ("repeated", 9, 531, 2),
+    ("unsorted", 9, 64, 1),
+    ("unsorted", 9, 3, 2),
+    ("monotone", 9, 0, 33),
+    # The op-string route's merge shape.
+    ("monotone", 14965, 532, 510),
+])
+def test_monotone_count_kernel_matches_plain(cuda, kind, B, S, P):
+    """K5 against its plain version on aligned and unaligned rows and
+    output rows, P down to 1, rows of one repeated key and B not a
+    multiple of the lanes a block."""
+    X = _count_case(kind, B, S, P).to(cuda)
+    ref = monotone_count_plain(X, P)    # on the card: [B, S, P] compares
     n0 = kernels.LAUNCHES["monotone_count"]
-    out = kernels.monotone_count(X.to(cuda), P)
+    out = kernels.monotone_count(X, P)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["monotone_count"] == n0 + 1
-    assert torch.equal(ref, out.cpu())
+    assert torch.equal(ref, out)
+
+
+def test_count_occupancy(cuda):
+    """K5 at the route's P: 8 lanes a block, 8 blocks (64 warps) an SM;
+    a P whose histogram fills the block's shared memory: one lane."""
+    occ = kernels.count_occupancy(510)
+    assert occ["lanes_per_block"] == 8 and occ["spills"] == 0
+    assert occ["blocks_per_sm"] == 8
+    assert kernels.count_occupancy(58000)["lanes_per_block"] == 1
 
 
 @pytest.mark.parametrize("scoring", [(5, -4, -8), (0, -1, -1)])
