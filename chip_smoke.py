@@ -40,12 +40,14 @@ any failure exits non-zero and prints no result):
               and at [4096, 640, 512], the warp kernel timed in turns
               against the wide kernel forced at the same shape (both
               bitwise, with registers, spills and blocks an SM);
-              nw_traceback (T1, with its chain floor) on K4's planes at
-              [4096, 640, 512]; monotone_count (K5) at the merge's shape
+              nw_traceback (T1) on K4's planes at the same three
+              shapes, with its sector bound, serial floor and chain
+              floor, windows and misses a lane, registers, spills and
+              blocks an SM; monotone_count (K5) at the merge's shape
               [14965, 532, 510] on route-like block keys and at [4096,
               1152, 514] on T1's op strings, in turns with
-              torch.searchsorted (20 repetitions); K4 and K5 times are
-              device times from CUDA graphs of several calls;
+              torch.searchsorted (20 repetitions); K4, T1 and K5 times
+              are device times from CUDA graphs of several calls;
 3. small      the CLI on a ~20 kb synthetic input with --device cuda and
               --device cpu: the FASTA must be byte-identical (the cuda run
               aligns the overlaps on the card, untiled; the cpu run with
@@ -766,7 +768,8 @@ def phase_kernels(device, B=4096, Lq=640, W=256, Bf=1024, Lt=640):
 def nw_pairs(device, B, Lq, Lt, seed=10):
     """Pairs as the op-string route packs them: targets of window-slice
     lengths (up to Lt - 12 bases), queries 8%-error copies of them, codes
-    zero-padded to (Lq, Lt)."""
+    zero-padded to (Lq, Lt), lanes in the route's order (sorted by target
+    and then query length, as PoaEngine._align_device sorts its jobs)."""
     import torch
     from racon_tpu_torch.ops.encode import encode_bases
     from racon_tpu_torch.utils.synth import _BASES, mutate
@@ -782,7 +785,9 @@ def nw_pairs(device, B, Lq, Lt, seed=10):
         t[b, :len(tt)] = encode_bases(tt.tobytes())
         q[b, :len(qq)] = encode_bases(qq.tobytes())
         lq[b], lt[b] = len(qq), len(tt)
-    return tuple(torch.from_numpy(a).to(device) for a in (q, t, lq, lt))
+    order = np.lexsort((lq, lt))
+    return tuple(torch.from_numpy(a[order]).to(device)
+                 for a in (q, t, lq, lt))
 
 
 def route_keys(device, B=14965, S=532, LA=508, seed=12):
@@ -882,25 +887,113 @@ def count_case(case, Xs, P):
     return rec
 
 
-def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
-    """K4, T1 and K5 at the op-string route's shapes, each bitwise against
-    its plain version. K4 (both variants, in turns) at [4096, 640, 512]
-    and at the route's batch shapes [4096, 512, 512] and [3072, 640,
-    512]; T1 on K4's planes at [4096, 640, 512] (with its chain floor);
-    K5 on the block keys of T1's op strings with P = LA + 2 (LA = Lt),
-    [4096, 1152, 514], and on route keys at the merge's shape [14965,
-    532, 510], in turns with torch.searchsorted."""
+def path_sectors(dirs, lq, lt, ops, n, block: int = 1024) -> int:
+    """32-byte sectors of the plane that the paths read: the cells (i, j)
+    with i, j >= 1 each lane's walk stands on before a step, recovered
+    from its op string, by address (a block of lanes at a time)."""
+    import torch
+    Lq, B, Lt = dirs.shape
+    L = ops.shape[1]
+    dev = dirs.device
+    s = torch.arange(L, device=dev)[None, :]
+    secs = []
+    for b0 in range(0, B, block):
+        sl = slice(b0, min(B, b0 + block))
+        rev = torch.flip(ops[sl], dims=[1]).to(torch.int64)
+        di = ((rev == 0) | (rev == 1)).to(torch.int64)
+        dj = ((rev == 0) | (rev == 2)).to(torch.int64)
+        ci = (lq[sl].clamp(0, Lq).to(torch.int64)[:, None] -
+              torch.cumsum(di, dim=1) + di)
+        cj = (lt[sl].clamp(0, Lt).to(torch.int64)[:, None] -
+              torch.cumsum(dj, dim=1) + dj)
+        bb = torch.arange(b0, sl.stop, device=dev)[:, None]
+        addr = dirs.data_ptr() + ((ci - 1) * B + bb) * Lt + cj - 1
+        read = (s < n[sl, None]) & (ci >= 1) & (cj >= 1)
+        secs.append(torch.unique(addr[read] >> 5))
+    return int(torch.unique(torch.cat(secs)).numel())
+
+
+def tb_case(dirs, lq, lt):
+    """T1 on K4's planes at one shape (L = Lq + Lt), bitwise against the
+    plain traceback, its device time a call from CUDA graphs of 5 calls
+    (median of 10 replays). Bound: the larger of the sector bound (the
+    32-byte sectors the paths read, and the op strings and counts
+    written once; bound_by "bytes"), the operations and the serial floor
+    (the longest path's steps, each one dependent load through shared
+    memory; bound_by "operations"). Beside it the bytes bound of one
+    byte a step (the column the sector bound replaces), the chain floor
+    (the longest lane's rows, each a dependent load one plane row below
+    the last, through device memory), the windows and misses a lane (the
+    kernel's refill counter) and what the planner's launch gets on this
+    card. Returns (record, ops)."""
     import torch
     from racon_tpu_torch.ops import kernels
     from racon_tpu_torch.ops.align import PAD_OP, traceback_plain
+    Lq, B, Lt = dirs.shape
+    L = Lq + Lt
+
+    def plain_tb():
+        rev = traceback_plain(dirs, lq, lt, L)
+        return (torch.flip(rev, dims=[1]),
+                (rev != PAD_OP).sum(dim=1, dtype=torch.int32))
+    ref, plain_ms = timed_once(plain_tb)
+    ops, n = kernels.nw_traceback(dirs, lq, lt, L)
+    err = max_abs_err(ref, (ops, n))
+    del ref
+    ms, = time_graph_turns([lambda: kernels.nw_traceback(dirs, lq, lt, L)],
+                           reps=10, calls=5)
+    steps = int(n.sum().item())
+    out_bytes = B * L + 12 * B
+    bytes_ms, _ = bound(steps + out_bytes, 0)
+    sectors = path_sectors(dirs, lq, lt, ops, n)
+    sector_ms, _ = bound(32 * sectors + out_bytes, 0)
+    ops_ms = bound(0, steps * OPS_PER_STEP)[0]
+    max_n = int(n.max().item())
+    serial_ms = max_n * shared_step_ms(dirs.device)
+    bms, by = max((sector_ms, "bytes"), (ops_ms, "operations"),
+                  (serial_ms, "operations"))
+    rows = int(lq.max().item())
+    floor_ms = chain_floor_ms(dirs.device, rows, B * Lt, B, Lt)
+    refills = torch.zeros((B, 2), dtype=torch.int32, device=dirs.device)
+    kernels.nw_traceback(dirs, lq, lt, L, refills=refills)
+    per_lane = refills.to(torch.float64).mean(dim=0).tolist()
+    occ = kernels.traceback_occupancy(B, Lq, Lt)
+    rec = dict(shape=[B, Lq, Lt], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by, library_ms=None,
+               sector_bound_ms=sector_ms, bytes_bound_ms=bytes_ms,
+               serial_floor_ms=serial_ms, chain_floor_ms=floor_ms,
+               sectors=sectors, steps=steps, max_n=max_n,
+               windows_per_lane=per_lane[0], misses_per_lane=per_lane[1],
+               plan={k: occ[k] for k in ("R", "C", "M", "lanes_per_block")},
+               smem_per_block=occ["smem"],
+               **{k: occ[k] for k in ("regs", "spills", "blocks_per_sm")})
+    emit("kernels", kernel="nw_traceback", **rec)
+    if err:
+        fail(f"nw_traceback at {[B, Lq, Lt]} disagrees with its plain "
+             f"version (max_abs_err={err})")
+    return rec, ops
+
+
+def phase_op_string_kernels(device):
+    """K4, T1 and K5 at the op-string route's shapes, each bitwise against
+    its plain version. K4 (both variants, in turns) and T1 on K4's planes
+    at the route's batch shapes [4096, 512, 512] and [3072, 640, 512]
+    and at [4096, 640, 512] (the shape of the earlier rows); K5 on the
+    block keys of T1's op strings at [4096, 640, 512] with P = LA + 2
+    (LA = Lt), [4096, 1152, 514], and on route keys at the merge's shape
+    [14965, 532, 510], in turns with torch.searchsorted."""
+    import torch
     from racon_tpu_torch.ops.device_merge import block_keys
     sc = dict(match=5, mismatch=-4, gap=-8)
     recs = {}
-    shapes = [nw_case(device, 4096, 512, Lt, sc)[0],
-              nw_case(device, 3072, 640, Lt, sc)[0]]
-    rec, dirs, lq, lt = nw_case(device, B, Lq, Lt, sc)
-    shapes.append(rec)
-    # The rows: both variants at the route's first batch shape.
+    shapes, tbs = [], []
+    for B, Lq, Lt in ((4096, 512, 512), (3072, 640, 512), (4096, 640, 512)):
+        rec, dirs, lq, lt = nw_case(device, B, Lq, Lt, sc)
+        shapes.append(rec)
+        tb, ops = tb_case(dirs, lq, lt)
+        tbs.append(tb)
+        del dirs
+    # The rows: both K4 variants and T1 at the route's first batch shape.
     route = shapes[0]
     occ_keys = ("regs", "spills", "blocks_per_sm")
     recs["nw_fwd", 0] = dict(
@@ -913,34 +1006,15 @@ def phase_op_string_kernels(device, B=4096, Lq=640, Lt=512):
         ms=route["wide_ms"], plain_ms=route["plain_ms"],
         bound_ms=route["bound_ms"], bound_by=route["bound_by"],
         library_ms=None, **{n: route["wide"][n] for n in occ_keys})
-
-    L = Lq + Lt
-    ops, n = kernels.nw_traceback(dirs, lq, lt, L)
-
-    def plain_tb():
-        rev = traceback_plain(dirs, lq, lt, L)
-        return (torch.flip(rev, dims=[1]),
-                (rev != PAD_OP).sum(dim=1, dtype=torch.int32))
-    ref, plain_ms = timed_once(plain_tb)
-    err = max_abs_err(ref, (ops, n))
-    del ref
-    ms = time_ms(lambda: kernels.nw_traceback(dirs, lq, lt, L))
-    steps = int(n.sum().item())
-    bms, by = bound(steps + B * L + 12 * B, steps * OPS_PER_STEP)
-    # Chain floor: the longest lane's row moves (lq of them), each a
-    # dependent load one plane row (B * Lt bytes) below the last.
-    rows = int(lq.max().item())
-    floor_ms = chain_floor_ms(dirs.device, rows, B * Lt, B, Lt)
     recs["nw_traceback", 0] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None, chain_floor_ms=floor_ms,
-        shape=[B, Lq, Lt], steps=steps, max_n=int(n.max().item()))
-    emit("kernels", kernel="nw_traceback", **recs["nw_traceback", 0])
-    if err:
-        fail(f"nw_traceback disagrees with its plain version "
-             f"(max_abs_err={err})")
-    del dirs
+        tbs[0], max_abs_err=max(r["max_abs_err"] for r in tbs),
+        shapes=[{n: r[n] for n in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "sector_bound_ms", "serial_floor_ms",
+                                   "chain_floor_ms", "windows_per_lane",
+                                   "misses_per_lane")} for r in tbs])
 
+    # K5 on the op strings of the last shape, [4096, 640, 512].
+    B, Lt = lt.shape[0], tbs[-1]["shape"][2]
     rng = np.random.default_rng(11)
     t_off = torch.from_numpy((rng.random(B) * (Lt - lt.cpu().numpy() + 1))
                              .astype(np.int32)).to(device)
@@ -1344,8 +1418,9 @@ def main() -> int:
                                  "chain_floor_ms", "serial_floor_ms",
                                  "windows_per_lane", "misses_per_lane",
                                  "wide_ms", "eager_ms", "eager_library_ms",
+                                 "sector_bound_ms", "bytes_bound_ms",
                                  "C", "regs", "spills", "blocks_per_sm",
-                                 "smem_per_block") if n in r}})
+                                 "smem_per_block", "shapes") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

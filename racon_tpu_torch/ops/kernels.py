@@ -19,7 +19,8 @@ its column-walk scan:
   ``LAUNCHES``), picked by shape by ``nw_plan``;
 - ``nw_traceback`` (csrc/nw_traceback.cu) — the XLA scan
   racon_tpu/ops/align.py ``_traceback_flat``; plain version
-  ops/align.py::traceback_plain;
+  ops/align.py::traceback_plain. One warp a lane walks windows of the
+  plane staged in shared memory, planned by ``traceback_plan``;
 - ``monotone_count`` (csrc/count.cu) — racon_tpu/ops/pallas/
   count_kernel.py ``_kernel``; plain version
   ops/device_merge.py::monotone_count_plain.
@@ -33,9 +34,10 @@ card (resident blocks an SM, registers, spills); the overlap aligner's
 group planner sizes a tiled launch from it. ``walk_plan`` sizes a walk
 launch (threads a lane, window shape, lanes a block) from the lane count,
 the walk depth and the SM count, and ``walk_occupancy`` reads what a plan
-gets on the card. ``nw_plan`` and ``count_plan`` size the K4 and K5
-launches from the shape; ``nw_occupancy`` and ``count_occupancy`` read
-what they get on the card.
+gets on the card. ``nw_plan``, ``traceback_plan`` and ``count_plan`` size
+the K4, T1 and K5 launches from the shape; ``nw_occupancy``,
+``traceback_occupancy`` and ``count_occupancy`` read what they get on the
+card.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -148,7 +150,9 @@ def _lib():
             lib.racon_nw_occupancy.restype = ci
             lib.racon_nw_occupancy.argtypes = [ci] * 3 + [vp]
             lib.racon_nw_traceback.restype = ci
-            lib.racon_nw_traceback.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+            lib.racon_nw_traceback.argtypes = [vp] * 6 + [ci] * 5 + [vp]
+            lib.racon_nw_traceback_occupancy.restype = ci
+            lib.racon_nw_traceback_occupancy.argtypes = [ci, vp]
             lib.racon_monotone_count.restype = ci
             lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 4 + [vp]
             lib.racon_monotone_count_occupancy.restype = ci
@@ -617,12 +621,104 @@ def nw_dirs(q: torch.Tensor, t: torch.Tensor, *, match: int, mismatch: int,
     return dirs
 
 
+# T1's plan (csrc/nw_traceback.cu): one warp a lane walks windows of the
+# plane staged in shared memory, the next window prefetched. The window is
+# the kernel's: TB_WINDOW = (R rows, C band bytes, M margin) mirrors its
+# kR, kC, kM, TB_LANE_BYTES its kLaneBytes (two windows with their R + 2
+# int32 first columns, and the TB_RING-byte op ring). The plan sets lanes
+# a block: an SM's share of the lanes, ceil(B / sms), as one block of up
+# to TB_LANES lanes (as few blocks as that takes, evenly filled), so that
+# neighbouring lanes, whose paths cross the same rows once the route has
+# sorted its jobs by length, share an SM. Measured with walk_bench.py
+# --traceback --plans at the op-string route's shapes on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md keeps the times): blocks of an SM's share
+# ran 2-7% faster than blocks of 1, 4 or 8 lanes; blocks of at most 16
+# lanes tied them at 4096 lanes (within 1%) and lost 1-2% at 3072.
+# TB_SMS is the SM count the plan assumes off the card (an H100 SXM).
+TB_WINDOW = (32, 64, 16)
+TB_LANES = 32
+TB_RING = 256
+TB_LANE_BYTES = 2 * (32 * 64 + 4 * (32 + 2)) + TB_RING  # 4624
+TB_SMS = 132
+
+
+def traceback_plan(B: int, Lq: int, Lt: int, sms: int = TB_SMS) -> dict:
+    """Plan of one T1 launch over B lanes of an [Lq, B, Lt] plane on
+    ``sms`` SMs: the kernel's window ``R``, ``C``, ``M`` (TB_WINDOW;
+    :func:`traceback_band` places it), ``lanes_per_block`` (see TB_LANES)
+    and ``smem`` a block."""
+    B, Lq, Lt = int(B), int(Lq), int(Lt)
+    if B < 1 or Lq < 1 or Lt < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback needs "
+                          f"B, Lq and Lt of at least 1, got {B}, {Lq}, {Lt}")
+    R, C, M = TB_WINDOW
+    lanes_sm = -(-B // int(sms))
+    lpb = -(-lanes_sm // -(-lanes_sm // TB_LANES))
+    return {"R": R, "C": C, "M": M, "lanes_per_block": lpb,
+            "smem": lpb * TB_LANE_BYTES}
+
+
+def traceback_band(j0: int, row_starts) -> list:
+    """First plane column of each row's band in a T1 window anchored at
+    column j0: row r (``row_starts[r]`` the address of its column 0,
+    modulo 32 or whole) starts at the 32-byte sector boundary at or below
+    column j0 - 1 - r - M, and holds C bytes (TB_WINDOW)."""
+    M = TB_WINDOW[2]
+    return [((a + j0 - 1 - r - M) & ~31) - a
+            for r, a in enumerate(row_starts)]
+
+
+def _traceback_lanes(plan: dict, lanes_per_block) -> int:
+    """Lanes a block of a T1 launch: the plan's, or ``lanes_per_block``
+    (1 to TB_LANES; KernelError otherwise)."""
+    if lanes_per_block is None:
+        return plan["lanes_per_block"]
+    if not 1 <= int(lanes_per_block) <= TB_LANES:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback needs 1 "
+                          f"to {TB_LANES} lanes a block, got "
+                          f"{lanes_per_block}")
+    return int(lanes_per_block)
+
+
+def traceback_occupancy(B: int, Lq: int, Lt: int,
+                        lanes_per_block=None) -> dict:
+    """What a T1 launch gets on the current card at ``lanes_per_block``
+    (default :func:`traceback_plan`'s for this card's SM count): the plan
+    with ``smem`` a block as the kernel sizes it, ``blocks_per_sm``,
+    ``regs`` a thread, ``spills`` (local-memory bytes a thread) and
+    ``threads`` a block. Raises KernelError when the query fails or no
+    block fits."""
+    plan = traceback_plan(B, Lq, Lt, sms=torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count)
+    lpb = _traceback_lanes(plan, lanes_per_block)
+    out = (ctypes.c_int * 5)()
+    rc = _lib().racon_nw_traceback_occupancy(lpb, out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"nw_traceback ({lpb} lanes a block) failed "
+                          f"(cudaError {rc}, {out[0]} blocks an SM)")
+    return {**plan, "lanes_per_block": lpb, "smem": out[4],
+            "blocks_per_sm": out[0], "regs": out[1], "spills": out[2],
+            "threads": 32 * lpb}
+
+
 def nw_traceback(dirs: torch.Tensor, lq: torch.Tensor, lt: torch.Tensor,
-                 L: int):
+                 L: int, *, lanes_per_block=None, refills=None):
     """Op strings of every lane from its direction codes u8 [Lq, B, Lt]:
     ``(ops u8[B, L], n i32[B])``, each path right-aligned behind PAD_OP in
-    start-to-end order (ops/align.py::nw_align_batch's contract)."""
+    start-to-end order (ops/align.py::nw_align_batch's contract).
+
+    On the card, T1 (csrc/nw_traceback.cu, replacing the XLA scan
+    racon_tpu/ops/align.py::_traceback_flat): one warp a lane walks
+    windows of the plane staged in shared memory. ``lanes_per_block``
+    (default :func:`traceback_plan`'s) changes the time and never the
+    outputs; ``refills``, an int32 [B, 2] tensor on the card, receives
+    each lane's windows entered and misses (windows left through a band
+    edge). Neither is taken on the CPU."""
     if dirs.device.type == "cpu":
+        if lanes_per_block is not None or refills is not None:
+            raise KernelError("[racon_tpu_torch::kernels] nw_traceback "
+                              "lanes a block and refills are the card's")
         rev = traceback_plain(dirs, lq, lt, L)
         n = (rev != PAD_OP).sum(dim=1, dtype=torch.int32)
         return torch.flip(rev, dims=[1]), n
@@ -634,15 +730,23 @@ def nw_traceback(dirs: torch.Tensor, lq: torch.Tensor, lt: torch.Tensor,
     _check(dirs, "dirs", torch.uint8, (Lq, B, Lt), dev)
     _check(lq, "lq", torch.int32, (B,), dev)
     _check(lt, "lt", torch.int32, (B,), dev)
+    if refills is not None:
+        _check(refills, "refills", torch.int32, (B, 2), dev)
+    if int(L) < 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback needs "
+                          f"L >= 0, got {L}")
+    lpb = _traceback_lanes(traceback_plan(
+        B, Lq, Lt, sms=torch.cuda.get_device_properties(
+            dev).multi_processor_count), lanes_per_block)
     ops = torch.empty((B, L), dtype=torch.uint8, device=dev)
     n = torch.empty((B,), dtype=torch.int32, device=dev)
-    rc = _lib().racon_nw_traceback(dirs.data_ptr(), lq.data_ptr(),
-                                   lt.data_ptr(), ops.data_ptr(),
-                                   n.data_ptr(), B, Lq, Lt, int(L),
-                                   _stream(dev))
+    rc = _lib().racon_nw_traceback(
+        dirs.data_ptr(), lq.data_ptr(), lt.data_ptr(), ops.data_ptr(),
+        n.data_ptr(), None if refills is None else refills.data_ptr(), B, Lq,
+        Lt, int(L), lpb, _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback launch "
-                          f"failed (cudaError {rc})")
+                          f"failed (cudaError {rc}, {lpb} lanes a block)")
     LAUNCHES["nw_traceback"] += 1
     return ops, n
 

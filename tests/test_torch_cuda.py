@@ -514,6 +514,142 @@ def test_nw_occupancy(cuda, Lt):
             assert occ["spills"] == 0 and occ["blocks_per_sm"] >= 7
 
 
+def _tb_pairs(seed, B, Lq, Lt, kind):
+    """T1 inputs (CPU tensors): ``reads``, 8%-error copies of window-slice
+    targets as the op-string route packs them; ``random``, random pairs
+    (LEFT and UP runs that leave the band and the window) with lanes of
+    lq = 0 and lt = 0; ``clamped``, random pairs with starts past the
+    plane (lq > Lq, lt > Lt)."""
+    rng = np.random.default_rng(seed)
+    if kind == "reads":
+        q, t, lq, lt = _reads_pairs(rng, B, Lq, Lt)
+    else:
+        q, t, lq, lt = _nw_case(seed, B, Lq, Lt)
+        lq[1 % B], lt[2 % B] = 0, 0
+        if kind == "clamped":
+            lq[3 % B], lt[4 % B] = Lq + 5, Lt + 1000
+    return q, t, lq, lt
+
+
+def _reads_pairs(rng, B, Lq, Lt):
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lt), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    for b in range(B):
+        tt = _BASES[rng.integers(0, 4, int(rng.integers(Lt * 3 // 4,
+                                                         max(Lt - 3, 2))))]
+        qq = mutate(rng, tt, 0.08)[0][:Lq]
+        t[b, :len(tt)] = encode_bases(tt.tobytes())
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        lq[b], lt[b] = len(qq), len(tt)
+    return tuple(torch.from_numpy(a) for a in (q, t, lq, lt))
+
+
+# Lanes a block for T1's card tests: the planner's (None), one, an odd
+# count, and TB_LANES (a block of 32 warps): the planner picks from 1 to
+# TB_LANES.
+TB_LANES_CASES = (None, 1, 7, kernels.TB_LANES)
+
+
+def _tb_all_plans(cuda, dirs, lq, lt, L):
+    """T1 at every lanes a block of TB_LANES_CASES against the plain
+    traceback (run on the card), bitwise; one launch counted a call."""
+    rev = align.traceback_plain(dirs, lq, lt, L)
+    r_ops = torch.flip(rev, dims=[1])
+    r_n = (rev != align.PAD_OP).sum(dim=1, dtype=torch.int32)
+    for lanes in TB_LANES_CASES:
+        n0 = kernels.LAUNCHES["nw_traceback"]
+        ops, n = kernels.nw_traceback(dirs, lq, lt, L, lanes_per_block=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(r_ops, ops) and torch.equal(r_n, n), lanes
+        assert kernels.LAUNCHES["nw_traceback"] == n0 + 1
+
+
+@pytest.mark.parametrize("kind", ["reads", "random"])
+@pytest.mark.parametrize("B", [3, 128, 1030])
+@pytest.mark.parametrize("Lt", [50, 56, 200, 512, 1024, 4224])
+def test_nw_traceback_kernel_plans(cuda, Lt, B, kind):
+    """T1 on K4's planes at lanes a block from 1 to TB_LANES, at widths
+    whose lane rows start unaligned (50, 56, 200) and past the warp
+    kernel's (4224), on B not a multiple of the lanes a block: 8%-error
+    pairs, and random pairs with lq or lt of 0."""
+    Lq = 96
+    q, t, lq, lt = (a.to(cuda) for a in _tb_pairs(Lt + B, B, Lq, Lt, kind))
+    dirs = kernels.nw_dirs(q, t, match=5, mismatch=-4, gap=-8)
+    _tb_all_plans(cuda, dirs, lq, lt, Lq + Lt)
+
+
+@pytest.mark.parametrize("case", ["clamped", "short L", "codes"])
+def test_nw_traceback_kernel_edges(cuda, case):
+    """Starts past the plane (clamped onto it), L shorter than the
+    paths (the walk stops at L steps; L = 0 too), and planes of codes
+    that do not move the walk (PAD_OP and 7 beside DIAG, UP and LEFT:
+    runs past the op ring's 256 bytes)."""
+    B, Lq, Lt = 130, 100, 72
+    q, t, lq, lt = (a.to(cuda) for a in _tb_pairs(7, B, Lq, Lt, "clamped"))
+    dirs = kernels.nw_dirs(q, t, match=5, mismatch=-4, gap=-8)
+    if case == "clamped":
+        _tb_all_plans(cuda, dirs, lq, lt, Lq + Lt)
+    elif case == "short L":
+        for L in (0, 1, 33, 120):
+            _tb_all_plans(cuda, dirs, lq, lt, L)
+    else:
+        rng = np.random.default_rng(3)
+        codes = rng.choice(np.array([0, 0, 0, 1, 2, 3, 7], np.uint8),
+                           (Lq, B, Lt))
+        _tb_all_plans(cuda, torch.from_numpy(codes).to(cuda), lq, lt, 900)
+
+
+def test_nw_traceback_refills_match_model(cuda):
+    """The kernel's windows and misses a lane are the windowed walk's
+    model's (tests/traceback_model.py) at the plane's own address, at
+    every lanes a block, on 8%-error pairs and on random ones (whose
+    paths leave their windows through a band edge)."""
+    from traceback_model import windowed_traceback
+    for kind in ("reads", "random"):
+        q, t, lq, lt = _tb_pairs(31, 40, 160, 150, kind)
+        dirs = kernels.nw_dirs(q.to(cuda), t.to(cuda), match=5, mismatch=-4,
+                               gap=-8)
+        _, _, want = windowed_traceback(dirs.cpu(), lq, lt, 310,
+                                        dirs.data_ptr() % 32)
+        assert kind == "reads" or want[:, 1].sum() > 0
+        for lanes in TB_LANES_CASES:
+            refills = torch.zeros((40, 2), dtype=torch.int32, device=cuda)
+            kernels.nw_traceback(dirs, lq.to(cuda), lt.to(cuda), 310,
+                                 lanes_per_block=lanes, refills=refills)
+            assert np.array_equal(refills.cpu().numpy(), want), lanes
+
+
+@pytest.mark.parametrize("B,Lq,Lt", [(4096, 512, 512), (3072, 640, 512)])
+def test_traceback_occupancy(cuda, B, Lq, Lt):
+    """At the op-string route's batch shapes the planner's T1 launch
+    spills nothing and holds an SM's share of the lanes at once: one
+    wave of the card."""
+    occ = kernels.traceback_occupancy(B, Lq, Lt)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert occ["spills"] == 0
+    assert occ["blocks_per_sm"] * occ["lanes_per_block"] >= -(-B // sms)
+    # The kernel sizes a block's shared memory as TB_LANE_BYTES mirrors.
+    assert occ["smem"] == occ["lanes_per_block"] * kernels.TB_LANE_BYTES
+
+
+def test_nw_traceback_rejects_bad_plans(cuda):
+    """Lanes a block past 1 to TB_LANES, and a refill counter of the
+    wrong shape, raise before any launch."""
+    q, t, lq, lt = (a.to(cuda) for a in _tb_pairs(2, 8, 40, 40, "random"))
+    dirs = kernels.nw_dirs(q, t, match=5, mismatch=-4, gap=-8)
+    n0 = kernels.LAUNCHES["nw_traceback"]
+    for bad in (0, kernels.TB_LANES + 1):
+        with pytest.raises(kernels.KernelError):
+            kernels.nw_traceback(dirs, lq, lt, 80, lanes_per_block=bad)
+    with pytest.raises(kernels.KernelError):
+        kernels.nw_traceback(dirs, lq, lt, 80,
+                             refills=torch.zeros((8, 3), dtype=torch.int32,
+                                                 device=cuda))
+    assert kernels.LAUNCHES["nw_traceback"] == n0
+
+
 def _count_case(kind, B, S, P, seed=17):
     """K5 inputs: non-decreasing rows with a negative pad prefix (the
     op-string route's block keys), unsorted rows with values on both

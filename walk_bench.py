@@ -1,7 +1,8 @@
 """Time the column walk (W1, racon_tpu_torch/csrc/col_walk.cu) on the main
-path's walk shapes, on one NVIDIA GPU.
+path's walk shapes, or the NW traceback (T1, csrc/nw_traceback.cu) at the
+op-string route's batch shapes, on one NVIDIA GPU.
 
-    python3 walk_bench.py [--tree DIR] [--plans] [--main]
+    python3 walk_bench.py [--tree DIR] [--plans] [--main] [--traceback]
 
 The cases are chip_smoke.py's (phase 2): the tiled overlap group (G
 chunks of 64 lanes, LA = 10240, W = 1536, k = 2, int32), the untiled
@@ -13,6 +14,16 @@ tree's own kernel. Each case prints one JSON line: the walk's time (warm
 median of 10, CUDA events), the plan, and with --plans the time of each
 alternative plan (threads a lane, window shape, lanes a block), each held
 bitwise against the default plan's outputs.
+
+--traceback  time T1 instead, on chip_smoke.py's cases (phase 2): K4's
+            planes of 8%-error pairs (chip_smoke.nw_pairs) at [B, Lq, Lt]
+            = [4096, 512, 512], [3072, 640, 512] and [4096, 640, 512].
+            Each case prints one JSON line: T1's device time a call (a
+            CUDA graph of 5 calls, median of 10 replays), bitwise against
+            the plain traceback, its lanes a block, windows and misses a
+            lane, registers, spills and blocks an SM. With --plans, an
+            SM's share of the lanes split into blocks of at most 1, 4, 8
+            or 16 lanes too, timed in turns with the planner's.
 
 --tree DIR  time the racon_tpu_torch of another checkout, e.g. an
             unpacked ``git archive`` of the parent commit (run parent,
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -39,6 +51,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIELDS = ("ins_len", "qstart", "op_c", "qi_c", "sat")
+TB_SHAPES = ((4096, 512, 512), (3072, 640, 512), (4096, 640, 512))
 
 
 def load_smoke(root):
@@ -161,6 +174,60 @@ def alternative_plans(kernels, B, k, layout, n_tiles, sms):
                        "lane_bytes": lane, "smem": lpb * lane}
 
 
+def traceback_cases(cs, tree, plans):
+    """T1 at TB_SHAPES (see --traceback); a tree whose wrapper takes lanes
+    a block (this one) is also timed at the alternatives and reports its
+    refill counts and occupancy."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.ops.align import PAD_OP, traceback_plain
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    planned = "lanes_per_block" in inspect.signature(
+        kernels.nw_traceback).parameters
+    for B, Lq, Lt in TB_SHAPES:
+        q, t, lq, lt = cs.nw_pairs(dev, B, Lq, Lt)
+        dirs = kernels.nw_dirs(q, t, match=5, mismatch=-4, gap=-8)
+        del q, t
+        L = Lq + Lt
+        rev = traceback_plain(dirs, lq, lt, L)
+        ref = (torch.flip(rev, dims=[1]),
+               (rev != PAD_OP).sum(dim=1, dtype=torch.int32))
+        del rev
+        lanes = [None]
+        if planned and plans:
+            lanes_sm = -(-B // sms)
+            lanes += sorted({-(-lanes_sm // -(-lanes_sm // cap))
+                             for cap in (1, 4, 8, 16)} - {
+                kernels.traceback_plan(B, Lq, Lt, sms=sms)[
+                    "lanes_per_block"]})
+        fns, recs = [], []
+        for lpb in lanes:
+            kw = {} if lpb is None else {"lanes_per_block": lpb}
+            err = cs.max_abs_err(ref, kernels.nw_traceback(dirs, lq, lt, L,
+                                                           **kw))
+            rec = {"tree": tree, "shape": [B, Lq, Lt], "max_abs_err": err}
+            if planned:
+                refills = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+                kernels.nw_traceback(dirs, lq, lt, L, refills=refills, **kw)
+                w, m = refills.to(torch.float64).mean(dim=0).tolist()
+                occ = kernels.traceback_occupancy(B, Lq, Lt, **kw)
+                rec.update(windows_per_lane=w, misses_per_lane=m, **{
+                    k: occ[k] for k in ("lanes_per_block", "smem", "regs",
+                                        "spills", "blocks_per_sm")})
+            if err:
+                cs.fail(f"nw_traceback ({rec}) disagrees with its plain "
+                        f"version (max_abs_err={err})")
+            fns.append(lambda kw=kw: kernels.nw_traceback(dirs, lq, lt, L,
+                                                          **kw))
+            recs.append(rec)
+        for rec, ms in zip(recs, cs.time_graph_turns(fns, reps=10, calls=5)):
+            rec["ms"] = ms
+            print(json.dumps(rec), flush=True)
+        del dirs, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=HERE)
@@ -168,6 +235,8 @@ def main() -> int:
     ap.add_argument("--main", action="store_true")
     ap.add_argument("--cases", default="",
                     help="run only the cases whose name contains this")
+    ap.add_argument("--traceback", action="store_true",
+                    help="time T1 instead of W1")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -184,6 +253,10 @@ def main() -> int:
     kernels.build()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.traceback:
+        traceback_cases(cs, tree, args.plans)
+        print(cs.CARD)
+        return 0
     cases = (("tiled overlap group", lambda: tiled_group(cs, dev)),
              ("untiled overlap chunk", lambda: untiled_chunk(cs, dev)),
              ("consensus 8%-error reads", lambda: consensus(cs, dev, True)),
