@@ -80,7 +80,23 @@ any failure exits non-zero and prints no result):
               coverage and coordinate maps must equal the host
               _merge_round's on the same op strings, except windows with
               an insertion run longer than K_INS (the device merge keeps
-              K_INS pileup columns by design), which are counted.
+              K_INS pileup columns by design), which are counted;
+7. merge      the round merge's kernels at the main path's chunk shape:
+              phase 4's windows, chunked as the engine chunks them, the
+              first chunk's round-0 forward and walk on the card, then
+              merge_votes (M1) and merge_windows (M2, with and without
+              detect) bitwise against their plain versions (the eager
+              PyTorch chain), each timed as CUDA graphs in turns
+              (time_graph_turns), the plain chain warm (medians of 3 in
+              turns); beside them the
+              whole back half (M1 and M2 through device_poa._merge_round
+              with the chunk's membership, as a round runs them), timed
+              eagerly as the stage clock sees it, and
+              registers, spills and blocks an SM of each kernel. M2's
+              bound counts the sectors of the sums that its vote-out
+              reads on this data (vote_needs), and the phase fails
+              unless the plain vote-out over sums poisoned outside them
+              gives the same bits.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -130,12 +146,15 @@ REPLACES = {
     "nw_fwd_wide": "racon_tpu/ops/pallas/nw_kernel.py:42",
     "nw_traceback": "racon_tpu/ops/align.py:75",
     "monotone_count": "racon_tpu/ops/pallas/count_kernel.py:33",
+    "merge_votes": "racon_tpu/ops/device_merge.py:251",
+    "merge_windows": "racon_tpu/ops/device_poa.py:601",
 }
 SOURCE = {"band_fwd": "band_fwd.cu", "band_tile_fwd": "band_fwd.cu",
           "flat_fwd": "flat_fwd.cu", "col_walk": "col_walk.cu",
           "nw_fwd": "nw_fwd.cu", "nw_fwd_wide": "nw_fwd.cu",
           "nw_traceback": "nw_traceback.cu",
-          "monotone_count": "count.cu"}
+          "monotone_count": "count.cu", "merge_votes": "merge.cu",
+          "merge_windows": "merge.cu"}
 
 
 def fail(msg: str) -> None:
@@ -1166,6 +1185,14 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     if launches["band_fwd"] != k1_consensus + untiled:
         fail(f"main run: band_fwd launched {launches['band_fwd']} times, not "
              f"{k1_consensus} consensus + {untiled} untiled groups")
+    # The round merge: M1 and M2 once a consensus round each, inside the
+    # stage clock's merge stage (a round is one consensus K1 launch).
+    merge_launches = clock.launches().get("merge", {})
+    for name in ("merge_votes", "merge_windows"):
+        if not launches[name] == merge_launches.get(name) == k1_consensus:
+            fail(f"main run: {name} launched {launches[name]} times "
+                 f"({merge_launches.get(name)} in the merge stage), not once "
+                 f"a consensus round ({k1_consensus})")
     if "aligned overlaps" not in phases:
         fail("main run: the logger printed no 'aligned overlaps' phase")
     if not ed_pol * 3 <= ed_draft:
@@ -1178,7 +1205,9 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
              f"{tiled} tiled + {walks} consensus + {untiled} untiled")
     by_case = {("col_walk", 0): tiled, ("col_walk", "consensus"): walks,
                ("col_walk", "untiled"): untiled,
-               ("band_fwd", 4): k1_consensus, ("band_fwd", "untiled"): untiled}
+               ("band_fwd", 4): k1_consensus, ("band_fwd", "untiled"): untiled,
+               ("merge_votes", 0): launches["merge_votes"],
+               ("merge_windows", 0): launches["merge_windows"]}
     return launches, by_case, p
 
 
@@ -1348,6 +1377,227 @@ def phase_op_strings(device, paths, n_contigs=5, device_batch=4096):
     return launches
 
 
+def float_err(ref, out) -> float:
+    """Largest |ref - out| over pairs of tensors, as float64 (bool and
+    integer tensors compared as numbers)."""
+    import torch
+    err = 0.0
+    for r, o in zip(ref, out):
+        d = (r.to(torch.float64) - o.to(torch.float64)).abs()
+        err = max(err, float(d.max().item()) if d.numel() else 0.0)
+    return err
+
+
+def same_bits(ref, out) -> bool:
+    """Every pair of tensors equal bit for bit (floats by their bytes)."""
+    import torch
+    for r, o in zip(ref, out):
+        if r.dtype != o.dtype or r.shape != o.shape:
+            return False
+        if r.dtype == torch.bool:
+            r, o = r.to(torch.uint8), o.to(torch.uint8)
+        if not torch.equal(r.contiguous().view(torch.uint8),
+                           o.contiguous().view(torch.uint8)):
+            return False
+    return True
+
+
+def merge_chunk(device, paths, scale=0.2):
+    """The first chunk of phase 4's run at round 0, as the engine builds
+    it: the windows of phase 4's dataset (Polisher.initialize), the
+    engine's device slice plan, the first chunk's ChunkPlan at the run's
+    caps, its round-0 forward and walk on the card. Returns the merge
+    inputs and the plan."""
+    import torch
+    from racon_tpu_torch.models.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    threads = os.cpu_count() or 1
+    pol = create_polisher(paths["reads"], paths["overlaps"], paths["draft"],
+                          PolisherType.kC, 500, 10.0, 0.3, 5, -4, -8,
+                          device=device, threads=threads)
+    pol.initialize()
+    eng = PoaEngine(5, -4, -8, device=device, threads=threads)
+    active = [w for w in pol.windows if w.n_layers >= 2]
+    dev, _, lq_max, la_max = eng._partition_device(active)
+    sp = eng._plan_device_slice(dev, lq_max, la_max)
+    plan = P.ChunkPlan(sp.groups[0], lq_cap=sp.lq_cap, la_cap=sp.la_cap,
+                       band_cap=sp.band_cap)
+    st = P.chunk_statics(plan, ins_scale=scale, rounds=4)
+    job, winb = P.load_packed(*plan.packed_bufs(),
+                              (plan.B, plan.Lq, plan.n_win, plan.LA), device)
+    q, qw8, begin, end, lq, win, w_read, bb, bbw, alen = P._unpack_bufs(
+        job, winb, plan.Lq, plan.LA)
+    fwd = P._lane_fwd(bb, alen, begin, end, q, lq, win, match=5, mismatch=-4,
+                      gap=-8, Lq=plan.Lq, LA=plan.LA, band_w=st["band_w"],
+                      nxt_k=st["nxt_k"])
+    cols, esc_w = P._lane_walk(*fwd, lq, LA=plan.LA, band_w=st["band_w"])
+    torch.cuda.synchronize()
+    ovf = torch.zeros(plan.n_win, dtype=torch.bool, device=device)
+    return dict(cols=cols, esc_w=esc_w, q=q, qw8=qw8, w_read=w_read,
+                lt=fwd[3], t_off=fwd[4], bb=bb, bbw=bbw, alen=alen,
+                begin=begin, end=end, win=win, ovf=ovf, plan=plan,
+                band_w=st["band_w"])
+
+
+def vote_needs(votes, bb, bbw, alen, scale):
+    """``(sectors, need)``: the 32-byte sectors of M1's sums (f32 [n_win, 132, LA+1], channel
+    rows of LA+1 gaps) that M2's function must read on this data, from
+    what the plain vote-out does with them: the six column weights of
+    each column inside the anchor, the coverage of the winning base of
+    each kept column; the crossing weight of each gap inside the anchor;
+    the five pileup (and, at k = 0, single-insertion) weights of each
+    insertion rank k the vote-out reaches (rank 0, then rank k while every
+    rank before it emitted), the count of the winning base of each rank
+    that emits, and the stop weights that the next rank's test adds
+    (ins1_stop before rank 1, lenw[k-1] before rank k+1). A count read for
+    an emitted base whose position falls past LA is counted too. ``need``
+    is the bool mask of the entries read, the shape of ``votes``."""
+    import torch
+    import torch.nn.functional as F
+    from racon_tpu_torch.ops import device_merge as dm
+    n_win, nch, LA1 = votes.shape
+    dev = votes.device
+    acc = dm.add_backbone(dm.vote_views(votes), bb[:-1], bbw[:-1], alen[:-1])
+    asm = dm.assemble(acc, alen[:-1], scale)
+    p = torch.arange(LA1, device=dev)[None]
+    al = alen[:-1, None]
+    vgap, vcol = p <= al, p < al
+    e = asm["e"]
+    kept = F.pad(asm["kept"], (0, 1))
+    code = F.pad(asm["col_code"], (0, 1))
+    K, NB = dm.K_INS, dm.NBASE
+    need = torch.zeros((n_win, nch, LA1), dtype=torch.bool, device=dev)
+    need[:, 0:NB + 1] = vcol[:, None]                       # base_w
+    for i in range(NB):
+        need[:, NB + 1 + i] = kept & (code == i)            # base_c
+    need[:, 11] = vgap                                      # direct_w
+    need[:, 22] = vgap & (e >= 1)                           # ins1_stop
+    for k in range(K):
+        reached = vgap & (e >= k)
+        need[:, 23 + NB * k:23 + NB * (k + 1)] = reached[:, None]
+        if k == 0:
+            need[:, 12:12 + NB] = reached[:, None]          # ins1_w
+        bk = asm["ins_codes"][..., k]
+        for i in range(NB):
+            sel = (e > k) & (bk == i)
+            need[:, 73 + NB * k + i] = sel                  # pile_c
+            if k == 0:
+                need[:, 17 + i] = sel                       # ins1_c
+        if k + 2 < K:
+            need[:, 123 + k] = vgap & (e >= k + 2)          # lenw
+    flat = F.pad(need.reshape(-1), (0, (-need.numel()) % 8))
+    return int(flat.view(-1, 8).any(1).sum().item()), need
+
+
+def phase_merge_kernels(device, paths, scale=0.2):
+    """M1 and M2 at the main path's chunk shape (module docstring, phase
+    7), bitwise against their plain versions. Returns their records."""
+    import torch
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops import kernels
+    c = merge_chunk(device, paths, scale)
+    plan = c["plan"]
+    B, Lq, LA, n_win = plan.B, plan.Lq, plan.LA, plan.n_win
+    lt, t_off = c["lt"], c["t_off"]
+    vargs = (c["cols"], c["q"], c["qw8"], c["w_read"], lt, t_off, c["esc_w"],
+             c["win"])
+    mem = dm.window_members(c["win"], n_win)
+    kw = dict(n_win=n_win, LA=LA)
+    ref_v = dm.merge_votes_plain(*vargs, **kw)
+    got_v = kernels.merge_votes(*vargs, mem, **kw)
+    ok_v = same_bits(ref_v, got_v)
+    err_v = float_err(ref_v, got_v)
+    state = (c["bb"], c["bbw"], c["alen"], c["begin"], c["end"], c["win"],
+             c["ovf"])
+    wargs = (ref_v[0], ref_v[1]) + state
+    recs_w = []
+    for detect in (False, True):
+        wkw = dict(ins_scale=scale, n_win=n_win, LA=LA, detect=detect)
+        ref_w = dm.merge_windows_plain(*wargs, **wkw)
+        got_w = kernels.merge_windows(*wargs, mem, **wkw)
+        recs_w.append((same_bits(ref_w, got_w), float_err(ref_w, got_w),
+                       int(ref_w[6].sum().item()),
+                       int(ref_w[7].sum().item())))
+        del ref_w, got_w
+    # The plain chain, eager and warm (medians of 3 in turns): its first
+    # call in a process pays one-time costs of its own.
+    plain_v_ms, plain_w_ms, plain_wd_ms = time_turns(
+        [lambda: dm.merge_votes_plain(*vargs, **kw)] +
+        [lambda d=d: dm.merge_windows_plain(
+            *wargs, ins_scale=scale, n_win=n_win, LA=LA, detect=d)
+         for d in (False, True)], reps=3)
+    wkw = dict(ins_scale=scale, n_win=n_win, LA=LA, detect=False)
+    m1_ms, m2_ms = time_graph_turns(
+        [lambda: kernels.merge_votes(*vargs, mem, **kw),
+         lambda: kernels.merge_windows(*wargs, mem, **wkw)],
+        reps=20, calls=10)
+    round_ms, = time_turns([lambda: P._merge_round(
+        c["cols"], c["esc_w"], lt, t_off, c["q"], c["qw8"], c["w_read"],
+        *state, mem, ins_scale=scale, n_win=n_win, LA=LA)], reps=10)
+    plain_round_ms = plain_v_ms + plain_w_ms
+    # Bytes each kernel's function must move: M1 reads the walk's four
+    # int16 columns, the queries and weights, four per-lane scalars and
+    # the order, starts and counts (every lane and gap, whatever it
+    # holds), and writes the sums and the escape sums. M2 reads, of the
+    # sums, the sectors its vote-out needs on this data (vote_sectors),
+    # the escape sums, the anchors' codes and weights inside each anchor,
+    # the lengths, spans, window ids, membership and flags, and writes
+    # the next anchors, weights, lengths, spans, coverage and flags.
+    votes_b = 4 * n_win * dm.VOTE_CH * (LA + 1)
+    m1_bytes = (8 * B * (LA + 2) + 2 * B * Lq + 16 * B + 4 * B + 8 * n_win +
+                votes_b + 4 * n_win)
+    sectors, need = vote_needs(ref_v[0], c["bb"], c["bbw"], c["alen"],
+                               scale)
+    # The count is whole if the sums outside it change nothing: the plain
+    # vote-out over sums whose other entries are poisoned gives the same
+    # bits.
+    wkw0 = dict(ins_scale=scale, n_win=n_win, LA=LA)
+    ref_w = dm.merge_windows_plain(*wargs, **wkw0)
+    for fill in (float("nan"), 1e30):
+        pois = ref_v[0].masked_fill(~need, fill)
+        if not same_bits(ref_w, dm.merge_windows_plain(
+                pois, *wargs[1:], **wkw0)):
+            fail(f"merge_windows' byte count misses sums it reads (entries "
+                 f"outside it set to {fill} change its output)")
+    del ref_w, pois
+    m2_bytes = (32 * sectors + 4 * n_win +
+                5 * int(c["alen"][:-1].sum().item()) + 4 * (n_win + 1) +
+                16 * B + 8 * n_win + n_win +
+                5 * (n_win + 1) * LA + 4 * (n_win + 1) + 8 * B +
+                4 * n_win * LA + 2 * n_win)
+    m1_bound, m1_by = bound(m1_bytes, 0)
+    m2_bound, m2_by = bound(m2_bytes, 0)
+    occ = {w: kernels.merge_occupancy(w) for w in ("votes", "windows")}
+    keys = ("regs", "spills", "blocks_per_sm", "threads", "smem")
+    shape = [B, Lq, LA, n_win]
+    rec_v = dict(shape=shape, max_abs_err=err_v, bitwise=ok_v, ms=m1_ms,
+                 plain_ms=plain_v_ms, bound_ms=m1_bound, bound_by=m1_by,
+                 library_ms=None, bytes=m1_bytes,
+                 **{k: occ["votes"][k] for k in keys})
+    rec_w = dict(shape=shape, max_abs_err=max(r[1] for r in recs_w),
+                 bitwise=all(r[0] for r in recs_w), ms=m2_ms,
+                 plain_ms=plain_w_ms, plain_detect_ms=plain_wd_ms,
+                 bound_ms=m2_bound, bound_by=m2_by, library_ms=None,
+                 bytes=m2_bytes, vote_bytes_read=32 * sectors,
+                 vote_bytes=votes_b,
+                 scratch=n_win * kernels.merge_windows_scratch(LA),
+                 **{k: occ["windows"][k] for k in keys})
+    emit("merge", windows=plan.n_real_win, jobs=plan.n_jobs,
+         band_w=c["band_w"], shape=shape, merge_votes=rec_v,
+         merge_windows=rec_w, merge_round_ms=round_ms,
+         plain_round_ms=plain_round_ms, ovf_windows=recs_w[0][2],
+         conv_windows=recs_w[1][3])
+    if not ok_v:
+        fail(f"merge_votes disagrees with its plain version (max_abs_err="
+             f"{err_v})")
+    if not rec_w["bitwise"]:
+        fail(f"merge_windows disagrees with its plain version (max_abs_err="
+             f"{rec_w['max_abs_err']})")
+    return {("merge_votes", 0): rec_v, ("merge_windows", 0): rec_w}
+
+
 def main() -> int:
     global CARD
     try:
@@ -1378,6 +1628,7 @@ def main() -> int:
         main_launches, main_by_case, main_paths = phase_main("cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
         op_launches = phase_op_strings("cuda", main_paths)
+        recs.update(phase_merge_kernels("cuda", main_paths))
 
     rows = []
     for (name, k), r in recs.items():
@@ -1420,7 +1671,8 @@ def main() -> int:
                                  "wide_ms", "eager_ms", "eager_library_ms",
                                  "sector_bound_ms", "bytes_bound_ms",
                                  "C", "regs", "spills", "blocks_per_sm",
-                                 "smem_per_block", "shapes") if n in r}})
+                                 "smem_per_block", "shapes", "threads",
+                                 "smem", "bytes") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,19 @@ Numerics: every channel is float32 here. The reference emits its
 integer-valued channels (one-hot counts, integer Phred weights) in
 bfloat16 — exact for those values — so the float32 values are equal.
 The per-window sums run in job order, one deterministic add per job
-(``_window_sum``): no atomics, so the CUDA sums do not change from run to
+(``_Members.sum``): no atomics, so the CUDA sums do not change from run to
 run, and a fractional channel (read-mean weights, crossing weights,
 run-mean length weights) sums in the order a one-hot matrix product
 accumulates it.
+
+A consensus round's back half has two plain versions, each the plain
+version of one kernel of csrc/merge.cu (ops/kernels.py ``merge_votes``
+and ``merge_windows``): ``merge_votes_plain`` (extract_votes_cols ->
+aggregate_votes, M1) returns the per-window sums as one channel-major
+buffer [n_win, VOTE_CH, LA+1] (``pack_votes``; ``vote_views`` gives
+aggregate_votes' dict back as views of it), and ``merge_windows_plain``
+(add_backbone -> assemble -> compact -> coord_maps -> remap_state, M2)
+the next round's state.
 """
 
 from __future__ import annotations
@@ -532,3 +541,122 @@ def coord_maps(asm, alen, LA: int):
     map_b = torch.minimum(torch.clamp(map_b, min=0), hi)
     map_e = torch.minimum(torch.clamp(map_e, min=0), hi)
     return map_b.to(torch.int32), map_e.to(torch.int32)
+
+
+# ------------------------------------------------------------ round merge
+
+# aggregate_votes' channels, in the order of the per-gap channel axis of
+# the buffer M1 (csrc/merge.cu) writes: (name, channels a gap). base_w
+# and base_c hold LA columns; their entry at gap LA is 0.
+VOTE_CHANNELS = (("base_w", NBASE + 1), ("base_c", NBASE), ("direct_w", 1),
+                 ("ins1_w", NBASE), ("ins1_c", NBASE), ("ins1_stop", 1),
+                 ("pile_w", K_INS * NBASE), ("pile_c", K_INS * NBASE),
+                 ("lenw", K_INS - 1))
+VOTE_CH = sum(n for _, n in VOTE_CHANNELS)
+
+
+def pack_votes(acc) -> torch.Tensor:
+    """aggregate_votes' dict as one channel-major float32 buffer
+    [n_win, VOTE_CH, LA+1] (a copy)."""
+    n, LA1 = acc["direct_w"].shape
+    parts = []
+    for name, width in VOTE_CHANNELS:
+        x = acc[name].reshape(n, -1, width)
+        if x.shape[1] != LA1:
+            x = torch.cat([x, x.new_zeros((n, LA1 - x.shape[1], width))], 1)
+        parts.append(x)
+    return torch.cat(parts, dim=2).permute(0, 2, 1).contiguous()
+
+
+def vote_views(votes: torch.Tensor) -> dict:
+    """aggregate_votes' dict as views of a [n_win, VOTE_CH, LA+1] buffer."""
+    LA = votes.shape[2] - 1
+    out, o = {}, 0
+    for name, width in VOTE_CHANNELS:
+        x = votes[:, o:o + width].permute(0, 2, 1)
+        o += width
+        if name in ("base_w", "base_c"):
+            x = x[:, :LA]
+        if width == 1:
+            x = x[..., 0]
+        if name in ("pile_w", "pile_c"):
+            x = x.unflatten(-1, (K_INS, NBASE))
+        out[name] = x
+    return out
+
+
+def window_members(win, n_win: int):
+    """The window membership of a chunk's lanes as device tensors, with no
+    host sync: ``(order, starts, counts)`` int32, where order lists the
+    lanes by window, in job order within one (lanes whose window id lies
+    outside [0, n_win), the padded lanes, last), and window w's lanes are
+    ``order[starts[w]:starts[w] + counts[w]]``. M1 and M2 loop over their
+    own window's count."""
+    w = win.to(torch.int64)
+    key = torch.where((w >= 0) & (w < n_win), w, n_win)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros(n_win + 1, dtype=torch.int64,
+                         device=win.device).scatter_add_(
+        0, key, torch.ones_like(key))[:n_win]
+    starts = torch.cumsum(counts, 0) - counts
+    i32 = torch.int32
+    return order.to(i32), starts.to(i32), counts.to(i32)
+
+
+def merge_votes_plain(cols, q, qw8, w_read, lt, t_off, esc_w, win, *,
+                      n_win: int, LA: int):
+    """The plain version of M1: ``extract_votes_cols`` then
+    ``aggregate_votes`` (with the per-window escape sums). Returns
+    ``(votes f32 [n_win, VOTE_CH, LA+1], wesc f32 [n_win])``."""
+    acc = aggregate_votes(
+        extract_votes_cols(cols, q, qw8, w_read, lt, t_off, LA), win, n_win,
+        extras={"_esc": esc_w})
+    wesc = acc.pop("_esc")
+    return pack_votes(acc), wesc
+
+
+def remap_state(codes, total, map_b, map_e, bb, alen, begin, end, win,
+                LA: int):
+    """Next-round anchors (dummy row re-appended) and spans remapped
+    through the merge's coordinate maps. Lanes of window n_win (the
+    padded lanes) read window n_win - 1's maps."""
+    L = alen[win.long()]
+    new_bb = torch.cat([codes, bb[-1:]], dim=0)
+    new_alen = torch.cat([torch.clamp(total, 1, LA), alen[-1:]],
+                         dim=0).to(torch.int32)
+    mb_flat = map_b.reshape(-1)
+    me_flat = map_e.reshape(-1)
+    winc = torch.clamp(win.long(), max=map_b.shape[0] - 1)
+    nb = torch.where(
+        begin < L, mb_flat[winc * LA + torch.clamp(begin, 0, LA - 1).long()],
+        0).to(torch.int32)
+    tot_j = torch.clamp(total, 1, LA)[winc]
+    ne = torch.where(
+        end < L, me_flat[winc * LA + torch.clamp(end, 0, LA - 1).long()],
+        tot_j - 1).to(torch.int32)
+    return new_bb, new_alen, nb, ne
+
+
+def merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
+                        ins_scale: float, n_win: int, LA: int,
+                        detect: bool = False):
+    """The plain version of M2: add_backbone -> assemble -> compact ->
+    coord_maps -> remap_state over M1's sums, and with ``detect`` the
+    per-window fixed-point predicate. bb/bbw/alen carry the dummy row
+    (n_win + 1 rows). Returns (new_bb, new_bbw, new_alen, new_begin,
+    new_end, cov, ovf, conv)."""
+    acc = add_backbone(vote_views(votes), bb[:-1], bbw[:-1], alen[:-1])
+    asm = assemble(acc, alen[:-1], ins_scale)
+    codes, cov, total = compact(asm, LA)
+    map_b, map_e = coord_maps(asm, alen[:-1], LA)
+    new_bb, new_alen, nb, ne = remap_state(
+        codes, total, map_b, map_e, bb, alen, begin, end, win, LA)
+    new_bbw = torch.zeros_like(bbw)
+    ovf = ovf | (total > LA) | (wesc > 0)
+    if detect:
+        chg = ((nb != begin) | (ne != end)).to(torch.float32)
+        wchg = aggregate_flags(chg, win, n_win)
+        conv = converged_windows(codes, total, bb[:-1], alen[:-1], wchg)
+    else:
+        conv = torch.zeros(n_win, dtype=torch.bool, device=bb.device)
+    return new_bb, new_bbw, new_alen, nb, ne, cov, ovf, conv

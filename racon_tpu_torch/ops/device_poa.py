@@ -11,8 +11,10 @@ Per chunk:
     - banded NW forward (CUDA kernel csrc/band_fwd.cu), or the full-width
       forward (csrc/flat_fwd.cu) when the band is off
     - column-walk traceback (CUDA kernel csrc/col_walk.cu, both layouts)
-    - vote extraction + window aggregation + assembly + compaction
-      (ops/device_merge.py) -> next round's anchors and spans
+    - the window merge: vote extraction and per-window sums (M1), then
+      backbone, vote-out, compaction, coordinate maps and the state remap
+      (M2) -> next round's anchors and spans (CUDA kernels csrc/merge.cu;
+      their plain versions in ops/device_merge.py on the CPU)
   d2h once:  compact consensus codes + coverage + lengths + flags
 
 Banded exactness is certified per lane every round by the escape bound;
@@ -359,91 +361,56 @@ def _lane_fwd(bb, alen, begin, end, q, lq, win, *, match, mismatch, gap,
     return cells, None, None, lt, t_off, None, None
 
 
-def _lane_walk(cells, nxt, nxt2, lt, t_off, klo, esc0, q, qw8, lq, w_read,
-               *, LA, band_w=0):
-    """Column walk + vote extraction over _lane_fwd's planes. Returns
-    (votes for dm.aggregate_votes, esc_w f32[B])."""
-    with _stage("walk", q.device):
+def _lane_walk(cells, nxt, nxt2, lt, t_off, klo, esc0, lq, *, LA,
+               band_w=0):
+    """Column walk over _lane_fwd's planes. Returns (cols, the walk's
+    [B, LA+2] columns that the merge reads; esc_w f32[B])."""
+    with _stage("walk", lq.device):
         if band_w:
             cols = kernels.col_walk_kernel(cells, lq, lt, klo, t_off, LA=LA,
                                            layout="band", nxt=nxt, nxt2=nxt2)
         else:
             cols = kernels.col_walk_kernel(cells, lq, lt, None, t_off, LA=LA,
                                            layout="flat")
-    with _stage("merge", q.device):
-        votes = dm.extract_votes_cols(cols, q, qw8, w_read, lt, t_off, LA)
     sat_w = cols["sat"].to(torch.float32)
     esc_w = sat_w if esc0 is None else esc0 + sat_w
-    return votes, esc_w
+    return cols, esc_w
 
 
-def _lane_votes(bb, alen, begin, end, q, qw8, lq, w_read, win, *, match,
-                mismatch, gap, Lq, LA, band_w=0, nxt_k=2):
-    """Geometry + forward + walk + vote extraction for one round."""
-    fwd = _lane_fwd(bb, alen, begin, end, q, lq, win, match=match,
-                    mismatch=mismatch, gap=gap, Lq=Lq, LA=LA,
-                    band_w=band_w, nxt_k=nxt_k)
-    return _lane_walk(*fwd, q, qw8, lq, w_read, LA=LA, band_w=band_w)
-
-
-def _remap_state(codes, total, map_b, map_e, bb, alen, begin, end, win,
-                 LA: int):
-    """Next-round anchors (dummy row re-appended) and spans remapped
-    through the merge's coordinate maps."""
-    L = alen[win.long()]
-    new_bb = torch.cat([codes, bb[-1:]], dim=0)
-    new_alen = torch.cat([torch.clamp(total, 1, LA), alen[-1:]],
-                         dim=0).to(torch.int32)
-    mb_flat = map_b.reshape(-1)
-    me_flat = map_e.reshape(-1)
-    winc = torch.clamp(win.long(), max=map_b.shape[0] - 1)
-    nb = torch.where(
-        begin < L, mb_flat[winc * LA + torch.clamp(begin, 0, LA - 1).long()],
-        0).to(torch.int32)
-    tot_j = torch.clamp(total, 1, LA)[winc]
-    ne = torch.where(
-        end < L, me_flat[winc * LA + torch.clamp(end, 0, LA - 1).long()],
-        tot_j - 1).to(torch.int32)
-    return new_bb, new_alen, nb, ne
-
-
-def _merge_round(votes, esc_w, bb, bbw, alen, begin, end, win, ovf, *,
-                 ins_scale, n_win, LA, detect=False):
-    """Vote aggregation through state remap — the back half of a round.
+def _merge_round(cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw, alen,
+                 begin, end, win, ovf, members, *, ins_scale, n_win, LA,
+                 detect=False):
+    """The back half of a round, from the walk's columns to the next
+    round's state: M1 (kernels.merge_votes: vote extraction and the
+    per-window sums) and M2 (kernels.merge_windows: backbone, vote-out,
+    compaction, coordinate maps, state remap), on the card with no host
+    sync; their plain versions on the CPU. ``members``: the chunk's
+    dm.window_members (the plain versions do not read it).
     Returns (new_bb, new_bbw, new_alen, new_begin, new_end, cov, ovf,
     conv)."""
     with _stage("merge", bb.device):
         # Padded lanes (window id n_win) belong to no window here; the
         # reference sums them into a dummy row it then drops.
-        acc = dm.aggregate_votes(votes, win, n_win, extras={"_esc": esc_w})
-        wesc = acc.pop("_esc")
-        acc = dm.add_backbone(acc, bb[:-1], bbw[:-1], alen[:-1])
-        asm = dm.assemble(acc, alen[:-1], ins_scale)
-        codes, cov, total = dm.compact(asm, LA)
-        map_b, map_e = dm.coord_maps(asm, alen[:-1], LA)
-        new_bb, new_alen, nb, ne = _remap_state(
-            codes, total, map_b, map_e, bb, alen, begin, end, win, LA)
-        new_bbw = torch.zeros_like(bbw)
-        ovf = ovf | (total > LA) | (wesc > 0)
-        if detect:
-            chg = ((nb != begin) | (ne != end)).to(torch.float32)
-            wchg = dm.aggregate_flags(chg, win, n_win)
-            conv = dm.converged_windows(codes, total, bb[:-1], alen[:-1],
-                                        wchg)
-        else:
-            conv = torch.zeros(n_win, dtype=torch.bool, device=bb.device)
-    return new_bb, new_bbw, new_alen, nb, ne, cov, ovf, conv
+        votes, wesc = kernels.merge_votes(
+            cols, q, qw8, w_read, lt, t_off, esc_w, win, members, n_win=n_win,
+            LA=LA)
+        return kernels.merge_windows(
+            votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
+            ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect)
 
 
-def _round_core(bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, *,
-                match, mismatch, gap, ins_scale, Lq, n_win, LA, band_w=0,
-                nxt_k=2, detect=False):
-    """One alignment + merge round (see _merge_round for the outputs)."""
-    votes, esc_w = _lane_votes(
-        bb, alen, begin, end, q, qw8, lq, w_read, win, match=match,
-        mismatch=mismatch, gap=gap, Lq=Lq, LA=LA, band_w=band_w,
-        nxt_k=nxt_k)
-    return _merge_round(votes, esc_w, bb, bbw, alen, begin, end, win, ovf,
+def _round_core(bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf,
+                members, *, match, mismatch, gap, ins_scale, Lq, n_win, LA,
+                band_w=0, nxt_k=2, detect=False):
+    """One alignment + merge round (see _merge_round for the outputs and
+    ``members``)."""
+    fwd = _lane_fwd(bb, alen, begin, end, q, lq, win, match=match,
+                    mismatch=mismatch, gap=gap, Lq=Lq, LA=LA,
+                    band_w=band_w, nxt_k=nxt_k)
+    lt, t_off = fwd[3], fwd[4]
+    cols, esc_w = _lane_walk(*fwd, lq, LA=LA, band_w=band_w)
+    return _merge_round(cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw,
+                        alen, begin, end, win, ovf, members,
                         ins_scale=ins_scale, n_win=n_win, LA=LA,
                         detect=detect)
 
@@ -530,11 +497,15 @@ def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
     scales = ins_scale if isinstance(ins_scale, tuple) \
         else (ins_scale,) * rounds
     ovf = torch.zeros(n_win, dtype=torch.bool, device=q.device)
+    # The lanes' windows do not change between rounds: one membership a
+    # chunk for every round's merge kernels, on the merge stage's clock.
+    with _stage("merge", q.device):
+        mem = dm.window_members(win, n_win)
 
     def run(r, sc, detect):
         nonlocal bb, bbw, alen, begin, end, ovf
         bb, bbw, alen, begin, end, cov, ovf, conv = _round_core(
-            bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf,
+            bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, mem,
             match=match, mismatch=mismatch, gap=gap, ins_scale=sc, Lq=Lq,
             n_win=n_win, LA=LA, band_w=round_band_width(band_w, r),
             nxt_k=nxt_k, detect=detect)

@@ -23,7 +23,13 @@ its column-walk scan:
   plane staged in shared memory, planned by ``traceback_plan``;
 - ``monotone_count`` (csrc/count.cu) — racon_tpu/ops/pallas/
   count_kernel.py ``_kernel``; plain version
-  ops/device_merge.py::monotone_count_plain.
+  ops/device_merge.py::monotone_count_plain;
+- ``merge_votes`` (M1) and ``merge_windows`` (M2) (csrc/merge.cu) — the
+  XLA ops of the reference's round merge, racon_tpu/ops/device_merge.py
+  (extract_votes_cols, aggregate_votes; add_backbone, assemble, compact,
+  coord_maps) and the remap of racon_tpu/ops/device_poa.py; plain
+  versions ops/device_merge.py::merge_votes_plain and
+  ::merge_windows_plain.
 
 ``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
 loads, through device memory (the floor of a walk that loads every step
@@ -37,7 +43,7 @@ the walk depth and the SM count, and ``walk_occupancy`` reads what a plan
 gets on the card. ``nw_plan``, ``traceback_plan`` and ``count_plan`` size
 the K4, T1 and K5 launches from the shape; ``nw_occupancy``,
 ``traceback_occupancy`` and ``count_occupancy`` read what they get on the
-card.
+card, and ``merge_occupancy`` what M1 and M2 get.
 
 The sources compile on first use with ``nvcc`` (one process per source,
 started together, then one link) into a shared library with a plain C
@@ -66,19 +72,22 @@ from racon_tpu_torch.ops.align import PAD_OP, nw_dirs_plain, traceback_plain
 from racon_tpu_torch.ops.band import (fw_dirs_band_plain,
                                       fw_dirs_band_tile_plain)
 from racon_tpu_torch.ops.colwalk import col_walk
-from racon_tpu_torch.ops.device_merge import monotone_count_plain
+from racon_tpu_torch.ops.device_merge import (EPS, VOTE_CH,
+                                              merge_votes_plain,
+                                              merge_windows_plain,
+                                              monotone_count_plain)
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 SOURCES = ("band_fwd.cu", "flat_fwd.cu", "col_walk.cu", "nw_fwd.cu",
-           "nw_traceback.cu", "count.cu", "probe.cu")
+           "nw_traceback.cu", "count.cu", "merge.cu", "probe.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {"band_fwd": 0, "band_tile_fwd": 0, "flat_fwd": 0,
             "col_walk": 0, "nw_fwd": 0, "nw_fwd_wide": 0, "nw_traceback": 0,
-            "monotone_count": 0}
+            "monotone_count": 0, "merge_votes": 0, "merge_windows": 0}
 # Shared memory a block may use on an H100 (opt-in maximum).
 SMEM_MAX = 232448
 
@@ -157,6 +166,17 @@ def _lib():
             lib.racon_monotone_count.argtypes = [vp] * 2 + [ci] * 4 + [vp]
             lib.racon_monotone_count_occupancy.restype = ci
             lib.racon_monotone_count_occupancy.argtypes = [ci] * 2 + [vp]
+            lib.racon_merge_votes.restype = ci
+            lib.racon_merge_votes.argtypes = ([vp, ctypes.c_longlong] +
+                                              [vp] * 11 + [ci] * 3 + [vp])
+            lib.racon_merge_windows.restype = ci
+            lib.racon_merge_windows.argtypes = ([vp] * 21 + [ci] * 3 +
+                                                [ctypes.c_float] * 2 +
+                                                [ci, vp])
+            lib.racon_merge_windows_scratch.restype = ctypes.c_longlong
+            lib.racon_merge_windows_scratch.argtypes = [ci]
+            lib.racon_merge_occupancy.restype = ci
+            lib.racon_merge_occupancy.argtypes = [ci, vp]
             lib.racon_chase.restype = ci
             lib.racon_chase.argtypes = [vp] + [ci] * 5 + [vp, vp]
             _LIB = lib
@@ -817,6 +837,186 @@ def monotone_count(X: torch.Tensor, P: int) -> torch.Tensor:
                           f"failed (cudaError {rc}, plan {plan})")
     LAUNCHES["monotone_count"] += 1
     return F
+
+
+WALK_FIELDS = ("ins_len", "qstart", "op_c", "qi_c")
+
+
+def _walk_words(cols, B: int, LA: int, dev):
+    """The walk's four int16 channels as M1 reads them, in place:
+    ``(tensor, row stride)``, a tensor whose storage holds each lane's
+    [LA+2, 4] entries (ins_len, qstart, op_c, qi_c) and the int16s between
+    two lanes' rows. Raises KernelError for columns that are not views of
+    one such interleaved tensor, col_walk_kernel's layout."""
+    ts = [cols[n] for n in WALK_FIELDS]
+    for n, t in zip(WALK_FIELDS, ts):
+        if t.device != dev or t.dtype != torch.int16 or \
+                tuple(t.shape) != (B, LA + 2):
+            raise KernelError(f"[racon_tpu_torch::kernels] merge_votes takes "
+                              f"the walk's {n} as int16 [{B}, {LA + 2}] on "
+                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                              f"{t.device}")
+    base = ts[0]
+    if base.stride(1) == 4 and base.stride(0) % 4 == 0 and \
+            base.data_ptr() % 8 == 0 and all(
+                t.stride() == base.stride() and
+                t.data_ptr() == base.data_ptr() + 2 * i
+                for i, t in enumerate(ts)):
+        return base, base.stride(0)
+    raise KernelError("[racon_tpu_torch::kernels] merge_votes takes the "
+                      "walk's columns as views of one interleaved int16 "
+                      "[B, LA+2, 4] tensor (col_walk_kernel's layout)")
+
+
+def _members(members, n_win: int, B: int, dev):
+    """The membership tensors (order, starts, counts) of a merge launch,
+    device_merge.window_members' output, checked."""
+    order, starts, counts = members
+    _check(order, "order", torch.int32, (B,), dev)
+    _check(starts, "starts", torch.int32, (n_win,), dev)
+    _check(counts, "counts", torch.int32, (n_win,), dev)
+    return order, starts, counts
+
+
+def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
+                n_win: int, LA: int):
+    """M1: the vote extraction fused with the per-window sums of one
+    round (device_merge.merge_votes_plain's contract): ``(votes f32
+    [n_win, VOTE_CH, LA+1], wesc f32 [n_win])`` from the walk's columns
+    ``cols`` (int16 [B, LA+2]), q and qw8 u8 [B, Lq], w_read and esc_w f32
+    [B], lt, t_off and win i32 [B], and ``members``,
+    device_merge.window_members(win, n_win) (the plain version on the CPU
+    does not read it). Query codes must be below 8 (the reference packs
+    them as 3-bit fields).
+
+    On the card, csrc/merge.cu ``racon_merge_votes``: one block a (tile of
+    128 gaps, window), a thread a gap, adding its jobs' nonzero
+    contributions in job order, bitwise the plain sums. Bound: the walk's
+    columns and the queries read, the sums written (bytes bound)."""
+    if q.device.type == "cpu":
+        return merge_votes_plain(cols, q, qw8, w_read, lt, t_off, esc_w, win,
+                                 n_win=n_win, LA=LA)
+    if q.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] merge_votes needs a CPU "
+                          "or CUDA tensor")
+    B, Lq = q.shape
+    dev = q.device
+    if n_win < 1 or LA < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_votes needs "
+                          f"n_win and LA of at least 1, got {n_win}, {LA}")
+    _check(q, "q", torch.uint8, (B, Lq), dev)
+    _check(qw8, "qw8", torch.uint8, (B, Lq), dev)
+    for name, t, dt in (("w_read", w_read, torch.float32),
+                        ("esc_w", esc_w, torch.float32),
+                        ("lt", lt, torch.int32), ("t_off", t_off, torch.int32),
+                        ("win", win, torch.int32)):
+        _check(t, name, dt, (B,), dev)
+    walk, row = _walk_words(cols, B, LA, dev)
+    order, starts, counts = _members(members, n_win, B, dev)
+    votes = torch.empty((n_win, VOTE_CH, LA + 1), dtype=torch.float32,
+                        device=dev)
+    wesc = torch.empty((n_win,), dtype=torch.float32, device=dev)
+    rc = _lib().racon_merge_votes(
+        walk.data_ptr(), row, q.data_ptr(), qw8.data_ptr(), w_read.data_ptr(),
+        lt.data_ptr(), t_off.data_ptr(), esc_w.data_ptr(), order.data_ptr(),
+        starts.data_ptr(), counts.data_ptr(), votes.data_ptr(),
+        wesc.data_ptr(), n_win, Lq, LA, _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_votes launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["merge_votes"] += 1
+    return votes, wesc
+
+
+def merge_occupancy(which: str) -> dict:
+    """What M1 (``which`` "votes") or M2 ("windows") gets on the current
+    card, at any anchor width: ``blocks_per_sm``, ``regs`` a thread,
+    ``spills`` (local-memory bytes a thread), ``threads`` and ``smem`` a
+    block. Raises KernelError when the query fails or no block fits."""
+    if which not in ("votes", "windows"):
+        raise KernelError(f"[racon_tpu_torch::kernels] unknown merge kernel "
+                          f"{which!r}")
+    out = (ctypes.c_int * 5)()
+    rc = _lib().racon_merge_occupancy(int(which == "windows"), out)
+    if rc != 0 or out[0] < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
+                          f"merge_{which} failed (cudaError {rc}, {out[0]} "
+                          f"blocks an SM)")
+    return {"blocks_per_sm": out[0], "regs": out[1], "spills": out[2],
+            "threads": out[3], "smem": out[4]}
+
+
+def merge_windows_scratch(LA: int) -> int:
+    """Bytes of M2's device-memory scratch a window at anchor width LA
+    (its per-gap state, about 70 bytes a gap)."""
+    n = _lib().racon_merge_windows_scratch(int(LA))
+    if n < 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_windows needs "
+                          f"LA of at least 1, got {LA}")
+    return n
+
+
+def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
+                  *, ins_scale: float, n_win: int, LA: int,
+                  detect: bool = False):
+    """M2: the per-window vote-out of one round and the next round's state
+    (device_merge.merge_windows_plain's contract): ``(new_bb u8 [n_win+1,
+    LA], new_bbw f32 [n_win+1, LA], new_alen i32 [n_win+1], new_begin,
+    new_end i32 [B], cov i32 [n_win, LA], ovf bool [n_win], conv bool
+    [n_win])`` from M1's ``votes`` and ``wesc``, the anchors bb u8 / bbw
+    f32 [n_win+1, LA] and alen i32 [n_win+1] (with the dummy row), the
+    spans begin, end and the window ids win i32 [B] (in [0, n_win]) and
+    the sticky flags ovf bool [n_win]; ``members`` as merge_votes'.
+
+    On the card, csrc/merge.cu ``racon_merge_windows``: one block a
+    window, no host sync, a window's per-gap state in a device-memory
+    scratch of merge_windows_scratch(LA) bytes a window, so any anchor
+    width runs. Bound: the sums and anchors read, the state written (bytes
+    bound)."""
+    if votes.device.type == "cpu":
+        return merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end,
+                                   win, ovf, ins_scale=ins_scale, n_win=n_win,
+                                   LA=LA, detect=detect)
+    if votes.device.type != "cuda":
+        raise KernelError("[racon_tpu_torch::kernels] merge_windows needs a "
+                          "CPU or CUDA tensor")
+    B = begin.shape[0]
+    dev = votes.device
+    if n_win < 1 or LA < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_windows needs "
+                          f"n_win and LA of at least 1, got {n_win}, {LA}")
+    _check(votes, "votes", torch.float32, (n_win, VOTE_CH, LA + 1), dev)
+    _check(wesc, "wesc", torch.float32, (n_win,), dev)
+    _check(bb, "bb", torch.uint8, (n_win + 1, LA), dev)
+    _check(bbw, "bbw", torch.float32, (n_win + 1, LA), dev)
+    _check(alen, "alen", torch.int32, (n_win + 1,), dev)
+    for name, t in (("begin", begin), ("end", end), ("win", win)):
+        _check(t, name, torch.int32, (B,), dev)
+    _check(ovf, "ovf", torch.bool, (n_win,), dev)
+    order, starts, counts = _members(members, n_win, B, dev)
+    scratch = torch.empty((n_win, merge_windows_scratch(LA)),
+                          dtype=torch.uint8, device=dev)
+    new_bb = torch.empty_like(bb)
+    new_bbw = torch.empty_like(bbw)
+    new_alen = torch.empty_like(alen)
+    nb = torch.empty_like(begin)
+    ne = torch.empty_like(end)
+    cov = torch.empty((n_win, LA), dtype=torch.int32, device=dev)
+    ovf_out = torch.empty_like(ovf)
+    conv = torch.empty_like(ovf)
+    rc = _lib().racon_merge_windows(
+        votes.data_ptr(), wesc.data_ptr(), bb.data_ptr(), bbw.data_ptr(),
+        alen.data_ptr(), begin.data_ptr(), end.data_ptr(), win.data_ptr(),
+        order.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        ovf.data_ptr(), new_bb.data_ptr(), new_bbw.data_ptr(),
+        new_alen.data_ptr(), nb.data_ptr(), ne.data_ptr(), cov.data_ptr(),
+        ovf_out.data_ptr(), conv.data_ptr(), scratch.data_ptr(), B, n_win,
+        LA, float(ins_scale), EPS, int(bool(detect)), _stream(dev))
+    if rc != 0:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_windows launch "
+                          f"failed (cudaError {rc})")
+    LAUNCHES["merge_windows"] += 1
+    return new_bb, new_bbw, new_alen, nb, ne, cov, ovf_out, conv
 
 
 def chain_of_loads(steps: int, stride: int, device, lanes: int = 1,

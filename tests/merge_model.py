@@ -1,0 +1,391 @@
+"""A numpy model of the two merge kernels of csrc/merge.cu, in float32.
+
+M1 (``model_votes``): for each window and each gap p, the window's jobs
+in job order, each adding only its nonzero contributions at p (at most
+one a channel), computed from the walk's entries at p and p+1 and the
+query bytes they point at; every float32 operation rounds once, as the
+kernel's __fadd_rn / __fmul_rn / __fdiv_rn do. The adds run over all
+gaps of a job at once (the gaps are independent), but a gap's sums see
+the same adds in the same order as the kernel's thread for that gap.
+
+M2 (``model_windows``): for each window, the backbone fold and the
+vote-out of each gap, an exclusive scan of the emitted lengths, a
+scatter of each gap's insertions and kept column into the compacted row,
+a suffix-min and a prefix-max scan of the kept columns' positions for the
+coordinate maps, and the remap of the window's lanes (the padded lanes
+with the last window).
+
+``edge_windows`` builds windows (with the port's Window) whose chunk
+holds the cases the kernels branch on: a window with one layer, one with
+none, partial layer spans, an insertion run longer than K_INS and a
+window whose consensus outgrows the chunk's anchor width.
+"""
+
+import numpy as np
+
+from racon_tpu_torch.models.window import Window, WindowType
+from racon_tpu_torch.ops.device_merge import (EPS, K_INS, NBASE,
+                                              VOTE_CHANNELS, VOTE_CH)
+from racon_tpu_torch.ops.encode import decode_bases
+
+F32 = np.float32
+CH = {}
+_o = 0
+for _name, _width in VOTE_CHANNELS:
+    CH[_name] = _o
+    _o += _width
+HI = 1 << 30
+
+
+def members(win, n_win):
+    """Window w's lanes in job order, and the padded lanes (window id
+    outside [0, n_win)) in job order."""
+    win = np.asarray(win)
+    real = [np.flatnonzero(win == w) for w in range(n_win)]
+    pad = np.flatnonzero((win < 0) | (win >= n_win))
+    return real, pad
+
+
+def _weight(wq8, i, Lq):
+    raw = np.minimum(wq8[np.minimum(i, Lq - 1)].astype(np.int64), 127)
+    return np.maximum(raw.astype(F32) - F32(1.0), F32(0.0)).astype(F32)
+
+
+def _base(q, i, Lq):
+    return q[np.minimum(i, Lq - 1)].astype(np.int64) & 7
+
+
+def _column_index(qstart, qi, Lq):
+    qsc = np.clip(qstart, 0, Lq - 1)
+    s0 = np.maximum(qsc - 1, 0)
+    qic = np.clip(qi, 0, Lq - 1)
+    return s0 + (qic - s0 == 1)
+
+
+def _add(acc, ch, pred, v):
+    """acc[ch, p] += v[p] where pred[p] and v[p] != 0 (one rounding)."""
+    v = np.broadcast_to(np.asarray(v, F32), pred.shape)
+    m = pred & (v != 0)
+    acc[ch, m] = (acc[ch, m] + v[m]).astype(F32)
+
+
+def job_votes(acc, walk, q, qw8, w_read, lt, t_off, LA):
+    """Add one job's nonzero contributions at every gap into acc [VOTE_CH,
+    LA+1]. walk: int [LA+2, 4] (ins_len, qstart, op_c, qi_c)."""
+    Lq = len(q)
+    p = np.arange(LA + 1)
+    g0 = walk[:LA + 1].astype(np.int64)
+    g1 = walk[1:LA + 2].astype(np.int64)
+    c = p - int(t_off)
+    L = int(lt)
+    in_gaps = (c >= 0) & (c <= L)
+    in_cols = (c >= 0) & (c < L)
+    ins = np.where(in_gaps, g0[:, 0], 0)
+    wr = F32(w_read)
+
+    match = in_cols & (g1[:, 2] == 0)
+    idx = _column_index(g1[:, 1], g1[:, 3], Lq)
+    code = np.where(match, _base(q, idx, Lq), NBASE)
+    wq = np.where(match, _weight(qw8, idx, Lq), wr).astype(F32)
+    col = (p < LA) & in_cols
+    for b in range(NBASE + 1):
+        _add(acc, CH["base_w"] + b, col & (code == b), wq)
+        if b < NBASE:
+            _add(acc, CH["base_c"] + b, col & match & (code == b), 1.0)
+
+    crossed = (c >= 1) & (c <= L - 1) & (ins == 0)
+    prev_match = (p >= 1) & (c - 1 < L) & (g0[:, 2] == 0)
+    wprev = np.where(prev_match, _weight(
+        qw8, _column_index(g0[:, 1], g0[:, 3], Lq), Lq), wr).astype(F32)
+    cross = (F32(0.5) * (wprev + wq).astype(F32)).astype(F32)
+    _add(acc, CH["direct_w"], crossed, cross)
+
+    qs = np.clip(g0[:, 1], 0, Lq - 1)
+    has1 = ins == 1
+    b1 = _base(q, qs, Lq)
+    w1 = _weight(qw8, qs, Lq)
+    for b in range(NBASE):
+        _add(acc, CH["ins1_w"] + b, has1 & (b1 == b), w1)
+        _add(acc, CH["ins1_c"] + b, has1 & (b1 == b), 1.0)
+    _add(acc, CH["ins1_stop"], has1, w1)
+
+    multi = ins >= 2
+    m = np.minimum(ins, K_INS)
+    run = np.zeros(LA + 1, F32)
+    for k in range(K_INS):
+        inrun = multi & (k < m)
+        bk = _base(q, qs + k, Lq)
+        wk = _weight(qw8, qs + k, Lq)
+        for b in range(NBASE):
+            ch = NBASE * k + b
+            _add(acc, CH["pile_w"] + ch, inrun & (bk == b), wk)
+            _add(acc, CH["pile_c"] + ch, inrun & (bk == b), 1.0)
+        run = np.where(inrun, (run + wk).astype(F32), run).astype(F32)
+    wmean = (run / np.maximum(ins, 1).astype(F32)).astype(F32)
+    for ln in range(2, K_INS + 1):
+        _add(acc, CH["lenw"] + ln - 2, multi & (m == ln), wmean)
+
+
+def model_votes(walk, q, qw8, w_read, lt, t_off, esc_w, win, n_win, LA):
+    """M1's outputs: (votes f32 [n_win, VOTE_CH, LA+1], wesc f32
+    [n_win]). walk: int [B, LA+2, 4]."""
+    real, _ = members(win, n_win)
+    votes = np.zeros((n_win, VOTE_CH, LA + 1), F32)
+    wesc = np.zeros(n_win, F32)
+    for w, jobs in enumerate(real):
+        for j in jobs:
+            job_votes(votes[w], walk[j], q[j], qw8[j], w_read[j], lt[j],
+                      t_off[j], LA)
+            wesc[w] = F32(wesc[w] + F32(esc_w[j]))
+    return votes, wesc
+
+
+def _first_max(v):
+    best = 0
+    for i in range(1, len(v)):
+        if v[i] > v[best]:
+            best = i
+    return best
+
+
+def window_state(votes_w, bb, bbw, al, LA, ins_scale):
+    """M2's vote-out of one window: per gap (e, kept, column code, column
+    coverage, insertion codes, insertion counts)."""
+    v = votes_w
+    eps = F32(EPS)
+    scale = F32(ins_scale)
+    bwl = bbw[min(max(al - 1, 0), LA - 1)]
+    out = []
+    for p in range(LA + 1):
+        dw = v[CH["direct_w"], p]
+        if p <= al:
+            left = bbw[0] if p == 0 else bbw[p - 1]
+            right = bbw[p] if p < LA else bwl
+            if p == al:
+                left = right = bwl
+            dw = F32(dw + F32(F32(F32(0.5) * F32(left + right)) + eps))
+        kept, best, ccov = False, 0, 0
+        if p < LA:
+            bw = v[CH["base_w"]:CH["base_w"] + NBASE + 1, p].copy()
+            bc = v[CH["base_c"]:CH["base_c"] + NBASE, p].copy()
+            code = int(bb[p])
+            if p < al and code < NBASE:
+                bw[code] = F32(bw[code] + F32(bbw[p] + eps))
+                bc[code] = F32(bc[code] + F32(1.0))
+            best = _first_max(bw[:NBASE])
+            kept = p < al and bw[NBASE] <= bw[best]
+            ccov = int(bc[best])
+        stopped = F32(dw * scale)
+        emit = p <= al
+        e, codes, cnts = 0, [], []
+        for k in range(K_INS):
+            if not emit:
+                break
+            cw = v[CH["pile_w"] + NBASE * k:CH["pile_w"] + NBASE * (k + 1), p]
+            cc = v[CH["pile_c"] + NBASE * k:CH["pile_c"] + NBASE * (k + 1), p]
+            if k == 0:
+                cw = (cw + v[CH["ins1_w"]:CH["ins1_w"] + NBASE, p]).astype(F32)
+                cc = (cc + v[CH["ins1_c"]:CH["ins1_c"] + NBASE, p]).astype(F32)
+            tot = cw[0]
+            for i in range(1, NBASE):
+                tot = F32(tot + cw[i])
+            emit = tot > stopped
+            bk = _first_max(cw)
+            codes.append(bk)
+            cnts.append(int(cc[bk]))
+            e += int(emit)
+            if k == 0:
+                stopped = F32(stopped + v[CH["ins1_stop"], p])
+            if k >= 1:
+                stopped = F32(stopped + v[CH["lenw"] + k - 1, p])
+        out.append((e, kept, best, ccov, codes, cnts))
+    return out
+
+
+def model_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
+                  ins_scale, n_win, LA, detect):
+    """M2's outputs, as numpy arrays: (new_bb, new_bbw, new_alen, nb, ne,
+    cov, ovf, conv)."""
+    real, pad = members(win, n_win)
+    B = len(begin)
+    new_bb = np.zeros((n_win + 1, LA), np.uint8)
+    new_bb[n_win] = bb[n_win]
+    new_alen = np.zeros(n_win + 1, np.int32)
+    new_alen[n_win] = alen[n_win]
+    nb = np.zeros(B, np.int32)
+    ne = np.zeros(B, np.int32)
+    cov = np.zeros((n_win, LA), np.int32)
+    ovf_out = np.zeros(n_win, bool)
+    conv = np.zeros(n_win, bool)
+    for w in range(n_win):
+        al = int(alen[w])
+        st = window_state(votes[w], bb[w], bbw[w], al, LA, ins_scale)
+        ulen = np.array([e + kept for e, kept, *_ in st], np.int64)
+        start = np.cumsum(ulen) - ulen
+        total = int(ulen.sum())
+        codes = np.zeros(LA, np.uint8)
+        cv = np.zeros(LA, np.int32)
+        posk = np.full(LA, HI, np.int64)
+        posk2 = np.full(LA, -HI, np.int64)
+        for p, (e, kept, best, ccov, icodes, icnts) in enumerate(st):
+            s = int(start[p])
+            for k in range(e):
+                if s + k < LA:
+                    codes[s + k] = icodes[k]
+                    cv[s + k] = icnts[k]
+            if kept:
+                if s + e < LA:
+                    codes[s + e] = best
+                    cv[s + e] = ccov
+                posk[p] = posk2[p] = s + e
+        map_b = np.minimum.accumulate(posk[::-1])[::-1].copy()
+        map_e = np.maximum.accumulate(posk2)
+        first_kept, last_kept = int(posk.min()), int(posk2.max())
+        any_kept = first_kept != HI
+        map_b[map_b == HI] = last_kept
+        map_e[map_e == -HI] = first_kept
+        if not any_kept:
+            map_b[:] = 0
+            map_e[:] = 0
+        hi = max(total - 1, 0)
+        map_b = np.minimum(np.maximum(map_b, 0), hi)
+        map_e = np.minimum(np.maximum(map_e, 0), hi)
+        tot_c = min(max(total, 1), LA)
+        lanes = list(real[w]) + (list(pad) if w == n_win - 1 else [])
+        chg = 0
+        for r, j in enumerate(lanes):
+            L = int(alen[min(max(int(win[j]), 0), n_win)])
+            b, en = int(begin[j]), int(end[j])
+            nb[j] = map_b[min(max(b, 0), LA - 1)] if b < L else 0
+            ne[j] = map_e[min(max(en, 0), LA - 1)] if en < L else tot_c - 1
+            if r < len(real[w]) and (nb[j] != b or ne[j] != en):
+                chg += 1
+        new_bb[w] = codes
+        cov[w] = cv
+        new_alen[w] = tot_c
+        ovf_out[w] = bool(ovf[w]) or total > LA or wesc[w] > 0
+        conv[w] = bool(detect) and total == al and chg == 0 and \
+            np.array_equal(codes, bb[w])
+    return (new_bb, np.zeros(bbw.shape, F32), new_alen, nb, ne, cov,
+            ovf_out, conv)
+
+
+# ------------------------------------------------------------ inputs
+
+def _noisy(rng, true, rate=0.10):
+    n = len(true)
+    r = rng.random(n)
+    dele = r < rate / 3
+    sub = (r >= rate / 3) & (r < 2 * rate / 3)
+    ins = (r >= 2 * rate / 3) & (r < rate)
+    counts = np.where(dele, 0, np.where(ins, 2, 1))
+    base = np.where(sub, rng.integers(0, 4, n).astype(np.uint8), true)
+    starts = np.cumsum(counts) - counts
+    out = np.zeros(int(counts.sum()), np.uint8)
+    keep = ~dele
+    out[starts[keep]] = base[keep]
+    out[starts[ins] + 1] = rng.integers(0, 4, int(ins.sum()))
+    return out
+
+
+def _qual(rng, n):
+    return bytes(rng.integers(33 + 8, 33 + 25, n, dtype=np.uint8))
+
+
+def edge_windows(seed=0, wlen=240, coverage=8):
+    """Windows for a chunk that reaches every branch of the merge kernels:
+    noisy windows with full and partial layer spans (insertion runs of 1
+    and 2 come with the noise), one with a single layer, one with none,
+    one whose layers carry a 40-base insertion (a run longer than K_INS,
+    which saturates the walk), and one whose layers all repeat every
+    base (a consensus twice as long as its backbone, past the chunk's
+    anchor width)."""
+    rng = np.random.default_rng(seed)
+
+    def window(true, layers):
+        bb = _noisy(rng, true)
+        w = Window(0, 0, WindowType.TGS, decode_bases(bb), _qual(rng, len(bb)))
+        for lay, b, e in layers(len(bb)):
+            w.add_layer(decode_bases(lay), _qual(rng, len(lay)), b, e)
+        return w
+
+    out = []
+    for i in range(4):
+        true = rng.integers(0, 4, wlen).astype(np.uint8)
+
+        def full_and_partial(L, true=true):
+            lays = [(_noisy(rng, true), 0, L - 1) for _ in range(coverage)]
+            for _ in range(3):
+                b = int(rng.integers(0, L // 3))
+                e = int(rng.integers(2 * L // 3, L - 1))
+                seg = true[b * len(true) // L:e * len(true) // L + 1]
+                lays.append((_noisy(rng, seg), b, e))
+            return lays
+        out.append(window(true, full_and_partial))
+    true = rng.integers(0, 4, wlen).astype(np.uint8)
+    out.append(window(true, lambda L: [(_noisy(rng, true), 0, L - 1)]))
+    out.append(window(rng.integers(0, 4, wlen).astype(np.uint8),
+                      lambda L: []))
+    true = rng.integers(0, 4, wlen).astype(np.uint8)
+    ins = rng.integers(0, 4, 40).astype(np.uint8)
+    mid = wlen // 2
+    long_ins = np.concatenate([true[:mid], ins, true[mid:]])
+    out.append(window(true, lambda L: [(_noisy(rng, long_ins, 0.02), 0, L - 1)
+                                       for _ in range(coverage)]))
+    true = rng.integers(0, 4, wlen).astype(np.uint8)
+    grown = np.repeat(true, 2)
+    out.append(window(true, lambda L: [(_noisy(rng, grown, 0.01), 0, L - 1)
+                                       for _ in range(coverage)]))
+    return out
+
+
+def noisy_windows(n_windows, coverage, wlen, seed=0):
+    """``bench.build_windows``' workload with the port's Window: per window
+    a hidden truth, a 10%-error backbone and ``coverage`` 10%-error full-
+    span layers."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_windows):
+        true = rng.integers(0, 4, wlen).astype(np.uint8)
+        bb = _noisy(rng, true)
+        w = Window(0, 0, WindowType.TGS, decode_bases(bb), _qual(rng, len(bb)))
+        for _ in range(coverage):
+            lay = _noisy(rng, true)
+            w.add_layer(decode_bases(lay), _qual(rng, len(lay)), 0,
+                        len(bb) - 1)
+        out.append(w)
+    return out
+
+
+def random_round(seed, B, Lq, LA, n_win):
+    """Merge inputs that no walk would give, for the kernels' edges: walk
+    entries over their whole range (insertion runs 0-12, query starts
+    and indices past both ends, every op code), query codes 0-7, weights
+    0-255, negative slice offsets, empty windows; anchors, lengths and
+    spans past the anchor's ends. Returns a dict of numpy arrays."""
+    rng = np.random.default_rng(seed)
+    walk = np.stack([
+        rng.choice(13, (B, LA + 2), p=[.55, .2, .08, .04] + [.13 / 9] * 9),
+        rng.integers(-3, Lq + 4, (B, LA + 2)),
+        rng.integers(0, 4, (B, LA + 2)),
+        rng.integers(-3, Lq + 4, (B, LA + 2))], axis=-1).astype(np.int16)
+    win = rng.integers(0, n_win - 2, B).astype(np.int32)
+    win[win == 3] = 4                                  # window 3: no job
+    win[rng.random(B) < 0.1] = n_win                   # padded lanes
+    return dict(
+        walk=walk,
+        q=rng.choice(8, (B, Lq), p=[.22] * 4 + [.08, .01, .01, .02]).astype(
+            np.uint8),
+        qw8=rng.integers(0, 256, (B, Lq)).astype(np.uint8),
+        w_read=(rng.random(B) * 30).astype(np.float32),
+        lt=rng.integers(1, LA + 1, B).astype(np.int32),
+        t_off=rng.integers(-4, LA // 2, B).astype(np.int32),
+        esc_w=rng.integers(0, 3, B).astype(np.float32) * (rng.random(B) <
+                                                          0.05),
+        win=win,
+        bb=rng.integers(0, 6, (n_win + 1, LA)).astype(np.uint8),
+        bbw=(rng.random((n_win + 1, LA)) * 40).astype(np.float32),
+        alen=rng.integers(1, LA + 1, n_win + 1).astype(np.int32),
+        begin=rng.integers(-2, LA + 3, B).astype(np.int32),
+        end=rng.integers(-2, LA + 3, B).astype(np.int32),
+        ovf=rng.random(n_win) < 0.1)

@@ -2,8 +2,9 @@
 the banded forward (untiled and tiled, each also over a group of
 chunks' lanes at the overlap routes' widths), the full-width forward, the
 column walk (band and flat layouts) and the walk's latency probe, the
-batched NW forward (K4) and its traceback (T1), the monotone count (K5)
-and the batched aligner end to end.
+batched NW forward (K4) and its traceback (T1), the monotone count (K5),
+the batched aligner end to end, and the round merge (M1, M2: each
+against its plain version, and a chunk's rounds against the CPU run).
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -898,3 +899,274 @@ def test_wrappers_reject_bad_inputs(cuda):
                                       mismatch=-4, gap=-8, W=128, nxt_k=k,
                                       out=(cells, cells, None))
 
+
+
+# ------------------------------------------------------------ merge (M1, M2)
+
+def _merge_chunk(cuda, wins, W, **caps):
+    """A chunk's round-0 state on the card and its walk (K1/K2 and W1 on
+    the card): the merge kernels' inputs as the main path gives them."""
+    from racon_tpu_torch.ops import device_poa as P
+    plan = P.ChunkPlan(wins, **caps)
+    job, winb = P.load_packed(*plan.packed_bufs(),
+                              (plan.B, plan.Lq, plan.n_win, plan.LA), cuda)
+    q, qw8, begin, end, lq, win, w_read, bb, bbw, alen = P._unpack_bufs(
+        job, winb, plan.Lq, plan.LA)
+    fwd = P._lane_fwd(bb, alen, begin, end, q, lq, win, match=5, mismatch=-4,
+                      gap=-8, Lq=plan.Lq, LA=plan.LA, band_w=W,
+                      nxt_k=4 if W else 1)
+    cols, esc_w = P._lane_walk(*fwd, lq, LA=plan.LA, band_w=W)
+    return dict(n_win=plan.n_win, LA=plan.LA, B=plan.B, q=q, qw8=qw8,
+                begin=begin, end=end, win=win, w_read=w_read, bb=bb, bbw=bbw,
+                alen=alen, lt=fwd[3], t_off=fwd[4], cols=cols, esc_w=esc_w)
+
+
+def _random_chunk(cuda, seed, B, Lq, LA, n_win):
+    from merge_model import random_round
+    r = random_round(seed, B, Lq, LA, n_win)
+    walk = torch.from_numpy(r.pop("walk")).to(cuda)
+    c = {k: torch.from_numpy(v).to(cuda) for k, v in r.items()}
+    c["cols"] = {n: walk[..., i] for i, n in enumerate(kernels.WALK_FIELDS)}
+    return dict(c, n_win=n_win, LA=LA, B=B)
+
+
+_MERGE_CASES = {}
+
+
+def _merge_case(cuda, key):
+    """The merge inputs of one case (cached: the walks of 4096 lanes are
+    shared by the M1 and M2 tests)."""
+    if key not in _MERGE_CASES:
+        from merge_model import edge_windows, noisy_windows
+        if key == "edge band":
+            c = _merge_chunk(cuda, edge_windows(1), 256)
+        elif key == "edge flat":
+            c = _merge_chunk(cuda, edge_windows(1), 0)
+        elif key == "edge LA=450":
+            c = _merge_chunk(cuda, edge_windows(2), 256, la_cap=450)
+        elif key == "4096 lanes":
+            c = _merge_chunk(cuda, noisy_windows(130, 30, 500, seed=3), 256)
+        else:
+            c = _random_chunk(cuda, 5, 300, 96, 200, 12)
+        _MERGE_CASES[key] = c
+    return _MERGE_CASES[key]
+
+
+def _votes_args(c):
+    return (c["cols"], c["q"], c["qw8"], c["w_read"], c["lt"], c["t_off"],
+            c["esc_w"], c["win"])
+
+
+def _members(c):
+    from racon_tpu_torch.ops.device_merge import window_members
+    return window_members(c["win"], c["n_win"])
+
+
+def _bits(t):
+    return t.cpu().contiguous().view(torch.uint8) if t.dtype != torch.bool \
+        else t.cpu()
+
+
+_MERGE_KEYS = ["edge band", "edge flat", "edge LA=450", "4096 lanes",
+               "random"]
+
+
+@pytest.mark.parametrize("key", _MERGE_KEYS)
+def test_merge_votes_kernel_matches_plain(cuda, key):
+    """M1 bitwise against extract_votes_cols -> aggregate_votes on the
+    card, at 128 and 4096 lanes, an LA that is no multiple of the gap
+    tile, and inputs over every branch."""
+    from racon_tpu_torch.ops.device_merge import merge_votes_plain
+    c = _merge_case(cuda, key)
+    if key == "4096 lanes":
+        assert c["B"] == 4096 and c["n_win"] == 160
+    kw = dict(n_win=c["n_win"], LA=c["LA"])
+    ref = merge_votes_plain(*_votes_args(c), **kw)
+    n0 = kernels.LAUNCHES["merge_votes"]
+    got = kernels.merge_votes(*_votes_args(c), _members(c), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_votes"] == n0 + 1
+    for r, g in zip(ref, got):
+        assert torch.equal(_bits(r), _bits(g))
+
+
+@pytest.mark.parametrize("detect", [False, True])
+@pytest.mark.parametrize("key", _MERGE_KEYS + ["padded lanes"])
+def test_merge_windows_kernel_matches_plain(cuda, key, detect):
+    """M2 bitwise against add_backbone -> ... -> remap_state on the card,
+    every output (padded lanes' spans too), with and without detect."""
+    from racon_tpu_torch.ops.device_merge import (merge_votes_plain,
+                                                  merge_windows_plain)
+    c = dict(_merge_case(cuda, "edge band" if key == "padded lanes"
+                         else key))
+    n_win, LA = c["n_win"], c["LA"]
+    if key == "padded lanes":
+        # Padded lanes of odd spans, and a last window with jobs and a
+        # dummy row as long as the anchor.
+        pad = (c["win"] == n_win).nonzero()[:, 0]
+        c["win"] = c["win"].clone()
+        c["win"][:3] = n_win - 1
+        for name, vals in (("begin", [0, 5, 200, -3]),
+                           ("end", [1, 7, 300, LA + 9])):
+            c[name] = c[name].clone()
+            c[name][pad[:4]] = torch.tensor(vals, dtype=torch.int32,
+                                            device=cuda)
+        c["alen"] = c["alen"].clone()
+        c["alen"][-1] = LA
+    votes, wesc = merge_votes_plain(*_votes_args(c), n_win=n_win, LA=LA)
+    ovf = c.get("ovf")
+    if ovf is None:
+        ovf = torch.zeros(n_win, dtype=torch.bool, device=cuda)
+        ovf[1] = True
+    args = (votes, wesc, c["bb"], c["bbw"], c["alen"], c["begin"], c["end"],
+            c["win"], ovf)
+    kw = dict(ins_scale=0.2, n_win=n_win, LA=LA, detect=detect)
+    ref = merge_windows_plain(*args, **kw)
+    n0 = kernels.LAUNCHES["merge_windows"]
+    got = kernels.merge_windows(*args, _members(c), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_windows"] == n0 + 1
+    for i, (r, g) in enumerate(zip(ref, got)):
+        assert r.dtype == g.dtype and r.shape == g.shape, i
+        assert torch.equal(_bits(r), _bits(g)), i
+    if key in ("edge band", "edge flat"):
+        assert ref[6].any()                   # escape flags, outgrown
+    if detect and key != "random":
+        assert ref[7].any()
+
+
+@pytest.mark.parametrize("key", ["edge band", "4096 lanes"])
+def test_merge_round_kernels_match_plain(cuda, key):
+    """One chunk's back half through device_poa._merge_round (M1 and M2,
+    the membership built once a chunk) against the plain versions on the
+    card and against _merge_round on the CPU: every output equal."""
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.device_merge import (merge_votes_plain,
+                                                  merge_windows_plain)
+    c = _merge_case(cuda, key)
+    n_win, LA = c["n_win"], c["LA"]
+    ovf = torch.zeros(n_win, dtype=torch.bool, device=cuda)
+    state = (c["bb"], c["bbw"], c["alen"], c["begin"], c["end"], c["win"],
+             ovf)
+    kw = dict(ins_scale=0.3, n_win=n_win, LA=LA, detect=True)
+    n0 = dict(kernels.LAUNCHES)
+    got = P._merge_round(c["cols"], c["esc_w"], c["lt"], c["t_off"], c["q"],
+                         c["qw8"], c["w_read"], *state, _members(c), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["merge_votes"] == n0["merge_votes"] + 1
+    assert kernels.LAUNCHES["merge_windows"] == n0["merge_windows"] + 1
+    votes, wesc = merge_votes_plain(*_votes_args(c), n_win=n_win, LA=LA)
+    ref = merge_windows_plain(votes, wesc, *state, **kw)
+    cpu = P._merge_round(
+        {n: c["cols"][n].cpu() for n in kernels.WALK_FIELDS},
+        c["esc_w"].cpu(), c["lt"].cpu(), c["t_off"].cpu(), c["q"].cpu(),
+        c["qw8"].cpu(), c["w_read"].cpu(), *(s.cpu() for s in state),
+        dm.window_members(c["win"].cpu(), n_win), **kw)
+    for i, (g, r, h) in enumerate(zip(got, ref, cpu)):
+        assert torch.equal(_bits(g), _bits(r)), i
+        assert torch.equal(_bits(g), _bits(h)), i
+
+
+def test_device_chunk_merges_once_a_round(cuda):
+    """A chunk's rounds on the card launch M1 and M2 once a round each
+    and give the CPU run's bytes."""
+    from merge_model import edge_windows
+    from racon_tpu_torch.ops import device_poa as P
+    wins = edge_windows(3)
+    kw = dict(match=5, mismatch=-4, gap=-8, ins_scale=(0.2, 0.2, 0.2, 0.6),
+              rounds=4)
+    plan = P.ChunkPlan(wins)
+    n0 = dict(kernels.LAUNCHES)
+    stats = {}
+    got = P.run_chunk(plan, device=cuda, stats=stats, **kw)
+    rounds = stats["rounds_exec"]
+    assert kernels.LAUNCHES["merge_votes"] - n0["merge_votes"] == rounds
+    assert kernels.LAUNCHES["merge_windows"] - n0["merge_windows"] == rounds
+    ref = P.run_chunk(P.ChunkPlan(wins), device="cpu", **kw)
+    for (gc, gv), (rc, rv) in zip(zip(*got), zip(*ref)):
+        assert gc == rc
+        assert (gv is None and rv is None) or np.array_equal(gv, rv)
+
+
+@pytest.mark.parametrize("LA", [384, 768, 1152])
+def test_merge_occupancy(cuda, LA):
+    """M1's shared memory is its tile's sums; M2's holds only its scan
+    scratch, its per-gap state (about 70 bytes a gap) lying in the
+    device-memory scratch."""
+    votes = kernels.merge_occupancy("votes")
+    assert votes["smem"] == 4 * 132 * 128 and votes["blocks_per_sm"] >= 3
+    windows = kernels.merge_occupancy("windows")
+    assert windows["blocks_per_sm"] >= 1 and windows["threads"] == 256
+    assert windows["smem"] < 1024
+    assert 60 * LA < kernels.merge_windows_scratch(LA) < 80 * LA
+    assert kernels.merge_windows_scratch(LA) % 16 == 0
+
+
+def test_merge_wrappers_reject_bad_inputs(cuda):
+    c = _merge_case(cuda, "random")
+    n_win, LA = c["n_win"], c["LA"]
+    args = list(_votes_args(c))
+    mem = _members(c)
+    bad = dict(args[0], ins_len=args[0]["ins_len"].to(torch.int32))
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_votes(bad, *args[1:], mem, n_win=n_win, LA=LA)
+    # Separate column tensors are not the walk's interleaved layout.
+    apart = {n: t.contiguous() for n, t in args[0].items()}
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_votes(apart, *args[1:], mem, n_win=n_win, LA=LA)
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_votes(*args[:3], args[3].double(), *args[4:], mem,
+                            n_win=n_win, LA=LA)
+    votes, wesc = kernels.merge_votes(*args, mem, n_win=n_win, LA=LA)
+    state = [c["bb"], c["bbw"], c["alen"], c["begin"], c["end"], c["win"],
+             c["ovf"]]
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_windows(votes, wesc, *state, mem, ins_scale=0.2,
+                              n_win=n_win - 1, LA=LA)
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_windows(votes, wesc, *state, mem[:2] + (mem[2][1:],),
+                              ins_scale=0.2, n_win=n_win, LA=LA)
+
+
+@pytest.mark.parametrize("wlen", [3100, 4000])
+def test_device_chunk_long_windows(cuda, wlen):
+    """Windows past the anchor width that a block's shared memory could
+    hold M2's per-gap state for (LA about 3000): a chunk's rounds on the
+    card launch M1 and M2 once a round, M1 and M2 equal their plain
+    versions at the chunk's width, and the chunk's bytes equal the CPU
+    run's."""
+    from merge_model import noisy_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.device_merge import (merge_votes_plain,
+                                                  merge_windows_plain)
+    wins = noisy_windows(3, 6, wlen, seed=11)
+    c = _merge_chunk(cuda, wins, 256)
+    assert c["LA"] >= 3200
+    n_win, LA = c["n_win"], c["LA"]
+    mem = _members(c)
+    kw = dict(n_win=n_win, LA=LA)
+    ref = merge_votes_plain(*_votes_args(c), **kw)
+    got = kernels.merge_votes(*_votes_args(c), mem, **kw)
+    for r, g in zip(ref, got):
+        assert torch.equal(_bits(r), _bits(g))
+    ovf = torch.zeros(n_win, dtype=torch.bool, device=cuda)
+    args = (ref[0], ref[1], c["bb"], c["bbw"], c["alen"], c["begin"],
+            c["end"], c["win"], ovf)
+    wkw = dict(ins_scale=0.2, n_win=n_win, LA=LA, detect=True)
+    ref_w = merge_windows_plain(*args, **wkw)
+    got_w = kernels.merge_windows(*args, mem, **wkw)
+    for i, (r, g) in enumerate(zip(ref_w, got_w)):
+        assert torch.equal(_bits(r), _bits(g)), i
+    ckw = dict(match=5, mismatch=-4, gap=-8, ins_scale=(0.2, 0.2, 0.2, 0.6),
+               rounds=4)
+    n0 = dict(kernels.LAUNCHES)
+    stats = {}
+    out = P.run_chunk(P.ChunkPlan(wins), device=cuda, stats=stats, **ckw)
+    rounds = stats["rounds_exec"]
+    assert kernels.LAUNCHES["merge_votes"] - n0["merge_votes"] == rounds
+    assert kernels.LAUNCHES["merge_windows"] - n0["merge_windows"] == rounds
+    cpu = P.run_chunk(P.ChunkPlan(wins), device="cpu", **ckw)
+    for (gc, gv), (rc, rv) in zip(zip(*out), zip(*cpu)):
+        assert gc == rc
+        assert (gv is None and rv is None) or np.array_equal(gv, rv)

@@ -31,8 +31,11 @@ bitwise against the default plan's outputs.
             kernels build into DIR/build. The inputs come from this
             checkout's chip_smoke.py helpers.
 --main      then run that tree's chip_smoke.py phase 4 (the main path at
-            full size) and print its record.
---cases S   run only the cases whose name contains S.
+            full size) and print its record (stage ms, consensus seconds,
+            windows/s, peak device memory, launches).
+--cases S   run only the cases whose name contains S: with --main and an
+            S that names no case (``--cases none``), phase 4 alone, as
+            the parent and change A/B of a main-path stage runs it.
 
 The line before the last holds the card's name and power limit.
 """
