@@ -48,10 +48,17 @@ any failure exits non-zero and prints no result):
               1152, 514] on T1's op strings, in turns with
               torch.searchsorted (20 repetitions); K4, T1 and K5 times
               are device times from CUDA graphs of several calls;
-3. small      the CLI on a ~20 kb synthetic input with --device cuda and
-              --device cpu: the FASTA must be byte-identical (the cuda run
-              aligns the overlaps on the card, untiled; the cpu run with
-              the host aligner);
+3. small      the CLI with --device cuda and --device cpu on small
+              synthetic inputs: the FASTA must be byte-identical (the
+              cuda run aligns the overlaps on the card, untiled, and
+              merges each round on M1 and M2; the cpu run uses the host
+              aligner and the plain versions). Cases: kC on ~20 kb; -f
+              (fragment correction) on an all-vs-all set of 24 reads; the
+              option cases of tests/test_torch_cli_cases.py: partial-length
+              reads (2 x 6 kb, 2.5 kb reads at 30x) with PAF and with MHAP
+              overlaps, then on one such contig gzipped inputs, -u with a
+              contig no read covers, and -w 200 -q 5 -e 0.2 (anchor width
+              about 200 instead of 500);
 4. main       the main path at full size through the CLI entry point: a
               1 Mbp synthetic draft (20 contigs x 50 kb), 10 kb reads at
               30x, PAF overlaps aligned on the card (tiled route), w=500.
@@ -84,19 +91,23 @@ any failure exits non-zero and prints no result):
 7. merge      the round merge's kernels at the main path's chunk shape:
               phase 4's windows, chunked as the engine chunks them, the
               first chunk's round-0 forward and walk on the card, then
-              merge_votes (M1) and merge_windows (M2, with and without
-              detect) bitwise against their plain versions (the eager
-              PyTorch chain), each timed as CUDA graphs in turns
-              (time_graph_turns), the plain chain warm (medians of 3 in
-              turns); beside them the
+              merge_votes (M1) and merge_windows (M2, both variants:
+              the narrow kernel the main path runs and the wide one,
+              with and without detect) bitwise against their plain
+              versions (the eager PyTorch chain), each timed as CUDA
+              graphs in turns (time_graph_turns, the wide M2 as
+              wide_ms), the plain chain warm (medians of 3 in turns);
+              M1's tiles, gaps a tile and waves on this card; beside
+              them the
               whole back half (M1 and M2 through device_poa._merge_round
               with the chunk's membership, as a round runs them), timed
               eagerly as the stage clock sees it, and
-              registers, spills and blocks an SM of each kernel. M2's
-              bound counts the sectors of the sums that its vote-out
-              reads on this data (vote_needs), and the phase fails
-              unless the plain vote-out over sums poisoned outside them
-              gives the same bits.
+              registers, spills and blocks an SM of each kernel. M1's
+              bound counts the sectors of the walk and the queries that
+              its real jobs read on this data (votes_reads), M2's the
+              sectors of the sums that its vote-out reads (vote_needs),
+              and the phase fails unless each plain version over inputs
+              poisoned outside its count gives the same bits.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -1065,28 +1076,105 @@ def fasta_records(blob: bytes):
             for i in range(0, len(lines) - 1, 2)}
 
 
-def phase_small(device, tmp):
-    from racon_tpu_torch.ops import kernels, ovl_align
+def write_mhap(paths, out):
+    """The PAF's overlaps as MHAP: 1-based read and contig indices, the
+    read's strand bit, spans and lengths."""
+    def names(path):
+        with open(path, "rb") as fh:
+            lines = fh.read().split(b"\n")
+        step = 4 if lines[0].startswith(b"@") else 2
+        return {lines[i][1:].split()[0].decode(): i // step + 1
+                for i in range(0, len(lines) - 1, step)}
+    reads, contigs = names(paths["reads"]), names(paths["draft"])
+    with open(paths["overlaps"]) as src, open(out, "w") as dst:
+        for line in src:
+            f = line.split("\t")
+            dst.write(f"{reads[f[0]]} {contigs[f[5]]} 0.1 100 "
+                      f"{int(f[4] == '-')} {f[2]} {f[3]} {f[1]} 0 {f[7]} "
+                      f"{f[8]} {f[6]}\n")
+    return out
+
+
+def gzipped(path):
+    import gzip
+    import shutil
+    with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    return path + ".gz"
+
+
+def small_cases(tmp):
+    """Phase 3's CLI cases: (name, argv). The 20 kb kC case; -f on an
+    all-vs-all set; the five option cases of tests/test_torch_cli_cases.py
+    (partial-length reads with PAF and with MHAP overlaps; on one such
+    contig gzipped inputs, -u with a contig no read covers, and -w 200
+    -q 5 -e 0.2)."""
     from racon_tpu_torch.utils.synth import write_dataset
     ds = write_dataset(os.path.join(tmp, "small"), seed=5, contig_len=20000,
                        read_len=5000, coverage=20)
     p = ds["paths"]
-    argv = [p["reads"], p["overlaps"], p["draft"], "-t", "8"]
-    kernels.reset_launches()
-    ovl_align.reset_stats()
-    rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
-    launches = dict(kernels.LAUNCHES)
-    ovl = dict(ovl_align.STATS)
-    rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
-    if rc_g or rc_c:
-        fail(f"small CLI run failed: {err_g[-2000:]} {err_c[-2000:]}")
-    same = out_g == out_c and len(out_g) > 0
-    emit("small", bytes=len(out_g), identical=same, wall_s_gpu=wall_g,
-         wall_s_cpu=wall_c, launches=launches, ovl=ovl)
-    if not same:
-        fail("small run: --device cuda and --device cpu FASTA differ")
-    if ovl["device_jobs"] <= 0:
-        fail("small run: no overlap was aligned on the card")
+    cases = [("kC", [p["reads"], p["overlaps"], p["draft"]])]
+    ava = write_dataset(os.path.join(tmp, "ava"), seed=12, contig_len=2000,
+                        coverage=12, fastq=True, ava=True)["paths"]
+    cases.append(("-f", ["-f", ava["reads"], ava["ava"], ava["reads"]]))
+    two = write_dataset(os.path.join(tmp, "partial2"), seed=21, n_contigs=2,
+                        contig_len=6000, read_len=2500,
+                        coverage=30)["paths"]
+    cases.append(("partial PAF", [two["reads"], two["overlaps"],
+                                  two["draft"]]))
+    cases.append(("partial MHAP", [two["reads"], write_mhap(
+        two, os.path.join(tmp, "partial2", "overlaps.mhap")), two["draft"]]))
+    one = write_dataset(os.path.join(tmp, "partial1"), seed=21,
+                        contig_len=6000, read_len=2500,
+                        coverage=30)["paths"]
+    cases.append(("gzipped", [gzipped(one["reads"]),
+                              gzipped(one["overlaps"]),
+                              gzipped(one["draft"])]))
+    lonely = os.path.join(tmp, "partial1", "draft_lonely.fasta")
+    rng = np.random.default_rng(22)
+    with open(one["draft"], "rb") as src, open(lonely, "wb") as dst:
+        dst.write(src.read() + b">lonely\n" + np.frombuffer(
+            b"ACGT", np.uint8)[rng.integers(0, 4, 3000)].tobytes() + b"\n")
+    cases.append(("-u", ["-u", one["reads"], one["overlaps"], lonely]))
+    cases.append(("-w 200 -q 5 -e 0.2",
+                  ["-w", "200", "-q", "5", "-e", "0.2", one["reads"],
+                   one["overlaps"], one["draft"]]))
+    return cases
+
+
+def phase_small(device, tmp):
+    """Phase 3: each of small_cases' CLI runs with --device cuda and
+    --device cpu, byte-identical; the overlaps of each aligned on the card
+    and its consensus merged by M1 and M2."""
+    from racon_tpu_torch.ops import kernels, ovl_align
+    recs = []
+    for name, argv in small_cases(tmp):
+        argv = argv + ["-t", "8"]
+        kernels.reset_launches()
+        ovl_align.reset_stats()
+        rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
+        launches = dict(kernels.LAUNCHES)
+        ovl = dict(ovl_align.STATS)
+        rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
+        if rc_g or rc_c:
+            fail(f"small CLI run {name!r} failed: {err_g[-2000:]} "
+                 f"{err_c[-2000:]}")
+        recs.append(dict(case=name, bytes=len(out_g), records=out_g.count(
+            b">"), identical=out_g == out_c and len(out_g) > 0,
+            wall_s_gpu=wall_g, wall_s_cpu=wall_c, launches=launches,
+            ovl=ovl))
+    emit("small", cases=recs)
+    for r in recs:
+        if not r["identical"]:
+            fail(f"small run {r['case']!r}: --device cuda and --device cpu "
+                 f"FASTA differ")
+        if r["ovl"]["device_jobs"] <= 0:
+            fail(f"small run {r['case']!r}: no overlap was aligned on the "
+                 f"card")
+        if not r["launches"]["merge_votes"] == \
+                r["launches"]["merge_windows"] > 0:
+            fail(f"small run {r['case']!r}: the consensus did not merge on "
+                 f"the card ({r['launches']})")
 
 
 def consensus_seconds(err: str) -> float:
@@ -1109,16 +1197,23 @@ def routed(err: str):
     return flagged, host
 
 
+def main_dataset(tmp, n_contigs=20, contig_len=50000, read_len=10000,
+                 coverage=30):
+    """Phase 4's synthetic input (module docstring) under tmp/main."""
+    from racon_tpu_torch.utils.synth import write_dataset
+    return write_dataset(os.path.join(tmp, "main"), seed=7,
+                         n_contigs=n_contigs, contig_len=contig_len,
+                         read_len=read_len, coverage=coverage,
+                         draft_err=0.03, read_err=0.08)
+
+
 def phase_main(device, tmp, n_contigs=20, contig_len=50000,
                read_len=10000, coverage=30):
     import torch
     from racon_tpu_torch.ops import device_poa, kernels, ovl_align
-    from racon_tpu_torch.utils.synth import edit_distance, write_dataset
+    from racon_tpu_torch.utils.synth import edit_distance
     t0 = time.perf_counter()
-    ds = write_dataset(os.path.join(tmp, "main"), seed=7,
-                       n_contigs=n_contigs, contig_len=contig_len,
-                       read_len=read_len, coverage=coverage,
-                       draft_err=0.03, read_err=0.08)
+    ds = main_dataset(tmp, n_contigs, contig_len, read_len, coverage)
     synth_s = time.perf_counter() - t0
     p = ds["paths"]
     n_windows = sum(-(-len(d) // 500) for d in ds["drafts"])
@@ -1490,6 +1585,70 @@ def vote_needs(votes, bb, bbw, alen, scale):
     return int(flat.view(-1, 8).any(1).sum().item()), need
 
 
+def votes_reads(cols, q, qw8, lt, t_off, win, n_win, LA):
+    """What M1's function must read of the walk and the queries on this
+    data: ``(walk_sectors, query_sectors, walk_need, q_need)``. Only real
+    jobs (win < n_win) are read. Job j reads walk entries p of its row for
+    the gaps p of its slice (0 <= p - t_off <= lt, p <= LA) and entries
+    p + 1 for its columns p (0 <= p - t_off < lt): entries t_off ..
+    t_off + lt. Of its query and weight rows it reads the byte of each
+    matching column (the column index of entry p + 1) and, at each gap
+    with an insertion run, the run's bytes clamp(qstart) + k for k <
+    min(ins_len, K_INS) (the last byte past the row's end). ``walk_need``
+    ([B, LA+2]) and ``q_need`` ([B, Lq]) are those masks; the sectors are
+    the 32-byte sectors of the tensors as they lie in memory (the walk's
+    interleaved 8-byte entries, q and qw8 each)."""
+    import torch
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import kernels
+    B, Lq = q.shape
+    dev = q.device
+    real = (win < n_win)[:, None]
+    e = torch.arange(LA + 2, device=dev)[None]
+    c = e - t_off.long()[:, None]
+    L = lt.long()[:, None]
+    gap = real & (c >= 0) & (c <= L) & (e <= LA)     # entry e is gap e
+    col = real & (c >= 1) & (c <= L) & (e >= 1)      # column e - 1
+    walk_need = gap | col
+    ins, qst, op, qi = (cols[n].long() for n in kernels.WALK_FIELDS)
+    qsc = qst.clamp(0, Lq - 1)
+    s0 = (qsc - 1).clamp(min=0)
+    col_idx = s0 + (qi.clamp(0, Lq - 1) - s0 == 1).long()
+    rows = torch.arange(B, device=dev)[:, None].expand(B, LA + 2)
+    q_need = torch.zeros((B, Lq), dtype=torch.bool, device=dev)
+    match = col & (op == dm.DIAG)
+    q_need[rows[match], col_idx[match]] = True
+    for k in range(dm.K_INS):
+        run = gap & (ins > k)
+        q_need[rows[run], (qsc + k).clamp(max=Lq - 1)[run]] = True
+    walk, row = kernels._walk_words(cols, B, LA, dev)
+
+    def sectors(need, ptr, offsets):
+        return int(torch.unique((ptr % 32 + offsets[need]) // 32).numel())
+
+    j = torch.arange(B, device=dev)[:, None]
+    w_sec = sectors(walk_need, walk.data_ptr(),
+                    2 * (j * row + 4 * e))
+    p = torch.arange(Lq, device=dev)[None]
+    q_sec = sum(sectors(q_need, t.data_ptr(), j * t.stride(0) + p)
+                for t in (q, qw8))
+    return w_sec, q_sec, walk_need, q_need
+
+
+def votes_poisoned(cols, q, qw8, walk_need, q_need, i):
+    """The walk's columns and the queries with every entry and byte
+    outside ``walk_need``/``q_need`` overwritten (poison ``i`` of two:
+    other walk fields, other codes and weights)."""
+    import torch
+    from racon_tpu_torch.ops import kernels
+    fill = ((3, 1, 0, 2), (1, 40, 1, 0))[i]
+    pc = {n: cols[n].masked_fill(~walk_need, v)
+          for n, v in zip(kernels.WALK_FIELDS, fill)}
+    pq = torch.where(q_need, q, (q + 3 + i) % 8)
+    pw = torch.where(q_need, qw8, (qw8.int() + 37 + i) % 128).to(qw8.dtype)
+    return pc, pq, pw
+
+
 def phase_merge_kernels(device, paths, scale=0.2):
     """M1 and M2 at the main path's chunk shape (module docstring, phase
     7), bitwise against their plain versions. Returns their records."""
@@ -1512,15 +1671,19 @@ def phase_merge_kernels(device, paths, scale=0.2):
     state = (c["bb"], c["bbw"], c["alen"], c["begin"], c["end"], c["win"],
              c["ovf"])
     wargs = (ref_v[0], ref_v[1]) + state
+    # Both M2 variants, each with and without detect.
     recs_w = []
     for detect in (False, True):
         wkw = dict(ins_scale=scale, n_win=n_win, LA=LA, detect=detect)
         ref_w = dm.merge_windows_plain(*wargs, **wkw)
-        got_w = kernels.merge_windows(*wargs, mem, **wkw)
-        recs_w.append((same_bits(ref_w, got_w), float_err(ref_w, got_w),
-                       int(ref_w[6].sum().item()),
-                       int(ref_w[7].sum().item())))
-        del ref_w, got_w
+        for variant in (None, "wide"):
+            got_w = kernels.merge_windows(*wargs, mem, variant=variant,
+                                          **wkw)
+            recs_w.append((same_bits(ref_w, got_w), float_err(ref_w, got_w),
+                           int(ref_w[6].sum().item()),
+                           int(ref_w[7].sum().item())))
+            del got_w
+        del ref_w
     # The plain chain, eager and warm (medians of 3 in turns): its first
     # call in a process pays one-time costs of its own.
     plain_v_ms, plain_w_ms, plain_wd_ms = time_turns(
@@ -1529,25 +1692,43 @@ def phase_merge_kernels(device, paths, scale=0.2):
             *wargs, ins_scale=scale, n_win=n_win, LA=LA, detect=d)
          for d in (False, True)], reps=3)
     wkw = dict(ins_scale=scale, n_win=n_win, LA=LA, detect=False)
-    m1_ms, m2_ms = time_graph_turns(
+    m1_ms, m2_ms, m2_wide_ms = time_graph_turns(
         [lambda: kernels.merge_votes(*vargs, mem, **kw),
-         lambda: kernels.merge_windows(*wargs, mem, **wkw)],
+         lambda: kernels.merge_windows(*wargs, mem, **wkw),
+         lambda: kernels.merge_windows(*wargs, mem, variant="wide", **wkw)],
         reps=20, calls=10)
     round_ms, = time_turns([lambda: P._merge_round(
         c["cols"], c["esc_w"], lt, t_off, c["q"], c["qw8"], c["w_read"],
         *state, mem, ins_scale=scale, n_win=n_win, LA=LA)], reps=10)
     plain_round_ms = plain_v_ms + plain_w_ms
-    # Bytes each kernel's function must move: M1 reads the walk's four
-    # int16 columns, the queries and weights, four per-lane scalars and
-    # the order, starts and counts (every lane and gap, whatever it
-    # holds), and writes the sums and the escape sums. M2 reads, of the
-    # sums, the sectors its vote-out needs on this data (vote_sectors),
-    # the escape sums, the anchors' codes and weights inside each anchor,
-    # the lengths, spans, window ids, membership and flags, and writes
-    # the next anchors, weights, lengths, spans, coverage and flags.
+    # Bytes each kernel's function must move: M1 reads, of the walk and
+    # the queries, the sectors its real jobs need on this data
+    # (votes_reads), each real job's row in the order and four scalars,
+    # and the starts and counts, and writes the sums and the escape sums.
+    # M2 reads, of the sums, the sectors its vote-out needs on this data
+    # (vote_needs), the escape sums, the anchors' codes and weights inside
+    # each anchor, the lengths, spans, window ids, membership and flags,
+    # and writes the next anchors, weights, lengths, spans, coverage and
+    # flags.
     votes_b = 4 * n_win * dm.VOTE_CH * (LA + 1)
-    m1_bytes = (8 * B * (LA + 2) + 2 * B * Lq + 16 * B + 4 * B + 8 * n_win +
-                votes_b + 4 * n_win)
+    w_sec, q_sec, walk_need, q_need = votes_reads(
+        c["cols"], c["q"], c["qw8"], lt, t_off, c["win"], n_win, LA)
+    jobs = int((c["win"] < n_win).sum().item())
+    m1_bytes = (32 * (w_sec + q_sec) + 20 * jobs + 8 * n_win + votes_b +
+                4 * n_win)
+    # M1's count is whole if what lies outside it changes nothing: the
+    # plain version over a walk and queries poisoned there gives the same
+    # bits.
+    for i in range(2):
+        pc, pq, pw = votes_poisoned(c["cols"], c["q"], c["qw8"], walk_need,
+                                    q_need, i)
+        if not same_bits(ref_v, dm.merge_votes_plain(
+                pc, pq, pw, *vargs[3:], **kw)):
+            fail(f"merge_votes' byte count misses walk entries or query "
+                 f"bytes it reads (poison {i} outside it changes its "
+                 f"output)")
+        del pc, pq, pw
+    del walk_need, q_need
     sectors, need = vote_needs(ref_v[0], c["bb"], c["bbw"], c["alen"],
                                scale)
     # The count is whole if the sums outside it change nothing: the plain
@@ -1569,26 +1750,32 @@ def phase_merge_kernels(device, paths, scale=0.2):
                 4 * n_win * LA + 2 * n_win)
     m1_bound, m1_by = bound(m1_bytes, 0)
     m2_bound, m2_by = bound(m2_bytes, 0)
-    occ = {w: kernels.merge_occupancy(w) for w in ("votes", "windows")}
-    keys = ("regs", "spills", "blocks_per_sm", "threads", "smem")
+    occ_v = kernels.merge_occupancy("votes", LA, n_win=n_win)
+    occ_w = kernels.merge_occupancy("windows", LA, n_win=n_win)
+    occ_wide = kernels.merge_occupancy("windows", LA, "wide", n_win=n_win)
+    keys = ("regs", "spills", "blocks_per_sm", "threads", "smem", "waves")
     shape = [B, Lq, LA, n_win]
     rec_v = dict(shape=shape, max_abs_err=err_v, bitwise=ok_v, ms=m1_ms,
                  plain_ms=plain_v_ms, bound_ms=m1_bound, bound_by=m1_by,
                  library_ms=None, bytes=m1_bytes,
-                 **{k: occ["votes"][k] for k in keys})
+                 walk_bytes_read=32 * w_sec, query_bytes_read=32 * q_sec,
+                 tiles=occ_v["tiles"],
+                 gaps=occ_v["gaps"], **{k: occ_v[k] for k in keys})
     rec_w = dict(shape=shape, max_abs_err=max(r[1] for r in recs_w),
                  bitwise=all(r[0] for r in recs_w), ms=m2_ms,
                  plain_ms=plain_w_ms, plain_detect_ms=plain_wd_ms,
                  bound_ms=m2_bound, bound_by=m2_by, library_ms=None,
                  bytes=m2_bytes, vote_bytes_read=32 * sectors,
-                 vote_bytes=votes_b,
-                 scratch=n_win * kernels.merge_windows_scratch(LA),
-                 **{k: occ["windows"][k] for k in keys})
+                 vote_bytes=votes_b, variant=occ_w["variant"],
+                 wide_ms=m2_wide_ms,
+                 wide=dict(scratch=n_win * kernels.merge_windows_scratch(LA),
+                           **{k: occ_wide[k] for k in keys}),
+                 **{k: occ_w[k] for k in keys})
     emit("merge", windows=plan.n_real_win, jobs=plan.n_jobs,
          band_w=c["band_w"], shape=shape, merge_votes=rec_v,
          merge_windows=rec_w, merge_round_ms=round_ms,
          plain_round_ms=plain_round_ms, ovf_windows=recs_w[0][2],
-         conv_windows=recs_w[1][3])
+         conv_windows=recs_w[2][3])
     if not ok_v:
         fail(f"merge_votes disagrees with its plain version (max_abs_err="
              f"{err_v})")
@@ -1672,7 +1859,8 @@ def main() -> int:
                                  "sector_bound_ms", "bytes_bound_ms",
                                  "C", "regs", "spills", "blocks_per_sm",
                                  "smem_per_block", "shapes", "threads",
-                                 "smem", "bytes") if n in r}})
+                                 "smem", "bytes", "tiles", "gaps", "waves",
+                                 "variant", "wide") if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

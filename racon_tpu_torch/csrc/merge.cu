@@ -16,7 +16,8 @@
 // queries and writes the per-window sums (132 float32 channels a gap);
 // M2 reads those sums and the anchors and writes the next round's state,
 // a few operations a byte. What stands between the kernels and the bound
-// is latency: each job's loads come after the last job's adds.
+// is latency: a job's query bytes come after its walk entries, which come
+// after its row in the window's order.
 //
 // Exactness. Every float32 operation is an explicit round-to-nearest
 // intrinsic (__fadd_rn, __fmul_rn, __fdiv_rn), so that the compiler
@@ -25,37 +26,59 @@
 // the contributions of the window's jobs in job order, as the plain sum
 // does one job at a time. Every contribution is >= 0 and every sum starts
 // at +0.0, so a job whose contribution is zero may be skipped: adding +0.0
-// would not change a bit. Only the nonzero ones are added. The channels
-// whose sums are integers (counts, integer weights) are exact in any order.
+// would not change a bit. Only the nonzero ones are added. Where a sum
+// lives (a register, shared memory, the output) changes no bit either.
 //
-// M1, racon_merge_votes: one block of kTile threads for each (tile of
-// kTile gaps, window), one thread a gap p in [0, LA]. The thread keeps
-// its gap's 132 sums in shared memory (column t of a [132][kTile] array:
-// a warp touches 32 consecutive words whatever channel each thread adds
-// to, so there are no bank conflicts) and walks its window's jobs in job
-// order: the walk's entries at p and p+1 (8 bytes each), then only the
-// query bytes that the job's contributions at p read. The window's
-// membership (stable order, starts, counts) comes in as device tensors;
-// each block loops over its own window's count. Block (0, w) also sums
-// the window's escape flags in job order.
+// M1, racon_merge_votes: one block for each (tile, window), one thread a
+// gap p in [0, LA]. The tiles are even (kernels.merge_votes_plan: at most
+// kTileMax gaps a tile, as many tiles as that takes, the gaps split evenly
+// among them), and the register cap of kVotesBlocks blocks an SM lets the
+// main path's grid (6 tiles x 160 windows) run in one wave on 132 SMs.
+// - The block stages its window's jobs once (their walk and query rows,
+//   slice offset, length, read weight, escape weight: kStage jobs a pass)
+//   in shared memory, so the per-job loop reads them as broadcasts.
+// - The thread keeps the 23 channels that nearly every job touches (the
+//   column's base weights and counts, the crossing weight, the single
+//   insertions and their stop weight) in registers; each data-dependent
+//   channel index becomes an unrolled compare-and-add, so nothing is
+//   indexed at run time. The 109 channels of insertion runs of 2 or more
+//   live in the output (the thread owns its gap's column of it alone): a
+//   channel's first contribution is stored and the next ones added, and
+//   the channels the gap never adds to are zeroed kZeroStep a job, so that
+//   those stores overlap the loop instead of preceding it. The dense
+//   output goes out with streaming stores (evict first), so that it does
+//   not push the walk and the queries out of L2.
+// - A software pipeline keeps the loads of the next jobs in flight: each
+//   thread copies job r+kAhead's walk entries at p and p+1 into its own
+//   slots of a ring in shared memory (cp.async, no barrier), and issues
+//   job r+kByteDepth's query-byte loads into a ring of registers, before
+//   job r's contributions are added. The weight of the column left of gap
+//   p is the previous thread's column weight (a warp shuffle).
+// Block (0, w) also sums the window's escape flags in job order.
 //
-// M2, racon_merge_windows: one block of kWinThreads threads a window. The
-// threads fold in the backbone and vote out each gap (a gap a thread,
-// strided, reading the sums with consecutive threads on consecutive
-// gaps), keeping each gap's emitted length, kept flag, column code and
-// coverage and its insertion codes and counts in the window's slice of a
-// device-memory scratch buffer (about 70 bytes a gap, so that any anchor
-// width runs: the slices stay in L2 at the main path's widths); a block
-// scan of the lengths gives each gap's start and the window's total; a
-// scatter from each gap fills the compacted codes and coverage in place in
-// the outputs (what compact's gather reads: positions >= total hold 0,
-// positions >= LA are dropped); a suffix-min and a prefix-max scan of the
-// kept columns' landing positions give the coordinate maps with
-// coord_maps' fallbacks and clamps; then the threads remap begin/end of
-// the window's jobs through them. The block of the last window also
-// remaps the padded lanes (window id n_win, sorted after every real
-// lane), which read that window's maps as the plain version's clamp does,
-// and carries the dummy anchor row over.
+// M2, racon_merge_windows, in two variants (kernels.merge_windows_plan).
+// The narrow one (LA + 1 <= kWinMaxThreads): one block a window, one
+// thread a gap, the gap's state in registers (emitted length, kept flag,
+// column code and coverage, insertion codes packed 3 bits a rank; the
+// emitted ranks' counts are read from the sums again when scattered;
+// 32-bit offsets. Its registers must stay low enough for at least two
+// blocks of 672 threads an SM, so that the main path's 160 windows at
+// LA = 640 are resident at once: test_merge_occupancy checks it).
+// The threads fold in the backbone and vote out their gaps; a block scan
+// of one value a thread (a warp shuffle scan, then a scan of the warp
+// totals: one barrier) gives each gap's start and the window's total;
+// each thread scatters its run into the compacted codes and coverage (what
+// compact's gather reads: positions >= total hold 0, positions >= LA are
+// dropped); a suffix-min and a prefix-max scan of the kept columns'
+// landing positions give the coordinate maps with coord_maps' fallbacks
+// and clamps, into shared memory (2 x LA ints); then the threads remap
+// begin/end of the window's jobs through them. The wide variant (any LA):
+// 256 threads a window, a gap a thread strided, the per-gap state in the
+// window's slice of a device-memory scratch and block scans over it. In
+// both, the block of the last window also remaps the padded lanes (window
+// id n_win, sorted after every real lane), which read that window's maps
+// as the plain version's clamp does, and carries the dummy anchor row
+// over.
 
 #include <climits>
 #include <cstdint>
@@ -80,18 +103,30 @@ constexpr int kNbase = 5;
 constexpr int kDiag = 0;
 constexpr int kHi = 1 << 30;
 
-constexpr int kTile = 128;        // M1: gaps (threads) a block
-constexpr int kWinThreads = 256;  // M2: threads a block
+constexpr int kTileMax = 128;      // M1: most gaps (threads) a block
+constexpr int kVotesBlocks = 8;    // M1: blocks an SM (its register cap)
+constexpr int kStage = 256;        // M1: jobs staged a pass
+constexpr int kAhead = 6;          // M1: jobs whose walk entries are in flight
+constexpr int kSlots = 8;          // M1: the entries' ring, in jobs (> kAhead)
+constexpr int kByteDepth = 2;      // M1: jobs whose query bytes are in flight
+constexpr int kRunCh = kNch - kPileW;  // M1: channels of runs of 2 or more
+constexpr int kZeroStep = 4;       // M1: run channels zeroed a job
+constexpr int kWinMaxThreads = 1024;        // M2 narrow: most gaps a block
+constexpr int kWinThreads = 256;            // M2 wide: threads a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // ------------------------------------------------------------------ M1
 
-// Weight of query position i of a lane: the 7-bit field the reference
-// packs (qw8 clipped at 127) less one, at least 0; positions past the
+// Weight of a query byte: the 7-bit field the reference packs (qw8
+// clipped at 127) less one, at least 0.
+__device__ __forceinline__ float weight_of(int raw) {
+  return fmaxf(__fadd_rn((float)min(raw, 127), -1.0f), 0.0f);
+}
+
+// Weight and base code of query position i of a lane; positions past the
 // query read its last byte, as the padded words do.
 __device__ __forceinline__ float weight_at(const uint8_t* w, int i, int Lq) {
-  const int raw = min((int)w[min(i, Lq - 1)], 127);
-  return fmaxf(__fadd_rn((float)raw, -1.0f), 0.0f);
+  return weight_of(w[min(i, Lq - 1)]);
 }
 
 __device__ __forceinline__ int base_at(const uint8_t* q, int i, int Lq) {
@@ -107,107 +142,565 @@ __device__ __forceinline__ int column_index(int qstart, int qi, int Lq) {
   return s0 + (qic - s0 == 1 ? 1 : 0);
 }
 
-__device__ __forceinline__ void add_to(float* a, int ch, float v) {
-  a[ch * kTile] = __fadd_rn(a[ch * kTile], v);
+// Field f of a walk entry (ins_len, qstart, op_c, qi_c) held as one
+// 64-bit word.
+__device__ __forceinline__ int field(long long g, int f) {
+  return (int)(short)(g >> (16 * f));
 }
 
-__global__ void __launch_bounds__(kTile) merge_votes_kernel(
+__device__ __forceinline__ void add_out(float* out, int ch, size_t LA1,
+                                        float v) {
+  float* a = out + ch * LA1;
+  *a = __fadd_rn(*a, v);
+}
+
+// An 8-byte asynchronous copy from device to shared memory; where ``on``
+// is false nothing is read and the 8 bytes are zeroed.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool on) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(on ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// The window's staged jobs, the ring of walk entries and thread p's place
+// in its tile. A job's row j, slice offset t_off, length and read weight
+// are read from the stage where they are used (a broadcast).
+struct VotesCtx {
+  const long long* walk;
+  const uint8_t* q;
+  const uint8_t* qw8;
+  const long long* s_wrow;  // a job's first walk entry (row j's offset)
+  const long long* s_qrow;  // a job's first query byte
+  const int* s_off;
+  const int* s_len;
+  long long* ring;  // [kSlots][2][kTileMax]: entries p and p+1 of a job
+  int t, p, pe, pe1, lane, Lq;
+  bool own;
+};
+
+__device__ __forceinline__ long long* ring_at(const VotesCtx& x, int i) {
+  return x.ring + (i & (kSlots - 1)) * 2 * kTileMax + x.t;
+}
+
+// Copy staged job i's walk entries p (where its slice covers gap p, 0 <= c
+// <= L, c = p - t_off) and p+1 (where column p lies in the slice) into
+// thread p's slot of the ring; each thread reads only its own copies, so
+// no barrier is needed.
+__device__ __forceinline__ void fetch_walk(const VotesCtx& x, int i) {
+  const long long* wr = x.walk + x.s_wrow[i];
+  const int c = x.p - x.s_off[i], L = x.s_len[i];
+  long long* dst = ring_at(x, i);
+  cp_async8(dst, wr + x.pe, x.own && c >= 0 && c <= L);
+  cp_async8(dst + kTileMax, wr + x.pe1, x.own && c >= 0 && c < L);
+}
+
+__device__ __forceinline__ int entry_ins(long long g0, int c, int L) {
+  return c >= 0 && c <= L ? field(g0, 0) : 0;
+}
+
+// What one job's contributions at p read of its query, packed in a word:
+// bits 0-2 the column's base and 3-10 its weight byte (where the column
+// consuming anchor position p is a match), 11-13 the first inserted base
+// and 14-21 its weight byte (where an insertion run starts at p), 22-29
+// the weight byte of the column left of p (lane 0 only: the other lanes
+// take that weight from the previous thread), bit 30 the match.
+constexpr int kColW = 3, kInsB = 11, kInsW = 14, kLeftW = 22, kMatch = 30;
+
+// Issue the query-byte loads of staged job i, whose entries are in.
+__device__ __forceinline__ unsigned fetch_bytes(const VotesCtx& x, int i) {
+  const long long* e = ring_at(x, i);
+  const long long g0 = e[0], g1 = e[kTileMax];
+  const long long base = x.s_qrow[i];
+  const int c = x.p - x.s_off[i], L = x.s_len[i];
+  const int ins = entry_ins(g0, c, L);
+  unsigned word = 0;
+  if (x.own && c >= 0 && c < L && field(g1, 2) == kDiag) {
+    const int idx = column_index(field(g1, 1), field(g1, 3), x.Lq);
+    word = (__ldg(x.q + base + idx) & 7u) |
+           (unsigned)__ldg(x.qw8 + base + idx) << kColW | 1u << kMatch;
+  }
+  if (x.own && ins >= 1) {
+    const int qs = min(max(field(g0, 1), 0), x.Lq - 1);
+    word |= (__ldg(x.q + base + qs) & 7u) << kInsB |
+            (unsigned)__ldg(x.qw8 + base + qs) << kInsW;
+  }
+  if (x.lane == 0 && x.own && x.p >= 1 && c >= 1 && c <= L - 1 &&
+      ins == 0 && field(g0, 2) == kDiag)
+    word |= (unsigned)__ldg(x.qw8 + base + column_index(
+                field(g0, 1), field(g0, 3), x.Lq)) << kLeftW;
+  return word;
+}
+
+// The run channels (insertion runs of 2 or more) that a thread has added
+// to: bit ch of tb[ch / 32]. A run channel's first contribution is stored
+// (0 + v is v), the next ones added; one the thread never adds to is
+// zeroed, kZeroStep a job as the jobs go and the rest at the end.
+struct Touched {
+  unsigned tb[4];
+
+  __device__ __forceinline__ bool has(int ch) const {
+    const int q = ch >> 5;
+    const unsigned w = q == 0 ? tb[0] : q == 1 ? tb[1] : q == 2 ? tb[2]
+                                                                : tb[3];
+    return (w >> (ch & 31)) & 1u;
+  }
+
+  __device__ __forceinline__ void add(float* out, size_t LA1, int ch,
+                                      float v) {
+    float* a = out + (kPileW + ch) * LA1;
+    if (has(ch)) {
+      *a = __fadd_rn(*a, v);
+      return;
+    }
+    *a = v;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q == ch >> 5) tb[q] |= 1u << (ch & 31);
+  }
+};
+
+// Thread p's 23 register channels.
+struct RegSums {
+  float bw[kNbase + 1], bc[kNbase], i1w[kNbase], i1c[kNbase];
+  float dw, i1s;
+};
+
+// Add staged job i's contributions at gap p, its query bytes in ``word``.
+// Every lane calls it (the left column's weight is a shuffle).
+__device__ __forceinline__ void add_job(const VotesCtx& x, const float* s_wr,
+                                        int i, unsigned word, int LA,
+                                        float* out, RegSums& r, Touched& tc) {
+  const long long g0 = ring_at(x, i)[0];
+  const int c = x.p - x.s_off[i], L = x.s_len[i];
+  const float wr = s_wr[i];
+  const bool in_cols = c >= 0 && c < L;
+  const int ins = entry_ins(g0, c, L);
+  const bool match = (word >> kMatch) & 1;
+  // The column consuming anchor position p (entry p+1).
+  float wq = wr;
+  int code = kNbase;
+  if (match) {
+    code = word & 7;
+    wq = weight_of((word >> kColW) & 0xff);
+  }
+  // The crossing weight of gap p: the mean of the weights of the columns
+  // on either side (entry p's column, the previous thread's column
+  // weight, or the read mean at p=0).
+  float wq_prev = __shfl_up_sync(kFull, wq, 1);
+  if (x.lane == 0)
+    wq_prev = x.p >= 1 && field(g0, 2) == kDiag
+                  ? weight_of((word >> kLeftW) & 0xff)
+                  : wr;
+  if (!x.own) return;
+  if (x.p < LA && in_cols) {
+#pragma unroll
+    for (int b = 0; b <= kNbase; ++b)
+      if (code == b) r.bw[b] = __fadd_rn(r.bw[b], wq);
+    if (match) {
+#pragma unroll
+      for (int b = 0; b < kNbase; ++b)
+        if (code == b) r.bc[b] = __fadd_rn(r.bc[b], 1.0f);
+    }
+  }
+  if (c >= 1 && c <= L - 1 && ins == 0)
+    r.dw = __fadd_rn(r.dw, __fmul_rn(0.5f, __fadd_rn(wq_prev, wq)));
+  // The insertion run at gap p, from query position qs on.
+  if (ins == 1) {
+    const int b1 = (word >> kInsB) & 7;
+    const float w1 = weight_of((word >> kInsW) & 0xff);
+#pragma unroll
+    for (int b = 0; b < kNbase; ++b)
+      if (b1 == b) {
+        r.i1w[b] = __fadd_rn(r.i1w[b], w1);
+        r.i1c[b] = __fadd_rn(r.i1c[b], 1.0f);
+      }
+    r.i1s = __fadd_rn(r.i1s, w1);
+  } else if (ins >= 2) {
+    const size_t LA1 = (size_t)LA + 1;
+    const int qs = min(max(field(g0, 1), 0), x.Lq - 1);
+    const uint8_t* qj = x.q + x.s_qrow[i];
+    const uint8_t* wj = x.qw8 + x.s_qrow[i];
+    const int mr = min(ins, kKins);
+    float run = 0.0f;
+    for (int k = 0; k < mr; ++k) {
+      const int b = k == 0 ? (int)((word >> kInsB) & 7)
+                           : base_at(qj, qs + k, x.Lq);
+      const float wk = k == 0 ? weight_of((word >> kInsW) & 0xff)
+                              : weight_at(wj, qs + k, x.Lq);
+      if (b < kNbase) {
+        tc.add(out, LA1, kNbase * k + b, wk);
+        tc.add(out, LA1, kPileC - kPileW + kNbase * k + b, 1.0f);
+      }
+      run = __fadd_rn(run, wk);
+    }
+    tc.add(out, LA1, kLenw - kPileW + mr - 2, __fdiv_rn(run, (float)ins));
+  }
+}
+
+__global__ void __launch_bounds__(kTileMax, kVotesBlocks) merge_votes_kernel(
     const int16_t* __restrict__ walk, long long walk_row,
     const uint8_t* __restrict__ q, const uint8_t* __restrict__ qw8,
     const float* __restrict__ w_read, const int32_t* __restrict__ lt,
     const int32_t* __restrict__ t_off, const float* __restrict__ esc_w,
     const int32_t* __restrict__ order, const int32_t* __restrict__ starts,
     const int32_t* __restrict__ counts, float* __restrict__ votes,
-    float* __restrict__ wesc, int Lq, int LA) {
-  extern __shared__ float acc_s[];  // [kNch][kTile]
+    float* __restrict__ wesc, int Lq, int LA, int gaps) {
+  __shared__ long long s_wrow[kStage], s_qrow[kStage];
+  __shared__ int s_off[kStage], s_len[kStage];
+  __shared__ float s_wr[kStage], s_esc[kStage];
+  __shared__ long long s_ring[kSlots * 2 * kTileMax];
   const int t = threadIdx.x;
   const int w = blockIdx.y;
-  const int p = blockIdx.x * kTile + t;
-  float* a = acc_s + t;
-  for (int ch = 0; ch < kNch; ++ch) a[ch * kTile] = 0.0f;
+  VotesCtx x;
+  x.walk = reinterpret_cast<const long long*>(walk);
+  x.q = q;
+  x.qw8 = qw8;
+  x.s_wrow = s_wrow;
+  x.s_qrow = s_qrow;
+  x.s_off = s_off;
+  x.s_len = s_len;
+  x.ring = s_ring;
+  x.t = t;
+  x.p = blockIdx.x * gaps + t;
+  x.pe = min(x.p, LA + 1);
+  x.pe1 = min(x.p + 1, LA + 1);
+  x.lane = t & 31;
+  x.Lq = Lq;
+  x.own = t < gaps && x.p <= LA;  // thread p owns gap p's sums
+  const size_t LA1 = (size_t)LA + 1;
+  float* out = votes + (size_t)w * kNch * LA1 + x.p;
+  RegSums r;
+#pragma unroll
+  for (int i = 0; i <= kNbase; ++i) r.bw[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNbase; ++i) r.bc[i] = r.i1w[i] = r.i1c[i] = 0.0f;
+  r.dw = r.i1s = 0.0f;
+  Touched tc;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) tc.tb[k] = 0u;
+  int zc = 0;  // the next run channel to zero
+  float esc = 0.0f;
   const int n = counts[w];
   const int32_t* ord = order + starts[w];
 
-  if (p <= LA) {
-    for (int r = 0; r < n; ++r) {
-      const int j = ord[r];
-      const int16_t* wr = walk + (size_t)j * walk_row;
-      const short4 g0 = *reinterpret_cast<const short4*>(wr + 4 * p);
-      const short4 g1 = *reinterpret_cast<const short4*>(wr + 4 * (p + 1));
-      const int c = p - t_off[j];
-      const int L = lt[j];
-      const bool in_gaps = c >= 0 && c <= L;
-      const bool in_cols = c >= 0 && c < L;
-      const uint8_t* qj = q + (size_t)j * Lq;
-      const uint8_t* wj = qw8 + (size_t)j * Lq;
-      const float wread = w_read[j];
-      const int ins = in_gaps ? (int)g0.x : 0;
+  for (int r0 = 0; r0 < n; r0 += kStage) {
+    const int m = min(kStage, n - r0);
+    __syncthreads();
+    for (int i = t; i < m; i += blockDim.x) {
+      const int j = ord[r0 + i];
+      s_wrow[i] = (long long)j * (walk_row / 4);
+      s_qrow[i] = (long long)j * Lq;
+      s_off[i] = t_off[j];
+      s_len[i] = lt[j];
+      s_wr[i] = w_read[j];
+      s_esc[i] = esc_w[j];
+    }
+    __syncthreads();
+    if (blockIdx.x == 0 && t == 0)
+      for (int i = 0; i < m; ++i) esc = __fadd_rn(esc, s_esc[i]);
 
-      // The column consuming anchor position p (entry p+1).
-      const bool match = in_cols && g1.z == kDiag;
-      float wq = wread;
-      int code = kNbase;
-      if (match) {
-        const int idx = column_index(g1.y, g1.w, Lq);
-        code = base_at(qj, idx, Lq);
-        wq = weight_at(wj, idx, Lq);
-      }
-      if (p < LA && in_cols) {
-        if (code <= kNbase) add_to(a, kBaseW + code, wq);
-        if (match && code < kNbase) add_to(a, kBaseC + code, 1.0f);
-      }
-      // The crossing weight of gap p: the mean of the weights of the
-      // columns on either side (entry p's column, or the read mean at p=0).
-      if (c >= 1 && c <= L - 1 && ins == 0) {
-        float wq_prev = wread;
-        if (p >= 1 && c - 1 < L && g0.z == kDiag)
-          wq_prev = weight_at(wj, column_index(g0.y, g0.w, Lq), Lq);
-        add_to(a, kDirect, __fmul_rn(0.5f, __fadd_rn(wq_prev, wq)));
-      }
-      // The insertion run at gap p, from query position qs on.
-      if (ins >= 1) {
-        const int qs = min(max((int)g0.y, 0), Lq - 1);
-        if (ins == 1) {
-          const int b = base_at(qj, qs, Lq);
-          const float w1 = weight_at(wj, qs, Lq);
-          if (b < kNbase) {
-            add_to(a, kIns1W + b, w1);
-            add_to(a, kIns1C + b, 1.0f);
+    // Pipeline: job i+kAhead's walk entries and job i+kByteDepth's query
+    // bytes are issued before job i is added. The bytes' words form a
+    // ring of registers that the unrolled loop indexes statically, so no
+    // register move waits on a load.
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (a < m) fetch_walk(x, a);
+      cp_async_commit();
+    }
+    cp_async_wait<kAhead - kByteDepth>();
+    unsigned words[kByteDepth + 1];
+#pragma unroll
+    for (int d = 0; d <= kByteDepth; ++d)
+      words[d] = d < kByteDepth && d < m ? fetch_bytes(x, d) : 0u;
+    for (int i0 = 0; i0 < m; i0 += kByteDepth + 1) {
+#pragma unroll
+      for (int u = 0; u <= kByteDepth; ++u) {
+        const int i = i0 + u;
+        if (i < m) {
+          if (i + kAhead < m) fetch_walk(x, i + kAhead);
+          cp_async_commit();
+          cp_async_wait<kAhead - kByteDepth>();
+          if (i + kByteDepth < m)
+            words[(u + kByteDepth) % (kByteDepth + 1)] =
+                fetch_bytes(x, i + kByteDepth);
+          add_job(x, s_wr, i, words[u], LA, out, r, tc);
+          if (x.own) {
+#pragma unroll
+            for (int z = 0; z < kZeroStep; ++z)
+              if (zc + z < kRunCh && !tc.has(zc + z))
+                __stcs(out + (kPileW + zc + z) * LA1, 0.0f);
           }
-          add_to(a, kIns1Stop, w1);
-        } else {
-          const int m = min(ins, kKins);
-          float run = 0.0f;
-          for (int k = 0; k < m; ++k) {
-            const int b = base_at(qj, qs + k, Lq);
-            const float wk = weight_at(wj, qs + k, Lq);
-            if (b < kNbase) {
-              add_to(a, kPileW + kNbase * k + b, wk);
-              add_to(a, kPileC + kNbase * k + b, 1.0f);
-            }
-            run = __fadd_rn(run, wk);
-          }
-          add_to(a, kLenw + m - 2, __fdiv_rn(run, (float)ins));
+          zc += kZeroStep;
         }
       }
     }
-    float* out = votes + (size_t)w * kNch * (LA + 1) + p;
-    for (int ch = 0; ch < kNch; ++ch)
-      out[(size_t)ch * (LA + 1)] = a[ch * kTile];
+    cp_async_wait<0>();
   }
-  if (blockIdx.x == 0 && t == 0) {
-    float s = 0.0f;
-    for (int r = 0; r < n; ++r) s = __fadd_rn(s, esc_w[ord[r]]);
-    wesc[w] = s;
+  if (x.own) {
+    for (int ch = zc; ch < kRunCh; ++ch)
+      if (!tc.has(ch)) __stcs(out + (kPileW + ch) * LA1, 0.0f);
+#pragma unroll
+    for (int b = 0; b <= kNbase; ++b)
+      __stcs(out + (kBaseW + b) * LA1, r.bw[b]);
+#pragma unroll
+    for (int b = 0; b < kNbase; ++b) {
+      __stcs(out + (kBaseC + b) * LA1, r.bc[b]);
+      __stcs(out + (kIns1W + b) * LA1, r.i1w[b]);
+      __stcs(out + (kIns1C + b) * LA1, r.i1c[b]);
+    }
+    __stcs(out + kDirect * LA1, r.dw);
+    __stcs(out + kIns1Stop * LA1, r.i1s);
   }
+  if (blockIdx.x == 0 && t == 0) wesc[w] = esc;
 }
-
-size_t votes_smem() { return sizeof(float) * kNch * kTile; }
 
 // ------------------------------------------------------------------ M2
 
-// One window's slice of M2's scratch at anchor width LA: int arrays
-// first, then bytes.
+struct OpSum {
+  __device__ int operator()(int a, int b) const { return a + b; }
+};
+struct OpMin {
+  __device__ int operator()(int a, int b) const { return min(a, b); }
+};
+struct OpMax {
+  __device__ int operator()(int a, int b) const { return max(a, b); }
+};
+
+template <bool Reverse, class Op>
+__device__ __forceinline__ int warp_scan(int v, int lane, Op op) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = Reverse ? __shfl_down_sync(kFull, v, off)
+                          : __shfl_up_sync(kFull, v, off);
+    if (Reverse ? lane + off < 32 : lane >= off) v = op(v, u);
+  }
+  return v;
+}
+
+// Inclusive scan of one value a thread over the block, in thread order
+// (``Reverse``: from the last thread, a suffix scan): a warp shuffle scan,
+// the warp totals through ``buf`` (32 ints of shared memory that no other
+// scan of the launch uses) and one barrier, then each warp scans the warp
+// totals itself. Returns the scan at this thread; ``*total`` gets the
+// block's reduction. Every thread of the block calls it.
+template <bool Reverse, class Op>
+__device__ int scan_block(int v, int identity, Op op, int* buf, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_scan<Reverse>(v, lane, op);
+  if (lane == (Reverse ? 0 : 31)) buf[warp] = v;
+  __syncthreads();
+  int x = lane < nwarps ? buf[lane] : identity;
+  x = warp_scan<Reverse>(x, lane, op);
+  const int src = Reverse ? warp + 1 : warp - 1;
+  int before = __shfl_sync(kFull, x, src & 31);
+  if (src < 0 || src >= nwarps) before = identity;
+  *total = __shfl_sync(kFull, x, Reverse ? 0 : nwarps - 1);
+  return op(before, v);
+}
+
+__global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
+    const float* __restrict__ votes, const float* __restrict__ wesc,
+    const uint8_t* __restrict__ bb, const float* __restrict__ bbw,
+    const int32_t* __restrict__ alen, const int32_t* __restrict__ begin,
+    const int32_t* __restrict__ end, const int32_t* __restrict__ win,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ counts, const uint8_t* __restrict__ ovf,
+    uint8_t* __restrict__ new_bb, float* __restrict__ new_bbw,
+    int32_t* __restrict__ new_alen, int32_t* __restrict__ nb,
+    int32_t* __restrict__ ne, int32_t* __restrict__ cov_out,
+    uint8_t* __restrict__ ovf_out, uint8_t* __restrict__ conv, int B,
+    int n_win, int LA, float ins_scale, float eps, int detect) {
+  extern __shared__ int maps[];  // [2][LA]: map_b, then map_e
+  __shared__ int red[3][32];     // warp totals of the three scans
+  const int p = threadIdx.x;
+  const int w = blockIdx.x;
+  const int LA1 = LA + 1;
+  // 32-bit element offsets from the parameters' base pointers (the
+  // wrapper keeps every tensor under 2^31 elements), so that few 64-bit
+  // addresses stay live. vp: gap p's sums, channel 0; ap: the window's
+  // anchor row.
+  const int vp = w * kNch * LA1 + p;
+  const int ap = w * LA;
+  const int al = alen[w];
+
+  // Backbone fold and vote-out of gap p, into registers: e emitted
+  // insertion ranks (codes 3 bits a rank in icode), the kept flag, the
+  // column's code and coverage.
+  int e = 0, best = 0, ccov = 0;
+  unsigned icode = 0;
+  bool kept = false;
+  if (p <= LA) {
+    float dw = votes[vp + kDirect * LA1];
+    if (p <= al) {
+      const float bwl = bbw[ap + min(max(al - 1, 0), LA - 1)];
+      float left = p == 0 ? bbw[ap] : bbw[ap + p - 1];
+      float right = p < LA ? bbw[ap + p] : bwl;
+      if (p == al) left = right = bwl;
+      dw = __fadd_rn(dw, __fadd_rn(__fmul_rn(0.5f, __fadd_rn(left, right)),
+                                   eps));
+    }
+    if (p < LA) {
+      float bw[kNbase + 1];
+#pragma unroll
+      for (int i = 0; i <= kNbase; ++i)
+        bw[i] = votes[vp + (kBaseW + i) * LA1];
+      const bool vcol = p < al;
+      const int code = bb[ap + p];
+      if (vcol && code < kNbase) {
+        const float add = __fadd_rn(bbw[ap + p], eps);
+#pragma unroll
+        for (int i = 0; i < kNbase; ++i)
+          if (code == i) bw[i] = __fadd_rn(bw[i], add);
+      }
+      float top = bw[0];
+#pragma unroll
+      for (int i = 1; i < kNbase; ++i)
+        if (bw[i] > top) {
+          top = bw[i];
+          best = i;
+        }
+      kept = vcol && bw[kNbase] <= top;
+      if (kept) {
+        float c = votes[vp + (kBaseC + best) * LA1];
+        if (code == best) c = __fadd_rn(c, 1.0f);
+        ccov = (int)c;
+      }
+    }
+    // The insertion ranks (rank 0 folds in the single insertions).
+    float stopped = __fmul_rn(dw, ins_scale);
+    bool emit = p <= al;
+#pragma unroll
+    for (int k = 0; k < kKins && emit; ++k) {
+      const int vk = vp + (kPileW + kNbase * k) * LA1;
+      float cw[kNbase];
+#pragma unroll
+      for (int i = 0; i < kNbase; ++i) {
+        cw[i] = votes[vk + i * LA1];
+        if (k == 0) cw[i] = __fadd_rn(cw[i], votes[vp + (kIns1W + i) * LA1]);
+      }
+      float tot = cw[0];
+#pragma unroll
+      for (int i = 1; i < kNbase; ++i) tot = __fadd_rn(tot, cw[i]);
+      emit = tot > stopped;
+      int bk = 0;
+      float top = cw[0];
+#pragma unroll
+      for (int i = 1; i < kNbase; ++i)
+        if (cw[i] > top) {
+          top = cw[i];
+          bk = i;
+        }
+      if (emit) {
+        icode |= (unsigned)bk << (3 * k);
+        ++e;
+        if (k + 1 < kKins)
+          stopped = __fadd_rn(
+              stopped, votes[vp + (k == 0 ? kIns1Stop : kLenw + k - 1) * LA1]);
+      }
+    }
+  }
+
+  // Each gap's start in the compacted row, and the window's total.
+  int total;
+  const int ulen = e + (int)kept;
+  const int st = scan_block<false>(ulen, 0, OpSum(), red[0], &total) - ulen;
+
+  // Compaction: each gap scatters its run; positions past the total hold
+  // 0. Every position below LA is written once, so the detect test
+  // compares it with the anchor as it is written.
+  bool same = true;
+  if (p < LA && p >= total) {
+    new_bb[ap + p] = 0;
+    cov_out[ap + p] = 0;
+    if (detect) same = bb[ap + p] == 0;
+  }
+  for (int k = 0; k < e; ++k) {
+    const int pos = st + k;
+    if (pos < LA) {
+      const int bk = (icode >> (3 * k)) & 7;
+      float c = votes[vp + (kPileC + kNbase * k + bk) * LA1];
+      if (k == 0) c = __fadd_rn(c, votes[vp + (kIns1C + bk) * LA1]);
+      new_bb[ap + pos] = (uint8_t)bk;
+      cov_out[ap + pos] = (int)c;
+      if (detect) same = same && bb[ap + pos] == bk;
+    }
+  }
+  const int pk = st + e;  // the kept column's landing position
+  if (kept && pk < LA) {
+    new_bb[ap + pk] = (uint8_t)best;
+    cov_out[ap + pk] = ccov;
+    if (detect) same = same && bb[ap + pk] == best;
+  }
+
+  // The coordinate maps: suffix-min and prefix-max of the kept columns'
+  // positions, with coord_maps' fallbacks and clamps.
+  int first_kept, last_kept;
+  const int mb = scan_block<true>(kept ? pk : kHi, INT_MAX, OpMin(), red[1],
+                                  &first_kept);
+  const int me = scan_block<false>(kept ? pk : -kHi, INT_MIN, OpMax(),
+                                   red[2], &last_kept);
+  const bool any_kept = first_kept != kHi;
+  const int hi = max(total - 1, 0);
+  if (p < LA) {
+    int b = mb, en = me;
+    if (b == kHi) b = last_kept;
+    if (en == -kHi) en = first_kept;
+    if (!any_kept) b = en = 0;
+    maps[p] = min(max(b, 0), hi);
+    maps[LA + p] = min(max(en, 0), hi);
+    new_bbw[ap + p] = 0.0f;
+  }
+  __syncthreads();
+
+  // Remap the window's jobs; the last window's block also takes the
+  // padded lanes sorted after every real one.
+  const int tot_c = min(max(total, 1), LA);
+  const int n_real = counts[w];
+  const int n_lanes = w == n_win - 1 ? B - starts[w] : n_real;
+  const int32_t* ord = order + starts[w];
+  bool changed = false;
+  for (int r = p; r < n_lanes; r += blockDim.x) {
+    const int j = ord[r];
+    const int L = alen[min(max(win[j], 0), n_win)];
+    const int b = begin[j], en = end[j];
+    const int nbv = b < L ? maps[min(max(b, 0), LA - 1)] : 0;
+    const int nev = en < L ? maps[LA + min(max(en, 0), LA - 1)] : tot_c - 1;
+    nb[j] = nbv;
+    ne[j] = nev;
+    changed = changed || (r < n_real && (nbv != b || nev != en));
+  }
+  const bool unchanged = __syncthreads_and(same && !changed);
+  if (p == 0) {
+    new_alen[w] = tot_c;
+    ovf_out[w] = ovf[w] || total > LA || wesc[w] > 0.0f;
+    conv[w] = detect && total == al && unchanged;
+  }
+  if (w == n_win - 1) {
+    for (int i = p; i < LA; i += blockDim.x) {
+      new_bb[(size_t)n_win * LA + i] = bb[(size_t)n_win * LA + i];
+      new_bbw[(size_t)n_win * LA + i] = 0.0f;
+    }
+    if (p == 0) new_alen[n_win] = alen[n_win];
+  }
+}
+
+size_t windows_smem(int LA) { return 2 * sizeof(int) * (size_t)LA; }
+
+// The wide M2 (any LA). One window's slice of its scratch at anchor
+// width LA: int arrays first, then bytes.
 struct WinScratch {
   int* start;    // [LA+1] emitted length, then its exclusive scan
   int* col_cov;  // [LA]
@@ -250,16 +743,6 @@ __device__ WinScratch carve(uint8_t* base, int LA) {
   s.ins_code = bp;
   return s;
 }
-
-struct OpSum {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-struct OpMin {
-  __device__ int operator()(int a, int b) const { return min(a, b); }
-};
-struct OpMax {
-  __device__ int operator()(int a, int b) const { return max(a, b); }
-};
 
 // Block-wide scan of a[0, n) in place (the block's scratch slice): each thread scans
 // a contiguous run of entries, a warp scan and a scan of the warp totals
@@ -320,7 +803,7 @@ __device__ __forceinline__ int first_max5(const float* v) {
   return best;
 }
 
-__global__ void __launch_bounds__(kWinThreads) merge_windows_kernel(
+__global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
     const float* __restrict__ votes, const float* __restrict__ wesc,
     const uint8_t* __restrict__ bb, const float* __restrict__ bbw,
     const int32_t* __restrict__ alen, const int32_t* __restrict__ begin,
@@ -501,32 +984,34 @@ cudaError_t allow_smem(const void* fn, size_t shm) {
 // least LA+2 entries a lane, 8-byte aligned); q, qw8: u8 [B, Lq]; w_read,
 // esc_w: f32 [B]; lt, t_off: i32 [B]; order: i32 [B] (window order, real
 // lanes first); starts, counts: i32 [n_win]. votes: f32 [n_win, 132,
-// LA+1]; wesc: f32 [n_win].
+// LA+1]; wesc: f32 [n_win]. ``gaps`` a tile (block) of ``threads``
+// threads, a multiple of 32 up to kTileMax with gaps <= threads
+// (kernels.merge_votes_plan).
 extern "C" int racon_merge_votes(const void* walk, long long walk_row,
                                  const void* q, const void* qw8,
                                  const void* w_read, const void* lt,
                                  const void* t_off, const void* esc_w,
                                  const void* order, const void* starts,
                                  const void* counts, void* votes, void* wesc,
-                                 int n_win, int Lq, int LA, void* stream) {
-  if (n_win <= 0 || Lq <= 0 || LA <= 0 || walk_row < 4 * (long long)(LA + 2))
+                                 int n_win, int Lq, int LA, int gaps,
+                                 int threads, void* stream) {
+  if (n_win <= 0 || Lq <= 0 || LA <= 0 || walk_row % 4 != 0 ||
+      walk_row < 4 * (long long)(LA + 2) || threads < 32 ||
+      threads > kTileMax || threads % 32 != 0 || gaps < 1 || gaps > threads)
     return (int)cudaErrorInvalidValue;
-  const size_t shm = votes_smem();
-  cudaError_t e = allow_smem((const void*)merge_votes_kernel, shm);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((LA + 1 + kTile - 1) / kTile, n_win);
-  merge_votes_kernel<<<grid, kTile, shm, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((LA + gaps) / gaps, n_win);
+  merge_votes_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(walk), walk_row,
       static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(qw8),
       static_cast<const float*>(w_read), static_cast<const int32_t*>(lt),
       static_cast<const int32_t*>(t_off), static_cast<const float*>(esc_w),
       static_cast<const int32_t*>(order), static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(counts), static_cast<float*>(votes),
-      static_cast<float*>(wesc), Lq, LA);
+      static_cast<float*>(wesc), Lq, LA, gaps);
   return (int)cudaGetLastError();
 }
 
-// Bytes of M2's scratch a window at anchor width LA.
+// Bytes of the wide M2's scratch a window at anchor width LA.
 extern "C" long long racon_merge_windows_scratch(int LA) {
   return LA > 0 ? (long long)win_bytes(LA) : -1;
 }
@@ -535,49 +1020,73 @@ extern "C" long long racon_merge_windows_scratch(int LA) {
 // [n_win+1]; begin, end, win: i32 [B]; order, starts, counts as M1's; ovf
 // u8 [n_win]. Outputs: new_bb u8 / new_bbw f32 [n_win+1, LA], new_alen
 // i32 [n_win+1], nb, ne i32 [B], cov i32 [n_win, LA], ovf_out, conv u8
-// [n_win]. scratch: n_win * racon_merge_windows_scratch(LA) bytes,
-// 16-byte aligned, read only after this launch writes it.
+// [n_win]. ``wide`` 0: the narrow kernel, ``threads`` a multiple of 32
+// from LA+1 to kWinMaxThreads, scratch unused; 1: the wide kernel,
+// kWinThreads threads, scratch n_win * racon_merge_windows_scratch(LA)
+// bytes, 16-byte aligned, read only after this launch writes it.
 extern "C" int racon_merge_windows(
     const void* votes, const void* wesc, const void* bb, const void* bbw,
     const void* alen, const void* begin, const void* end, const void* win,
     const void* order, const void* starts, const void* counts,
     const void* ovf, void* new_bb, void* new_bbw, void* new_alen, void* nb,
     void* ne, void* cov, void* ovf_out, void* conv, void* scratch, int B,
-    int n_win, int LA, float ins_scale, float eps, int detect,
-    void* stream) {
-  if (B <= 0 || n_win <= 0 || LA <= 0 ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  merge_windows_kernel<<<n_win, kWinThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(votes), static_cast<const float*>(wesc),
-      static_cast<const uint8_t*>(bb), static_cast<const float*>(bbw),
-      static_cast<const int32_t*>(alen), static_cast<const int32_t*>(begin),
-      static_cast<const int32_t*>(end), static_cast<const int32_t*>(win),
-      static_cast<const int32_t*>(order), static_cast<const int32_t*>(starts),
-      static_cast<const int32_t*>(counts), static_cast<const uint8_t*>(ovf),
-      static_cast<uint8_t*>(new_bb), static_cast<float*>(new_bbw),
-      static_cast<int32_t*>(new_alen), static_cast<int32_t*>(nb),
-      static_cast<int32_t*>(ne), static_cast<int32_t*>(cov),
-      static_cast<uint8_t*>(ovf_out), static_cast<uint8_t*>(conv),
-      static_cast<uint8_t*>(scratch), B, n_win, LA, ins_scale, eps, detect);
+    int n_win, int LA, float ins_scale, float eps, int detect, int wide,
+    int threads, void* stream) {
+  if (B <= 0 || n_win <= 0 || LA <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(votes);
+  const float* we = static_cast<const float*>(wesc);
+  const uint8_t* b8 = static_cast<const uint8_t*>(bb);
+  const float* bw = static_cast<const float*>(bbw);
+  const int32_t* al = static_cast<const int32_t*>(alen);
+  const int32_t* be = static_cast<const int32_t*>(begin);
+  const int32_t* en = static_cast<const int32_t*>(end);
+  const int32_t* wi = static_cast<const int32_t*>(win);
+  const int32_t* od = static_cast<const int32_t*>(order);
+  const int32_t* sa = static_cast<const int32_t*>(starts);
+  const int32_t* co = static_cast<const int32_t*>(counts);
+  const uint8_t* ov = static_cast<const uint8_t*>(ovf);
+  if (wide) {
+    if (threads != kWinThreads || scratch == nullptr ||
+        reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    merge_windows_wide_kernel<<<n_win, kWinThreads, 0, st>>>(
+        v, we, b8, bw, al, be, en, wi, od, sa, co, ov,
+        static_cast<uint8_t*>(new_bb), static_cast<float*>(new_bbw),
+        static_cast<int32_t*>(new_alen), static_cast<int32_t*>(nb),
+        static_cast<int32_t*>(ne), static_cast<int32_t*>(cov),
+        static_cast<uint8_t*>(ovf_out), static_cast<uint8_t*>(conv),
+        static_cast<uint8_t*>(scratch), B, n_win, LA, ins_scale, eps, detect);
+  } else {
+    if (threads % 32 != 0 || threads < LA + 1 || threads > kWinMaxThreads)
+      return (int)cudaErrorInvalidValue;
+    merge_windows_kernel<<<n_win, threads, windows_smem(LA), st>>>(
+        v, we, b8, bw, al, be, en, wi, od, sa, co, ov,
+        static_cast<uint8_t*>(new_bb), static_cast<float*>(new_bbw),
+        static_cast<int32_t*>(new_alen), static_cast<int32_t*>(nb),
+        static_cast<int32_t*>(ne), static_cast<int32_t*>(cov),
+        static_cast<uint8_t*>(ovf_out), static_cast<uint8_t*>(conv), B,
+        n_win, LA, ins_scale, eps, detect);
+  }
   return (int)cudaGetLastError();
 }
 
 // out: resident blocks an SM, registers a thread, local-memory bytes a
-// thread, threads a block and shared memory a block of M1 (which = 0) or
-// M2 (which = 1); neither depends on the anchor width.
-extern "C" int racon_merge_occupancy(int which, int* out) {
-  if (which != 0 && which != 1) return (int)cudaErrorInvalidValue;
-  const void* fn = which == 0 ? (const void*)merge_votes_kernel
-                              : (const void*)merge_windows_kernel;
-  const int threads = which == 0 ? kTile : kWinThreads;
-  const size_t shm = which == 0 ? votes_smem() : 0;
-  cudaError_t e = allow_smem(fn, shm);
+// thread, threads a block and shared memory a block of M1 (which = 0),
+// the narrow M2 (1) or the wide M2 (2), launched with ``threads`` threads
+// and ``smem`` bytes of dynamic shared memory.
+extern "C" int racon_merge_occupancy(int which, int threads, int smem,
+                                     int* out) {
+  if (which < 0 || which > 2 || threads < 1 || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = which == 0   ? (const void*)merge_votes_kernel
+                   : which == 1 ? (const void*)merge_windows_kernel
+                                : (const void*)merge_windows_wide_kernel;
+  cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
-                                                    shm);
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes attr;
   e = cudaFuncGetAttributes(&attr, fn);
@@ -586,6 +1095,6 @@ extern "C" int racon_merge_occupancy(int which, int* out) {
   out[1] = attr.numRegs;
   out[2] = (int)attr.localSizeBytes;
   out[3] = threads;
-  out[4] = (int)(shm + attr.sharedSizeBytes);
+  out[4] = (int)(smem + attr.sharedSizeBytes);
   return 0;
 }

@@ -168,15 +168,15 @@ def _lib():
             lib.racon_monotone_count_occupancy.argtypes = [ci] * 2 + [vp]
             lib.racon_merge_votes.restype = ci
             lib.racon_merge_votes.argtypes = ([vp, ctypes.c_longlong] +
-                                              [vp] * 11 + [ci] * 3 + [vp])
+                                              [vp] * 11 + [ci] * 5 + [vp])
             lib.racon_merge_windows.restype = ci
             lib.racon_merge_windows.argtypes = ([vp] * 21 + [ci] * 3 +
                                                 [ctypes.c_float] * 2 +
-                                                [ci, vp])
+                                                [ci] * 3 + [vp])
             lib.racon_merge_windows_scratch.restype = ctypes.c_longlong
             lib.racon_merge_windows_scratch.argtypes = [ci]
             lib.racon_merge_occupancy.restype = ci
-            lib.racon_merge_occupancy.argtypes = [ci, vp]
+            lib.racon_merge_occupancy.argtypes = [ci] * 3 + [vp]
             lib.racon_chase.restype = ci
             lib.racon_chase.argtypes = [vp] + [ci] * 5 + [vp, vp]
             _LIB = lib
@@ -878,6 +878,67 @@ def _members(members, n_win: int, B: int, dev):
     return order, starts, counts
 
 
+# M1's plan (csrc/merge.cu): a block a (tile, window), a thread a gap, at
+# most MERGE_TILE gaps a tile and the gaps split evenly among as few
+# tiles as that takes, so that no tile runs nearly empty; threads a block
+# the tile's gaps rounded up to whole warps. The kernel's register cap
+# (its launch bounds) leaves room for MERGE_VOTES_BLOCKS blocks of
+# MERGE_TILE threads an SM: the main path's grid (6 tiles x 160 windows)
+# fits 132 SMs in one wave. MERGE_WIN_THREADS mirrors the narrow M2's
+# kWinMaxThreads (a gap a thread up to LA + 1 = 1024), MERGE_WIDE_THREADS
+# the wide M2's kWinThreads.
+MERGE_TILE = 128
+MERGE_VOTES_BLOCKS = 8
+MERGE_WIN_THREADS = 1024
+MERGE_WIDE_THREADS = 256
+
+
+def merge_votes_plan(LA: int) -> dict:
+    """M1's launch at anchor width LA: ``tiles`` a window, ``gaps`` a
+    tile and ``threads`` a block."""
+    LA = int(LA)
+    if LA < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_votes needs LA "
+                          f"of at least 1, got {LA}")
+    tiles = -(-(LA + 1) // MERGE_TILE)
+    gaps = -(-(LA + 1) // tiles)
+    return {"tiles": tiles, "gaps": gaps, "threads": -(-gaps // 32) * 32}
+
+
+def grid_waves(blocks: int, blocks_per_sm: int, sms: int) -> int:
+    """Waves a grid of ``blocks`` takes on ``sms`` SMs that each hold
+    ``blocks_per_sm`` of its blocks at once."""
+    return -(-int(blocks) // (int(blocks_per_sm) * int(sms)))
+
+
+def merge_windows_plan(LA: int, variant: str | None = None) -> dict:
+    """M2's launch at anchor width LA: ``variant`` "narrow" (the default
+    while LA + 1 <= MERGE_WIN_THREADS: a gap a thread, its state in
+    registers, the maps in ``smem`` bytes of shared memory) or "wide"
+    (past it: MERGE_WIDE_THREADS threads, the state in
+    merge_windows_scratch(LA) bytes of device memory a window);
+    ``threads`` a block. A variant may be asked for by name (to time one
+    against the other); a width the variant cannot take raises
+    KernelError."""
+    LA = int(LA)
+    if LA < 1:
+        raise KernelError(f"[racon_tpu_torch::kernels] merge_windows needs "
+                          f"LA of at least 1, got {LA}")
+    if variant is None:
+        variant = "narrow" if LA + 1 <= MERGE_WIN_THREADS else "wide"
+    if variant == "narrow":
+        if LA + 1 > MERGE_WIN_THREADS:
+            raise KernelError(f"[racon_tpu_torch::kernels] the narrow "
+                              f"merge_windows kernel takes LA + 1 <= "
+                              f"{MERGE_WIN_THREADS}, got LA={LA}")
+        return {"variant": "narrow", "threads": -(-(LA + 1) // 32) * 32,
+                "smem": 8 * LA}
+    if variant == "wide":
+        return {"variant": "wide", "threads": MERGE_WIDE_THREADS, "smem": 0}
+    raise KernelError(f"[racon_tpu_torch::kernels] unknown merge_windows "
+                      f"variant {variant!r}")
+
+
 def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
                 n_win: int, LA: int):
     """M1: the vote extraction fused with the per-window sums of one
@@ -889,10 +950,13 @@ def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
     does not read it). Query codes must be below 8 (the reference packs
     them as 3-bit fields).
 
-    On the card, csrc/merge.cu ``racon_merge_votes``: one block a (tile of
-    128 gaps, window), a thread a gap, adding its jobs' nonzero
-    contributions in job order, bitwise the plain sums. Bound: the walk's
-    columns and the queries read, the sums written (bytes bound)."""
+    On the card, csrc/merge.cu ``racon_merge_votes`` at
+    :func:`merge_votes_plan`'s tiles: a thread a gap adding its window's
+    jobs' contributions in job order, the jobs staged in shared
+    memory, the next jobs' loads in flight, 23 channels summed in
+    registers and the insertion runs' 109 in the output; bitwise the plain
+    sums. Bound: the walk's columns and the queries read, the sums written
+    (bytes bound)."""
     if q.device.type == "cpu":
         return merge_votes_plain(cols, q, qw8, w_read, lt, t_off, esc_w, win,
                                  n_win=n_win, LA=LA)
@@ -913,6 +977,7 @@ def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
         _check(t, name, dt, (B,), dev)
     walk, row = _walk_words(cols, B, LA, dev)
     order, starts, counts = _members(members, n_win, B, dev)
+    plan = merge_votes_plan(LA)
     votes = torch.empty((n_win, VOTE_CH, LA + 1), dtype=torch.float32,
                         device=dev)
     wesc = torch.empty((n_win,), dtype=torch.float32, device=dev)
@@ -920,35 +985,54 @@ def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
         walk.data_ptr(), row, q.data_ptr(), qw8.data_ptr(), w_read.data_ptr(),
         lt.data_ptr(), t_off.data_ptr(), esc_w.data_ptr(), order.data_ptr(),
         starts.data_ptr(), counts.data_ptr(), votes.data_ptr(),
-        wesc.data_ptr(), n_win, Lq, LA, _stream(dev))
+        wesc.data_ptr(), n_win, Lq, LA, plan["gaps"], plan["threads"],
+        _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] merge_votes launch "
-                          f"failed (cudaError {rc})")
+                          f"failed (cudaError {rc}, plan {plan})")
     LAUNCHES["merge_votes"] += 1
     return votes, wesc
 
 
-def merge_occupancy(which: str) -> dict:
-    """What M1 (``which`` "votes") or M2 ("windows") gets on the current
-    card, at any anchor width: ``blocks_per_sm``, ``regs`` a thread,
+def merge_occupancy(which: str, LA: int, variant: str | None = None,
+                    n_win: int | None = None) -> dict:
+    """What M1 (``which`` "votes") or M2 ("windows", in ``variant`` or
+    the one :func:`merge_windows_plan` picks) gets on the current card at
+    anchor width LA: the plan with ``blocks_per_sm``, ``regs`` a thread,
     ``spills`` (local-memory bytes a thread), ``threads`` and ``smem`` a
-    block. Raises KernelError when the query fails or no block fits."""
-    if which not in ("votes", "windows"):
+    block; given ``n_win``, the grid's ``blocks`` and its ``waves`` on the
+    card's SMs at that occupancy (:func:`grid_waves`). Raises KernelError
+    when the query fails or no block fits."""
+    if which == "votes":
+        plan = merge_votes_plan(LA)
+        code, smem = 0, 0
+    elif which == "windows":
+        plan = merge_windows_plan(LA, variant)
+        code, smem = (1 if plan["variant"] == "narrow" else 2), plan["smem"]
+    else:
         raise KernelError(f"[racon_tpu_torch::kernels] unknown merge kernel "
                           f"{which!r}")
     out = (ctypes.c_int * 5)()
-    rc = _lib().racon_merge_occupancy(int(which == "windows"), out)
+    rc = _lib().racon_merge_occupancy(code, plan["threads"], smem, out)
     if rc != 0 or out[0] < 1:
         raise KernelError(f"[racon_tpu_torch::kernels] occupancy query of "
-                          f"merge_{which} failed (cudaError {rc}, {out[0]} "
-                          f"blocks an SM)")
-    return {"blocks_per_sm": out[0], "regs": out[1], "spills": out[2],
-            "threads": out[3], "smem": out[4]}
+                          f"merge_{which} ({plan}) failed (cudaError {rc}, "
+                          f"{out[0]} blocks an SM)")
+    occ = {**plan, "blocks_per_sm": out[0], "regs": out[1],
+           "spills": out[2], "threads": out[3], "smem": out[4]}
+    if n_win is not None:
+        occ["blocks"] = plan.get("tiles", 1) * int(n_win)
+        occ["waves"] = grid_waves(occ["blocks"], out[0],
+                                  torch.cuda.get_device_properties(
+                                      torch.cuda.current_device())
+                                  .multi_processor_count)
+    return occ
 
 
 def merge_windows_scratch(LA: int) -> int:
-    """Bytes of M2's device-memory scratch a window at anchor width LA
-    (its per-gap state, about 70 bytes a gap)."""
+    """Bytes of the wide M2's device-memory scratch a window at anchor
+    width LA (its per-gap state, about 70 bytes a gap), as the kernel
+    library computes it."""
     n = _lib().racon_merge_windows_scratch(int(LA))
     if n < 0:
         raise KernelError(f"[racon_tpu_torch::kernels] merge_windows needs "
@@ -958,7 +1042,7 @@ def merge_windows_scratch(LA: int) -> int:
 
 def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
                   *, ins_scale: float, n_win: int, LA: int,
-                  detect: bool = False):
+                  detect: bool = False, variant: str | None = None):
     """M2: the per-window vote-out of one round and the next round's state
     (device_merge.merge_windows_plain's contract): ``(new_bb u8 [n_win+1,
     LA], new_bbw f32 [n_win+1, LA], new_alen i32 [n_win+1], new_begin,
@@ -968,12 +1052,18 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
     spans begin, end and the window ids win i32 [B] (in [0, n_win]) and
     the sticky flags ovf bool [n_win]; ``members`` as merge_votes'.
 
-    On the card, csrc/merge.cu ``racon_merge_windows``: one block a
-    window, no host sync, a window's per-gap state in a device-memory
-    scratch of merge_windows_scratch(LA) bytes a window, so any anchor
-    width runs. Bound: the sums and anchors read, the state written (bytes
-    bound)."""
+    On the card, csrc/merge.cu ``racon_merge_windows``, one block a
+    window, no host sync, in the variant :func:`merge_windows_plan` picks
+    or in ``variant`` where one is named (not taken on the CPU): the
+    narrow kernel (a gap a thread, its state in registers, LA + 1 <=
+    1024) or the wide one (any LA: the state in a device-memory scratch
+    of merge_windows_scratch(LA) bytes a window). Both count their
+    launches under "merge_windows". Bound: the sums and anchors read, the
+    state written (bytes bound)."""
     if votes.device.type == "cpu":
+        if variant is not None:
+            raise KernelError("[racon_tpu_torch::kernels] merge_windows "
+                              "variants are the card's")
         return merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end,
                                    win, ovf, ins_scale=ins_scale, n_win=n_win,
                                    LA=LA, detect=detect)
@@ -994,8 +1084,14 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         _check(t, name, torch.int32, (B,), dev)
     _check(ovf, "ovf", torch.bool, (n_win,), dev)
     order, starts, counts = _members(members, n_win, B, dev)
+    plan = merge_windows_plan(LA, variant)
+    wide = plan["variant"] == "wide"
+    if not wide and votes.numel() >= 2 ** 31:
+        raise KernelError(f"[racon_tpu_torch::kernels] the narrow "
+                          f"merge_windows kernel takes sums of fewer than "
+                          f"2^31 elements, got {votes.numel()}")
     scratch = torch.empty((n_win, merge_windows_scratch(LA)),
-                          dtype=torch.uint8, device=dev)
+                          dtype=torch.uint8, device=dev) if wide else None
     new_bb = torch.empty_like(bb)
     new_bbw = torch.empty_like(bbw)
     new_alen = torch.empty_like(alen)
@@ -1010,11 +1106,12 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         order.data_ptr(), starts.data_ptr(), counts.data_ptr(),
         ovf.data_ptr(), new_bb.data_ptr(), new_bbw.data_ptr(),
         new_alen.data_ptr(), nb.data_ptr(), ne.data_ptr(), cov.data_ptr(),
-        ovf_out.data_ptr(), conv.data_ptr(), scratch.data_ptr(), B, n_win,
-        LA, float(ins_scale), EPS, int(bool(detect)), _stream(dev))
+        ovf_out.data_ptr(), conv.data_ptr(),
+        scratch.data_ptr() if wide else None, B, n_win, LA, float(ins_scale),
+        EPS, int(bool(detect)), int(wide), plan["threads"], _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] merge_windows launch "
-                          f"failed (cudaError {rc})")
+                          f"failed (cudaError {rc}, plan {plan})")
     LAUNCHES["merge_windows"] += 1
     return new_bb, new_bbw, new_alen, nb, ne, cov, ovf_out, conv
 

@@ -270,6 +270,353 @@ def model_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
             ovf_out, conv)
 
 
+# ------------------------------------------- the redesigned kernels' orders
+
+def _field(g, f):
+    return g[..., f].astype(np.int64)
+
+
+def _warp_up(x, fill):
+    """Each thread's value from the thread before it in its warp (lane 0
+    gets ``fill``)."""
+    y = np.empty_like(x)
+    w = x.reshape(x.shape[:-1] + (-1, 32))
+    yw = y.reshape(w.shape)
+    yw[..., 1:] = w[..., :-1]
+    yw[..., 0] = fill.reshape(w.shape[:-1] + (32,))[..., 0] \
+        if np.ndim(fill) else fill
+    return y
+
+
+RUN_CH = VOTE_CH - CH["pile_w"]      # channels of runs of 2 or more
+ZERO_STEP = 4                        # run channels zeroed a job
+
+
+def model_votes_tiled(walk, q, qw8, w_read, lt, t_off, esc_w, win, n_win,
+                      LA, plan, stage=256):
+    """M1 in the redesigned kernel's order (csrc/merge.cu,
+    merge_votes_kernel) at ``plan`` (kernels.merge_votes_plan): each
+    window's (tile, thread) grid at once, p = tile * gaps + thread; the
+    window's jobs staged ``stage`` at a time; per job, thread p loads its
+    walk entries p and p+1 where the job's slice needs them (zero where
+    it loads nothing) and the query bytes its contributions read, and
+    takes the left column's weight from the previous thread of its warp
+    (lane 0 reads its own). The 23 register channels add every
+    contribution (zeros too). A run channel's first contribution at a gap
+    is stored and the next ones added; after each job the thread zeroes
+    the next ZERO_STEP run channels it has not added to, and at the end
+    the rest. Returns (votes, wesc) as model_votes does."""
+    real, _ = members(win, n_win)
+    Lq = q.shape[1]
+    tiles, gaps, T = plan["tiles"], plan["gaps"], plan["threads"]
+    t = np.arange(T)[None, :]
+    p = (np.arange(tiles)[:, None] * gaps + t).reshape(-1)
+    t = np.broadcast_to(t, (tiles, T)).reshape(-1)
+    lane = t & 31
+    own = (t < gaps) & (p <= LA)
+    pe = np.minimum(p, LA + 1)
+    pn = np.minimum(p + 1, LA + 1)
+    reg_base = CH["pile_w"]
+    votes = np.zeros((n_win, VOTE_CH, LA + 1), F32)
+    wesc = np.zeros(n_win, F32)
+
+    def wt(raw):
+        return np.maximum(np.minimum(raw, 127).astype(F32) - F32(1.0),
+                          F32(0.0)).astype(F32)
+
+    for w, jobs in enumerate(real):
+        reg = np.zeros((reg_base, p.size), F32)
+        out = np.full((VOTE_CH, LA + 2 + T * tiles), np.nan, F32)
+        touched = np.zeros((RUN_CH, p.size), bool)
+
+        def run_add(ch, i, v):
+            col = p[i]
+            if touched[ch, i]:
+                out[reg_base + ch, col] = F32(out[reg_base + ch, col] + v)
+            else:
+                out[reg_base + ch, col] = v
+                touched[ch, i] = True
+
+        zc = 0
+        esc = F32(0.0)
+        for r0 in range(0, len(jobs), stage):
+            staged = jobs[r0:r0 + stage]
+            for j in staged:
+                esc = F32(esc + F32(esc_w[j]))
+            for j in staged:
+                c = p - int(t_off[j])
+                L = int(lt[j])
+                wr = F32(w_read[j])
+                in_gaps = (c >= 0) & (c <= L)
+                in_cols = (c >= 0) & (c < L)
+                g0 = np.where((own & in_gaps)[:, None], walk[j][pe], 0)
+                g1 = np.where((own & in_cols)[:, None], walk[j][pn], 0)
+                ins = np.where(in_gaps, _field(g0, 0), 0)
+                match = own & in_cols & (_field(g1, 2) == 0)
+                idx = _column_index(_field(g1, 1), _field(g1, 3), Lq)
+                cb = np.where(match, q[j][idx], 0).astype(np.int64)
+                cw = np.where(match, qw8[j][idx], 0).astype(np.int64)
+                qs = np.clip(_field(g0, 1), 0, Lq - 1)
+                ib = np.where(own & (ins >= 1), q[j][qs], 0).astype(np.int64)
+                iw = np.where(own & (ins >= 1), qw8[j][qs], 0).astype(
+                    np.int64)
+                lane0 = (lane == 0) & own & (p >= 1) & (c >= 1) & \
+                    (c <= L - 1) & (ins == 0) & (_field(g0, 2) == 0)
+                idx0 = _column_index(_field(g0, 1), _field(g0, 3), Lq)
+                pw = np.where(lane0, qw8[j][idx0], 0).astype(np.int64)
+                wq = np.where(match, wt(cw), wr).astype(F32)
+                code = np.where(match, cb & 7, NBASE)
+                own0 = (p >= 1) & (_field(g0, 2) == 0)
+                wq_prev = _warp_up(wq, np.where(own0, wt(pw), wr).astype(F32))
+                col = own & (p < LA) & in_cols
+                for b in range(NBASE + 1):
+                    m = col & (code == b)
+                    reg[CH["base_w"] + b, m] = reg[CH["base_w"] + b, m] + wq[m]
+                    if b < NBASE:
+                        m = m & match
+                        reg[CH["base_c"] + b, m] += F32(1.0)
+                cross = own & (c >= 1) & (c <= L - 1) & (ins == 0)
+                half = (F32(0.5) * (wq_prev + wq).astype(F32)).astype(F32)
+                reg[CH["direct_w"], cross] += half[cross]
+                one = own & (ins == 1)
+                b1 = ib & 7
+                w1 = wt(iw)
+                for b in range(NBASE):
+                    m = one & (b1 == b)
+                    reg[CH["ins1_w"] + b, m] += w1[m]
+                    reg[CH["ins1_c"] + b, m] += F32(1.0)
+                reg[CH["ins1_stop"], one] += w1[one]
+                for i in np.flatnonzero(own & (ins >= 2)):
+                    mr = min(int(ins[i]), K_INS)
+                    run = F32(0.0)
+                    for k in range(mr):
+                        b = int(_base(q[j], qs[i] + k, Lq))
+                        wk = F32(_weight(qw8[j], qs[i] + k, Lq))
+                        if b < NBASE:
+                            run_add(NBASE * k + b, i, wk)
+                            run_add(CH["pile_c"] - reg_base + NBASE * k + b,
+                                    i, F32(1.0))
+                        run = F32(run + wk)
+                    run_add(CH["lenw"] - reg_base + mr - 2, i,
+                            F32(run / F32(int(ins[i]))))
+                for ch in range(zc, min(zc + ZERO_STEP, RUN_CH)):
+                    m = own & ~touched[ch]
+                    out[reg_base + ch, p[m]] = 0.0
+                zc += ZERO_STEP
+        for ch in range(zc, RUN_CH):
+            m = own & ~touched[ch]
+            out[reg_base + ch, p[m]] = 0.0
+        out[:reg_base, p[own]] = reg[:, own]
+        votes[w] = out[:, :LA + 1]
+        wesc[w] = esc
+    return votes, wesc
+
+
+def model_votes_reads(walk, lt, t_off, win, n_win, Lq, LA):
+    """What M1 reads of the walk and the queries (csrc/merge.cu
+    fetch_walk, fetch_bytes, add_job), job by job: ``(walk_need bool [B,
+    LA+2], q_need bool [B, Lq])``. Real job j, at each gap p <= LA with c
+    = p - t_off: entry p where 0 <= c <= lt, entry p + 1 where 0 <= c <
+    lt; the byte at the column index of entry p + 1 where that column is
+    a match; the bytes of the insertion run of entry p (clamped qstart
+    + k, k < min(ins_len, K_INS), the last byte past the row's end).
+    Padded lanes read nothing."""
+    B = walk.shape[0]
+    walk_need = np.zeros((B, LA + 2), bool)
+    q_need = np.zeros((B, Lq), bool)
+    p = np.arange(LA + 1)
+    for jobs in members(win, n_win)[0]:
+        for j in jobs:
+            c = p - int(t_off[j])
+            gap = (c >= 0) & (c <= lt[j])
+            col = (c >= 0) & (c < lt[j])
+            walk_need[j, p[gap]] = True
+            walk_need[j, p[col] + 1] = True
+            g1 = walk[j, p[col] + 1].astype(np.int64)
+            m = g1[:, 2] == 0
+            q_need[j, _column_index(g1[m, 1], g1[m, 3], Lq)] = True
+            g0 = walk[j, p[gap]].astype(np.int64)
+            qsc = np.clip(g0[:, 1], 0, Lq - 1)
+            for k in range(K_INS):
+                run = g0[:, 0] > k
+                q_need[j, np.minimum(qsc[run] + k, Lq - 1)] = True
+    return walk_need, q_need
+
+
+def _scan(v, identity, op, reverse):
+    """merge_windows_kernel's scan_block over one block's values (a
+    multiple of 32): Hillis-Steele shuffle scans within each warp, then
+    every warp scans the warp totals. Returns (inclusive scan, total)."""
+    def warp_scan(x):
+        x = x.copy()
+        lane = np.arange(32)
+        off = 1
+        while off < 32:
+            if reverse:
+                u = np.concatenate([x[..., off:], x[..., :off]], -1)
+                ok = lane + off < 32
+            else:
+                u = np.concatenate([x[..., -off:], x[..., :-off]], -1)
+                ok = lane >= off
+            x = np.where(ok, op(x, u), x)
+            off *= 2
+        return x
+
+    nw = v.size // 32
+    incl = warp_scan(v.reshape(nw, 32))
+    tot = incl[:, 0] if reverse else incl[:, 31]
+    x = np.full(32, identity, np.int64)
+    x[:nw] = tot
+    x = warp_scan(x)
+    src = np.arange(nw) + (1 if reverse else -1)
+    before = np.where((src >= 0) & (src < nw), x[src % 32], identity)
+    return op(before[:, None], incl).reshape(-1), int(x[0 if reverse else
+                                                         nw - 1])
+
+
+def model_windows_narrow(votes, wesc, bb, bbw, alen, begin, end, win, ovf,
+                         *, ins_scale, n_win, LA, detect, threads):
+    """M2's narrow kernel in its own order (csrc/merge.cu,
+    merge_windows_kernel): a thread a gap with its state in registers
+    (emitted ranks' codes packed 3 bits a rank, their counts read from the
+    sums again when scattered), the start and map scans one value a
+    thread (``_scan``), the scatter writing each position below LA once
+    and comparing it with the anchor as it writes, the maps in a shared
+    array. Returns M2's outputs as model_windows does."""
+    real, pad = members(win, n_win)
+    B = len(begin)
+    eps, scale = F32(EPS), F32(ins_scale)
+    new_bb = np.zeros((n_win + 1, LA), np.uint8)
+    new_bb[n_win] = bb[n_win]
+    new_alen = np.zeros(n_win + 1, np.int32)
+    new_alen[n_win] = alen[n_win]
+    nb = np.zeros(B, np.int32)
+    ne = np.zeros(B, np.int32)
+    cov = np.zeros((n_win, LA), np.int32)
+    ovf_out = np.zeros(n_win, bool)
+    conv = np.zeros(n_win, bool)
+    p = np.arange(threads)
+    for w in range(n_win):
+        V = votes[w]
+        al = int(alen[w])
+        bbr, bwr = bb[w], bbw[w]
+        e = np.zeros(threads, np.int64)
+        kept = np.zeros(threads, bool)
+        best = np.zeros(threads, np.int64)
+        ccov = np.zeros(threads, np.int64)
+        icode = np.zeros(threads, np.int64)
+        for g in range(min(LA + 1, threads)):
+            v = V[:, g]
+            dw = v[CH["direct_w"]]
+            if g <= al:
+                bwl = bwr[min(max(al - 1, 0), LA - 1)]
+                left = bwr[0] if g == 0 else bwr[g - 1]
+                right = bwr[g] if g < LA else bwl
+                if g == al:
+                    left = right = bwl
+                dw = F32(dw + F32(F32(F32(0.5) * F32(left + right)) + eps))
+            if g < LA:
+                bw = [v[CH["base_w"] + i] for i in range(NBASE + 1)]
+                vcol = g < al
+                code = int(bbr[g])
+                if vcol and code < NBASE:
+                    add = F32(bwr[g] + eps)
+                    bw[code] = F32(bw[code] + add)
+                top, bi = bw[0], 0
+                for i in range(1, NBASE):
+                    if bw[i] > top:
+                        top, bi = bw[i], i
+                best[g] = bi
+                kept[g] = vcol and bw[NBASE] <= top
+                if kept[g]:
+                    cc = v[CH["base_c"] + bi]
+                    if code == bi:
+                        cc = F32(cc + F32(1.0))
+                    ccov[g] = int(cc)
+            stopped = F32(dw * scale)
+            emit = g <= al
+            for k in range(K_INS):
+                if not emit:
+                    break
+                cw = [v[CH["pile_w"] + NBASE * k + i] for i in range(NBASE)]
+                if k == 0:
+                    cw = [F32(cw[i] + v[CH["ins1_w"] + i])
+                          for i in range(NBASE)]
+                tot = cw[0]
+                for i in range(1, NBASE):
+                    tot = F32(tot + cw[i])
+                emit = tot > stopped
+                top, bk = cw[0], 0
+                for i in range(1, NBASE):
+                    if cw[i] > top:
+                        top, bk = cw[i], i
+                if emit:
+                    icode[g] |= bk << (3 * k)
+                    e[g] += 1
+                    if k + 1 < K_INS:
+                        ch = CH["ins1_stop"] if k == 0 else \
+                            CH["lenw"] + k - 1
+                        stopped = F32(stopped + v[ch])
+        ulen = e + kept
+        incl, total = _scan(ulen, 0, np.add, False)
+        st = incl - ulen
+        codes = np.full(LA, 255, np.int64)
+        cv = np.full(LA, -1, np.int64)
+        same = True
+        for g in range(threads):
+            if g < LA and g >= total:
+                assert codes[g] == 255          # each position written once
+                codes[g], cv[g] = 0, 0
+                same = same and bbr[g] == 0
+            for k in range(int(e[g])):
+                pos = int(st[g]) + k
+                if pos < LA:
+                    bk = (int(icode[g]) >> (3 * k)) & 7
+                    c = V[CH["pile_c"] + NBASE * k + bk, g]
+                    if k == 0:
+                        c = F32(c + V[CH["ins1_c"] + bk, g])
+                    assert codes[pos] == 255
+                    codes[pos], cv[pos] = bk, int(c)
+                    same = same and bbr[pos] == bk
+            pk = int(st[g] + e[g])
+            if kept[g] and pk < LA:
+                assert codes[pk] == 255
+                codes[pk], cv[pk] = best[g], ccov[g]
+                same = same and bbr[pk] == best[g]
+        assert (codes != 255).all()
+        pk = st + e
+        mb, first_kept = _scan(np.where(kept, pk, HI), np.iinfo(np.int32).max,
+                               np.minimum, True)
+        me, last_kept = _scan(np.where(kept, pk, -HI),
+                              np.iinfo(np.int32).min, np.maximum, False)
+        any_kept = first_kept != HI
+        hi = max(total - 1, 0)
+        mb, me = mb[:LA].copy(), me[:LA].copy()
+        mb[mb == HI] = last_kept
+        me[me == -HI] = first_kept
+        if not any_kept:
+            mb[:] = 0
+            me[:] = 0
+        map_b, map_e = np.clip(mb, 0, hi), np.clip(me, 0, hi)
+        tot_c = min(max(total, 1), LA)
+        lanes = list(real[w]) + (list(pad) if w == n_win - 1 else [])
+        changed = False
+        for r, j in enumerate(lanes):
+            L = int(alen[min(max(int(win[j]), 0), n_win)])
+            b, en = int(begin[j]), int(end[j])
+            nb[j] = map_b[min(max(b, 0), LA - 1)] if b < L else 0
+            ne[j] = map_e[min(max(en, 0), LA - 1)] if en < L else tot_c - 1
+            changed = changed or (r < len(real[w]) and
+                                  (nb[j] != b or ne[j] != en))
+        new_bb[w] = codes
+        cov[w] = cv
+        new_alen[w] = tot_c
+        ovf_out[w] = bool(ovf[w]) or total > LA or wesc[w] > 0
+        conv[w] = bool(detect) and total == al and same and not changed
+    return (new_bb, np.zeros(bbw.shape, F32), new_alen, nb, ne, cov,
+            ovf_out, conv)
+
+
 # ------------------------------------------------------------ inputs
 
 def _noisy(rng, true, rate=0.10):

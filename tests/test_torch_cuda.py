@@ -1089,18 +1089,95 @@ def test_device_chunk_merges_once_a_round(cuda):
         assert (gv is None and rv is None) or np.array_equal(gv, rv)
 
 
-@pytest.mark.parametrize("LA", [384, 768, 1152])
-def test_merge_occupancy(cuda, LA):
-    """M1's shared memory is its tile's sums; M2's holds only its scan
-    scratch, its per-gap state (about 70 bytes a gap) lying in the
-    device-memory scratch."""
-    votes = kernels.merge_occupancy("votes")
-    assert votes["smem"] == 4 * 132 * 128 and votes["blocks_per_sm"] >= 3
-    windows = kernels.merge_occupancy("windows")
-    assert windows["blocks_per_sm"] >= 1 and windows["threads"] == 256
-    assert windows["smem"] < 1024
-    assert 60 * LA < kernels.merge_windows_scratch(LA) < 80 * LA
-    assert kernels.merge_windows_scratch(LA) % 16 == 0
+def test_merge_occupancy(cuda):
+    """M1 keeps no sums in shared memory (only its staged jobs and its
+    ring of walk entries, 24 KB; a tile's sums would take 66 KB), uses
+    no local memory and runs phase 7's grid (LA = 640, 160 windows) in
+    one wave; the narrow M2 holds a gap a thread in registers, with no
+    local memory and no scratch, two blocks of 672 threads an SM (all
+    160 windows resident at once); the wide M2 keeps its per-gap state
+    in a device-memory scratch of about 70 bytes a gap."""
+    votes = kernels.merge_occupancy("votes", 640, n_win=160)
+    assert votes["threads"] == 128 and votes["spills"] == 0
+    assert votes["smem"] <= 24 * 1024
+    assert votes["blocks_per_sm"] >= kernels.MERGE_VOTES_BLOCKS
+    assert votes["blocks"] == 960 and votes["waves"] == 1
+    for LA in (127, 640, 1023):
+        windows = kernels.merge_occupancy("windows", LA)
+        assert windows["variant"] == "narrow"
+        assert windows["spills"] == 0 and windows["threads"] >= LA + 1
+        assert windows["smem"] < 8 * LA + 1024
+    narrow = kernels.merge_occupancy("windows", 640, n_win=160)
+    assert narrow["blocks_per_sm"] >= 2 and narrow["waves"] == 1
+    for LA in (384, 1024, 3200):
+        wide = kernels.merge_occupancy("windows", LA, "wide")
+        assert wide["threads"] == 256 and wide["blocks_per_sm"] >= 1
+        assert wide["smem"] < 1024
+        assert 60 * LA < kernels.merge_windows_scratch(LA) < 80 * LA
+        assert kernels.merge_windows_scratch(LA) % 16 == 0
+
+
+@pytest.mark.parametrize("LA", [127, 450, 640, 1023, 1024, 1100])
+@pytest.mark.parametrize("B,n_win", [(128, 12), (4096, 160), (4096, 8)])
+def test_merge_kernels_at_widths(cuda, B, n_win, LA):
+    """M1 and M2 bitwise against their plain versions on
+    merge_model.random_round inputs (padded lanes, empty windows, every
+    walk and query edge) at anchor widths around both kernels' tiles and
+    the narrow M2's limit (LA + 1 = 1024), at 128 and 4096 lanes, with
+    about 30 and about 500 jobs a window (past M1's 256-job stage), with
+    and without detect; the wide M2 too where the narrow one runs."""
+    from racon_tpu_torch.ops.device_merge import (merge_votes_plain,
+                                                  merge_windows_plain)
+    c = _random_chunk(cuda, LA + B + n_win, B, 96, LA, n_win)
+    assert (c["win"] == n_win).any()
+    mem = _members(c)
+    ref = merge_votes_plain(*_votes_args(c), n_win=n_win, LA=LA)
+    got = kernels.merge_votes(*_votes_args(c), mem, n_win=n_win, LA=LA)
+    for r, g in zip(ref, got):
+        assert torch.equal(_bits(r), _bits(g))
+    args = (ref[0], ref[1], c["bb"], c["bbw"], c["alen"], c["begin"],
+            c["end"], c["win"], c["ovf"])
+    variants = [None] + (["wide"] if LA + 1 <= 1024 else [])
+    for detect in (False, True):
+        kw = dict(ins_scale=0.3, n_win=n_win, LA=LA, detect=detect)
+        ref_w = merge_windows_plain(*args, **kw)
+        for variant in variants:
+            n0 = kernels.LAUNCHES["merge_windows"]
+            got_w = kernels.merge_windows(*args, mem, variant=variant, **kw)
+            assert kernels.LAUNCHES["merge_windows"] == n0 + 1
+            for i, (r, g) in enumerate(zip(ref_w, got_w)):
+                assert torch.equal(_bits(r), _bits(g)), (variant, detect, i)
+
+
+def test_device_redo_on_the_card(cuda):
+    """ops/redo.py device_redo on the card: the windows that the first
+    pass flags (merge_model.edge_windows: a consensus past the anchor
+    width, a saturated walk) run again at the redo's wider anchor
+    (la_grow), with M1 and M2 once a round, and the consensus it resolves
+    and the windows it leaves for the host equal the CPU run's."""
+    from merge_model import edge_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.redo import device_redo
+    kw = dict(match=5, mismatch=-4, gap=-8, ins_scale=(0.2, 0.2, 0.2, 0.6),
+              rounds=4)
+    wins = edge_windows(1)
+    plan = P.ChunkPlan(wins)
+    codes, _ = P.run_chunk(plan, device=cuda, **kw)
+    flagged = [w for w, c in zip(wins, codes) if c is None]
+    assert len(flagged) == 2
+    assert P.ChunkPlan(flagged, la_grow=4 * P.LA_GROW).LA > plan.LA
+    n0 = dict(kernels.LAUNCHES)
+    stats = {}
+    got, rem = device_redo(flagged, device=cuda, stats=stats, **kw)
+    rounds = stats["rounds_exec"]
+    assert rounds >= 1
+    assert kernels.LAUNCHES["merge_votes"] - n0["merge_votes"] == rounds
+    assert kernels.LAUNCHES["merge_windows"] - n0["merge_windows"] == rounds
+    ref, ref_rem = device_redo(flagged, device="cpu", **kw)
+    assert len(got) == len(ref) == 1 and len(rem) == len(ref_rem) == 1
+    assert rem[0] is ref_rem[0]
+    for (gw, gc, gv), (rw, rc, rv) in zip(got, ref):
+        assert gw is rw and gc == rc and np.array_equal(gv, rv)
 
 
 def test_merge_wrappers_reject_bad_inputs(cuda):

@@ -35,7 +35,8 @@ def _sources():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    for script in ("chip_smoke.py", "band_edits.py", "walk_bench.py"):
+    for script in ("chip_smoke.py", "band_edits.py", "merge_edits.py",
+                   "walk_bench.py"):
         yield os.path.join(ROOT, script)
 
 

@@ -291,3 +291,199 @@ def test_merge_wrappers_cpu_match_reference(chunks, key):
         kernels.merge_windows(
             votes.to("meta"), wesc, c["bb"], c["bbw"], c["alen"], c["begin"],
             c["end"], c["win"], ovf, mem, ins_scale=0.2, n_win=n_win, LA=LA)
+
+
+# ------------------------------------- the redesigned kernels' orders, plans
+
+def _hand_plan(LA, gaps, threads):
+    return {"tiles": -(-(LA + 1) // gaps), "gaps": gaps, "threads": threads}
+
+
+@pytest.mark.parametrize("plan", ["planner", "32 of 64", "64 of 64",
+                                  "31 of 32"])
+@pytest.mark.parametrize("key", KEYS)
+def test_model_votes_tiled_matches_plain(chunks, plain, key, plan):
+    """M1's redesigned order (merge_model.model_votes_tiled: tiles of
+    merge_votes_plan, staged jobs, the left column's weight from the
+    previous thread, 23 register channels adding zeros too, a run
+    channel's first contribution stored and the channels a gap never
+    adds to zeroed as the jobs go) gives the plain sums' bits; so do
+    tiles whose edges fall elsewhere in a warp."""
+    c = chunks[key]
+    LA = c["LA"]
+    pl = kernels.merge_votes_plan(LA) if plan == "planner" else _hand_plan(
+        LA, *map(int, plan.split(" of ")))
+    votes, wesc = plain[key]
+    mv, mw = M.model_votes_tiled(
+        _walk(c), c["q"].numpy(), c["qw8"].numpy(), c["w_read"].numpy(),
+        c["lt"].numpy(), c["t_off"].numpy(), c["esc_w"].numpy(),
+        c["win"].numpy(), c["n_win"], LA, pl)
+    assert mv.tobytes() == votes.numpy().tobytes()
+    assert mw.tobytes() == wesc.numpy().tobytes()
+
+
+@pytest.mark.parametrize("detect", [False, True])
+@pytest.mark.parametrize("key", KEYS)
+def test_model_windows_narrow_matches_plain(chunks, plain, key, detect):
+    """M2's narrow order (merge_model.model_windows_narrow: a gap a
+    thread with its codes packed in a register, counts read again when
+    scattered, one-value-a-thread scans, every position written once)
+    gives the plain back half's bits, every output."""
+    c = chunks[key]
+    votes, wesc = plain[key]
+    ovf = torch.zeros(c["n_win"], dtype=torch.bool)
+    ovf[1] = True
+    args = (votes, wesc, c["bb"], c["bbw"], c["alen"], c["begin"], c["end"],
+            c["win"], ovf)
+    kw = dict(ins_scale=0.2, n_win=c["n_win"], LA=c["LA"], detect=detect)
+    ref = pdm.merge_windows_plain(*args, **kw)
+    got = M.model_windows_narrow(
+        *(a.numpy() for a in args), **kw,
+        threads=kernels.merge_windows_plan(c["LA"])["threads"])
+    for i, (r, g) in enumerate(zip(ref, got)):
+        assert r.numpy().dtype == g.dtype and np.array_equal(r.numpy(), g), i
+    if detect:
+        assert ref[7].any()
+
+
+@pytest.mark.parametrize("seed,LA", [(2, 127), (3, 450), (4, 640),
+                                     (5, 1023)])
+def test_redesigned_models_match_plain_on_random_inputs(seed, LA):
+    """merge_model.random_round inputs at the card tests' widths: both
+    redesigned orders give the plain versions' bits."""
+    n_win = 8
+    r = M.random_round(seed, 96, 80, LA, n_win)
+    cols = {n: torch.from_numpy(r["walk"][..., i].copy())
+            for i, n in enumerate(FIELDS)}
+    t = {k: torch.from_numpy(v) for k, v in r.items() if k != "walk"}
+    votes, wesc = pdm.merge_votes_plain(
+        cols, t["q"], t["qw8"], t["w_read"], t["lt"], t["t_off"], t["esc_w"],
+        t["win"], n_win=n_win, LA=LA)
+    mv, mw = M.model_votes_tiled(r["walk"], r["q"], r["qw8"], r["w_read"],
+                                 r["lt"], r["t_off"], r["esc_w"], r["win"],
+                                 n_win, LA, kernels.merge_votes_plan(LA),
+                                 stage=5)
+    assert mv.tobytes() == votes.numpy().tobytes()
+    assert mw.tobytes() == wesc.numpy().tobytes()
+    threads = kernels.merge_windows_plan(LA)["threads"]
+    for detect in (False, True):
+        kw = dict(ins_scale=0.3, n_win=n_win, LA=LA, detect=detect)
+        ref = pdm.merge_windows_plain(
+            votes, wesc, t["bb"], t["bbw"], t["alen"], t["begin"], t["end"],
+            t["win"], t["ovf"], **kw)
+        got = M.model_windows_narrow(mv, mw, r["bb"], r["bbw"], r["alen"],
+                                     r["begin"], r["end"], r["win"],
+                                     r["ovf"], **kw, threads=threads)
+        for r_, g in zip(ref, got):
+            assert np.array_equal(r_.numpy(), g)
+
+
+@pytest.mark.parametrize("LA1,tiles,gaps,threads", [
+    (641, 6, 107, 128), (1025, 9, 114, 128), (129, 2, 65, 96),
+    (128, 1, 128, 128), (33, 1, 33, 64), (2, 1, 2, 32)])
+def test_merge_votes_plan_even_tiles(LA1, tiles, gaps, threads):
+    """As few tiles of at most MERGE_TILE gaps as LA + 1 takes, the gaps
+    split evenly (the last tile at most tiles - 1 gaps short of the
+    others), threads the tile rounded up to whole warps."""
+    plan = kernels.merge_votes_plan(LA1 - 1)
+    assert (plan["tiles"], plan["gaps"], plan["threads"]) == (tiles, gaps,
+                                                              threads)
+    assert (tiles - 1) * gaps < LA1 <= tiles * gaps
+    assert LA1 - (tiles - 1) * gaps >= gaps - tiles + 1
+    assert plan["threads"] <= kernels.MERGE_TILE
+
+
+@pytest.mark.parametrize("seed,B,Lq,LA,n_win", [
+    (0, 40, 24, 30, 6), (1, 300, 96, 200, 12), (2, 64, 50, 127, 5)])
+def test_votes_reads_are_m1s_reads(seed, B, Lq, LA, n_win):
+    """chip_smoke.votes_reads, from which M1's bound counts its bytes,
+    marks exactly the walk entries and query bytes that the kernel's
+    model reads (merge_model.model_votes_reads: real jobs only, each
+    job's entries t_off..t_off+lt, the bytes of its matching columns and
+    insertion runs); the plain version over a walk and queries poisoned
+    everywhere else gives the same bits, and poisoning one marked entry
+    or byte changes them."""
+    import chip_smoke as cs
+    r = M.random_round(seed, B, Lq, LA, n_win)
+    walk = torch.from_numpy(r["walk"])
+    cols = {n: walk[..., i] for i, n in enumerate(FIELDS)}
+    t = {k: torch.from_numpy(r[k]) for k in ("q", "qw8", "w_read", "lt",
+                                              "t_off", "esc_w", "win")}
+    w_sec, q_sec, walk_need, q_need = cs.votes_reads(
+        cols, t["q"], t["qw8"], t["lt"], t["t_off"], t["win"], n_win, LA)
+    want_w, want_q = M.model_votes_reads(r["walk"], r["lt"], r["t_off"],
+                                         r["win"], n_win, Lq, LA)
+    assert np.array_equal(walk_need.numpy(), want_w)
+    assert np.array_equal(q_need.numpy(), want_q)
+    assert 0 < w_sec < -(-B * (LA + 2) * 8 // 32) + B
+    assert 0 < q_sec <= 2 * (-(-B * Lq // 32) + 1)
+    args = (t["w_read"], t["lt"], t["t_off"], t["esc_w"], t["win"])
+    kw = dict(n_win=n_win, LA=LA)
+    ref = pdm.merge_votes_plain(cols, t["q"], t["qw8"], *args, **kw)
+    for i in range(2):
+        pc, pq, pw = cs.votes_poisoned(cols, t["q"], t["qw8"], walk_need,
+                                       q_need, i)
+        assert cs.same_bits(ref, pdm.merge_votes_plain(pc, pq, pw, *args,
+                                                       **kw))
+    rng = np.random.default_rng(seed)
+    for need, other in ((walk_need, q_need), (q_need, walk_need)):
+        hit = need.nonzero()
+        cut = need.clone()
+        cut[tuple(hit[rng.integers(len(hit))])] = False
+        masks = (cut, other) if need is walk_need else (other, cut)
+        pc, pq, pw = cs.votes_poisoned(cols, t["q"], t["qw8"], *masks, 0)
+        assert not cs.same_bits(ref, pdm.merge_votes_plain(pc, pq, pw,
+                                                           *args, **kw))
+
+
+def test_merge_votes_plan_waves():
+    """M1's plan holds only its tiles, gaps and threads; waves come from a
+    measured occupancy (merge_occupancy on the card) through grid_waves:
+    phase 7's grid (LA = 640, 160 windows: 960 blocks) runs in one wave
+    on 132 SMs at 8 blocks an SM, twice the windows take two, and 3
+    blocks an SM would take three."""
+    plan = kernels.merge_votes_plan(640)
+    assert set(plan) == {"tiles", "gaps", "threads"}
+    blocks = plan["tiles"] * 160
+    assert blocks == 960 and kernels.grid_waves(blocks, 8, 132) == 1
+    assert kernels.grid_waves(2 * blocks, 8, 132) == 2
+    assert kernels.grid_waves(blocks, 3, 132) == 3
+    assert kernels.grid_waves(8 * 132 + 1, 8, 132) == 2
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_votes_plan(0)
+
+
+@pytest.mark.parametrize("LA,variant,threads", [
+    (640, "narrow", 672), (1022, "narrow", 1024), (1023, "narrow", 1024),
+    (1024, "wide", 256), (3200, "wide", 256), (1, "narrow", 32)])
+def test_merge_windows_plan_variants(LA, variant, threads):
+    """A gap a thread up to LA + 1 = 1024 (the maps in 8 bytes a column of
+    shared memory); past it the wide kernel, whose state lies in device
+    memory; the wide kernel may be asked for at any width, the narrow
+    one only up to its limit."""
+    plan = kernels.merge_windows_plan(LA)
+    assert plan["variant"] == variant and plan["threads"] == threads
+    if variant == "narrow":
+        assert plan["smem"] == 8 * LA
+        assert threads >= LA + 1 and threads % 32 == 0
+        assert kernels.merge_windows_plan(LA, "wide") == {
+            "variant": "wide", "threads": 256, "smem": 0}
+    else:
+        assert plan["smem"] == 0
+        with pytest.raises(kernels.KernelError):
+            kernels.merge_windows_plan(LA, "narrow")
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_windows_plan(LA, "other")
+
+
+def test_merge_windows_variant_is_the_cards(chunks, plain):
+    """A variant is not taken on the CPU."""
+    c = chunks["edge-band"]
+    n_win = c["n_win"]
+    with pytest.raises(kernels.KernelError):
+        kernels.merge_windows(
+            plain["edge-band"][0], plain["edge-band"][1], c["bb"], c["bbw"],
+            c["alen"], c["begin"], c["end"], c["win"],
+            torch.zeros(n_win, dtype=torch.bool),
+            pdm.window_members(c["win"], n_win), ins_scale=0.2, n_win=n_win,
+            LA=c["LA"], variant="narrow")

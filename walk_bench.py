@@ -1,8 +1,10 @@
 """Time the column walk (W1, racon_tpu_torch/csrc/col_walk.cu) on the main
-path's walk shapes, or the NW traceback (T1, csrc/nw_traceback.cu) at the
-op-string route's batch shapes, on one NVIDIA GPU.
+path's walk shapes, the NW traceback (T1, csrc/nw_traceback.cu) at the
+op-string route's batch shapes, or the round merge's kernels (M1, M2,
+csrc/merge.cu) at the main path's chunk shape, on one NVIDIA GPU.
 
     python3 walk_bench.py [--tree DIR] [--plans] [--main] [--traceback]
+                          [--merge]
 
 The cases are chip_smoke.py's (phase 2): the tiled overlap group (G
 chunks of 64 lanes, LA = 10240, W = 1536, k = 2, int32), the untiled
@@ -24,6 +26,16 @@ bitwise against the default plan's outputs.
             lane, registers, spills and blocks an SM. With --plans, an
             SM's share of the lanes split into blocks of at most 1, 4, 8
             or 16 lanes too, timed in turns with the planner's.
+
+--merge     time M1 and M2 instead, as chip_smoke.py's phase 7 builds
+            them: phase 4's dataset, its first consensus chunk at round 0
+            ([B, Lq, LA, n_win] = [4096, 640, 640, 160]). Prints one JSON
+            line: each kernel's device time a call (CUDA graphs of 10
+            calls, median of 20 replays, in turns; the wide M2 too where
+            the tree has it), each bitwise against its plain version. Run
+            it for the parent's tree and this one in one call (parent,
+            change, change, parent) to compare the two trees' kernels.
+            merge_edits.py times edited copies of M1.
 
 --tree DIR  time the racon_tpu_torch of another checkout, e.g. an
             unpacked ``git archive`` of the parent commit (run parent,
@@ -231,6 +243,43 @@ def traceback_cases(cs, tree, plans):
         torch.cuda.empty_cache()
 
 
+def merge_cases(cs, tree):
+    """M1 and M2 at phase 7's shape (see --merge)."""
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import kernels
+    with tempfile.TemporaryDirectory(dir=tree) as tmp:
+        c = cs.merge_chunk("cuda", cs.main_dataset(tmp)["paths"])
+    plan = c["plan"]
+    n_win, LA = plan.n_win, plan.LA
+    vargs = (c["cols"], c["q"], c["qw8"], c["w_read"], c["lt"], c["t_off"],
+             c["esc_w"], c["win"])
+    mem = dm.window_members(c["win"], n_win)
+    kw = dict(n_win=n_win, LA=LA)
+    ref_v = dm.merge_votes_plain(*vargs, **kw)
+    same = cs.same_bits(ref_v, kernels.merge_votes(*vargs, mem, **kw))
+    wargs = (ref_v[0], ref_v[1], c["bb"], c["bbw"], c["alen"], c["begin"],
+             c["end"], c["win"], c["ovf"])
+    wkw = dict(ins_scale=0.2, n_win=n_win, LA=LA)
+    ref_w = dm.merge_windows_plain(*wargs, **wkw)
+    fns = {"merge_votes": lambda: kernels.merge_votes(*vargs, mem, **kw),
+           "merge_windows": lambda: kernels.merge_windows(*wargs, mem,
+                                                          **wkw)}
+    if "variant" in inspect.signature(kernels.merge_windows).parameters:
+        fns["merge_windows_wide"] = lambda: kernels.merge_windows(
+            *wargs, mem, variant="wide", **wkw)
+    for name in ("merge_windows", "merge_windows_wide"):
+        if name in fns:
+            same = same and cs.same_bits(ref_w, fns[name]())
+    rec = {"tree": tree, "shape": [plan.B, plan.Lq, LA, n_win],
+           "bitwise": same}
+    rec.update(zip(fns, cs.time_graph_turns(list(fns.values()), reps=20,
+                                            calls=10)))
+    print(json.dumps(rec), flush=True)
+    if not same:
+        cs.fail(f"merge kernels of {tree} disagree with their plain "
+                f"versions")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=HERE)
@@ -240,6 +289,8 @@ def main() -> int:
                     help="run only the cases whose name contains this")
     ap.add_argument("--traceback", action="store_true",
                     help="time T1 instead of W1")
+    ap.add_argument("--merge", action="store_true",
+                    help="time M1 and M2 instead of W1")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -260,11 +311,16 @@ def main() -> int:
         traceback_cases(cs, tree, args.plans)
         print(cs.CARD)
         return 0
-    cases = (("tiled overlap group", lambda: tiled_group(cs, dev)),
-             ("untiled overlap chunk", lambda: untiled_chunk(cs, dev)),
-             ("consensus 8%-error reads", lambda: consensus(cs, dev, True)),
-             ("consensus random", lambda: consensus(cs, dev, False)),
-             ("flat layout", lambda: flat(cs, dev)))
+    if args.merge:
+        merge_cases(cs, tree)
+        cases = ()
+    else:
+        cases = (("tiled overlap group", lambda: tiled_group(cs, dev)),
+                 ("untiled overlap chunk", lambda: untiled_chunk(cs, dev)),
+                 ("consensus 8%-error reads",
+                  lambda: consensus(cs, dev, True)),
+                 ("consensus random", lambda: consensus(cs, dev, False)),
+                 ("flat layout", lambda: flat(cs, dev)))
     for name, build in cases:
         if args.cases not in name:
             continue
