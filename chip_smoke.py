@@ -58,7 +58,10 @@ any failure exits non-zero and prints no result):
               reads (2 x 6 kb, 2.5 kb reads at 30x) with PAF and with MHAP
               overlaps, then on one such contig gzipped inputs, -u with a
               contig no read covers, and -w 200 -q 5 -e 0.2 (anchor width
-              about 200 instead of 500);
+              about 200 instead of 500); these run the convergence
+              scheduler (the default, M2's sched mode launched); then kC
+              and -f again under RACON_TPU_SCHED=0 (the fixed-round
+              engine, no sched mode);
 4. main       the main path at full size through the CLI entry point: a
               1 Mbp synthetic draft (20 contigs x 50 kb), 10 kb reads at
               30x, PAF overlaps aligned on the card (tiled route), w=500.
@@ -73,7 +76,20 @@ any failure exits non-zero and prints no result):
               overlap aligner must have handled jobs on the card. The
               host phases are split from the logger's phase lines.
               Polished edit distance to the truth must be at most a third
-              of the draft's;
+              of the draft's. The run takes the default chunk loop, the
+              convergence scheduler; then the same inputs run under
+              RACON_TPU_SCHED=0 (the fixed engine's depth-2 pipeline),
+              with its own counts, and the FASTA must be the same. Each
+              run prints its stage ms (tband, forward, walk, merge, and
+              the scheduler's repack), the host split of its chunk
+              loop summed over chunks (plan and packed_bufs, h2d
+              enqueue, round launches, flag pulls, repack plans, collect,
+              apply), its peak bytes and consensus seconds; the
+              scheduler's run also its telemetry (survivor fraction a
+              round, freeze histogram, window-rounds saved). In both,
+              merge_votes = merge_windows + merge_windows_sched =
+              consensus K1 launches, and the sched mode launches only
+              under the scheduler;
 5. flat path  the band-off route (RACON_TPU_NO_BAND=1, the full-width
               forward) through the CLI on a 100 kb input, with its own
               launch counts; flat_fwd must have launched and the
@@ -107,7 +123,15 @@ any failure exits non-zero and prints no result):
               its real jobs read on this data (votes_reads), M2's the
               sectors of the sums that its vote-out reads (vote_needs),
               and the phase fails unless each plain version over inputs
-              poisoned outside its count gives the same bits.
+              poisoned outside its count gives the same bits. Then M2's
+              sched mode at the chunk's round 1 (round 0's M1 and M2 on
+              the card, round 1's forward and walk): windows that
+              converge there freeze, two more carry the sticky flag,
+              padding, ``last`` off and on, both variants bitwise
+              against merge_windows_sched_plain, timed as graphs in turns
+              against the base mode; its bound adds the sums that the
+              freezing windows' final-scale vote-out reads and their
+              output rows.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -149,6 +173,7 @@ OPS_PER_CELL = {("band_fwd", 4): 50, ("band_fwd", 2): 40,
 OPS_PER_STEP = 14
 OPS_PER_X, OPS_PER_BIN = 5, 7
 REPLACES = {
+    "merge_windows_sched": "racon_tpu/sched/rounds.py:53",
     "band_fwd": "racon_tpu/ops/pallas/band_kernel.py:96",
     "band_tile_fwd": "racon_tpu/ops/pallas/band_kernel.py:428",
     "flat_fwd": "racon_tpu/ops/pallas/flat_kernel.py:31",
@@ -165,7 +190,7 @@ SOURCE = {"band_fwd": "band_fwd.cu", "band_tile_fwd": "band_fwd.cu",
           "nw_fwd": "nw_fwd.cu", "nw_fwd_wide": "nw_fwd.cu",
           "nw_traceback": "nw_traceback.cu",
           "monotone_count": "count.cu", "merge_votes": "merge.cu",
-          "merge_windows": "merge.cu"}
+          "merge_windows": "merge.cu", "merge_windows_sched": "merge.cu"}
 
 
 def fail(msg: str) -> None:
@@ -1104,11 +1129,12 @@ def gzipped(path):
 
 
 def small_cases(tmp):
-    """Phase 3's CLI cases: (name, argv). The 20 kb kC case; -f on an
+    """Phase 3's CLI cases: (name, argv, env). The 20 kb kC case; -f on an
     all-vs-all set; the five option cases of tests/test_torch_cli_cases.py
     (partial-length reads with PAF and with MHAP overlaps; on one such
     contig gzipped inputs, -u with a contig no read covers, and -w 200
-    -q 5 -e 0.2)."""
+    -q 5 -e 0.2); then kC and -f again on the fixed-round engine
+    (RACON_TPU_SCHED=0). The rest run the scheduler, the default."""
     from racon_tpu_torch.utils.synth import write_dataset
     ds = write_dataset(os.path.join(tmp, "small"), seed=5, contig_len=20000,
                        read_len=5000, coverage=20)
@@ -1139,7 +1165,10 @@ def small_cases(tmp):
     cases.append(("-w 200 -q 5 -e 0.2",
                   ["-w", "200", "-q", "5", "-e", "0.2", one["reads"],
                    one["overlaps"], one["draft"]]))
-    return cases
+    cases = [(name, argv, {}) for name, argv in cases]
+    fixed = {"RACON_TPU_SCHED": "0"}
+    return cases + [(f"{name} RACON_TPU_SCHED=0", argv, fixed)
+                    for name, argv, _ in cases[:2]]
 
 
 def phase_small(device, tmp):
@@ -1148,21 +1177,27 @@ def phase_small(device, tmp):
     and its consensus merged by M1 and M2."""
     from racon_tpu_torch.ops import kernels, ovl_align
     recs = []
-    for name, argv in small_cases(tmp):
+    for name, argv, env in small_cases(tmp):
         argv = argv + ["-t", "8"]
-        kernels.reset_launches()
-        ovl_align.reset_stats()
-        rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
-        launches = dict(kernels.LAUNCHES)
-        ovl = dict(ovl_align.STATS)
-        rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
+        os.environ.update(env)
+        try:
+            kernels.reset_launches()
+            ovl_align.reset_stats()
+            rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
+            launches = dict(kernels.LAUNCHES)
+            ovl = dict(ovl_align.STATS)
+            rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
         if rc_g or rc_c:
             fail(f"small CLI run {name!r} failed: {err_g[-2000:]} "
                  f"{err_c[-2000:]}")
-        recs.append(dict(case=name, bytes=len(out_g), records=out_g.count(
-            b">"), identical=out_g == out_c and len(out_g) > 0,
-            wall_s_gpu=wall_g, wall_s_cpu=wall_c, launches=launches,
-            ovl=ovl))
+        recs.append(dict(case=name, sched=not env, bytes=len(out_g),
+                         records=out_g.count(b">"),
+                         identical=out_g == out_c and len(out_g) > 0,
+                         wall_s_gpu=wall_g, wall_s_cpu=wall_c,
+                         launches=launches, ovl=ovl))
     emit("small", cases=recs)
     for r in recs:
         if not r["identical"]:
@@ -1171,10 +1206,15 @@ def phase_small(device, tmp):
         if r["ovl"]["device_jobs"] <= 0:
             fail(f"small run {r['case']!r}: no overlap was aligned on the "
                  f"card")
-        if not r["launches"]["merge_votes"] == \
-                r["launches"]["merge_windows"] > 0:
+        n = r["launches"]
+        if not n["merge_votes"] == n["merge_windows"] + \
+                n["merge_windows_sched"] > 0:
             fail(f"small run {r['case']!r}: the consensus did not merge on "
-                 f"the card ({r['launches']})")
+                 f"the card ({n})")
+        if (n["merge_windows_sched"] > 0) != r["sched"]:
+            fail(f"small run {r['case']!r}: M2's sched mode launched "
+                 f"{n['merge_windows_sched']} times (scheduler "
+                 f"{'on' if r['sched'] else 'off'})")
 
 
 def consensus_seconds(err: str) -> float:
@@ -1207,11 +1247,107 @@ def main_dataset(tmp, n_contigs=20, contig_len=50000, read_len=10000,
                          draft_err=0.03, read_err=0.08)
 
 
-def phase_main(device, tmp, n_contigs=20, contig_len=50000,
-               read_len=10000, coverage=30):
+@contextlib.contextmanager
+def sched_telemetry():
+    """The convergence scheduler's telemetry of the engines made inside
+    the block (PoaEngine._make_scheduler watched): a list of
+    SchedTelemetry."""
+    from racon_tpu_torch.ops.poa import PoaEngine
+    seen = []
+    make = PoaEngine._make_scheduler
+
+    def watched(self):
+        sched = make(self)
+        if all(t is not sched.telemetry for t in seen):
+            seen.append(sched.telemetry)
+        return sched
+
+    PoaEngine._make_scheduler = watched
+    try:
+        yield seen
+    finally:
+        PoaEngine._make_scheduler = make
+
+
+def main_run(device, argv, sched: bool):
+    """One CLI run of phase 4's input, under the convergence scheduler or
+    (``sched`` False) RACON_TPU_SCHED=0: launch counts, stage clock and
+    host split from zero just before, read just after."""
     import torch
     from racon_tpu_torch.ops import device_poa, kernels, ovl_align
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    clock = device_poa.set_stage_clock(True)
+    host = device_poa.set_host_clock(True)
+    ovl_align.reset_stats()
+    kernels.reset_launches()
+    if not sched:
+        os.environ["RACON_TPU_SCHED"] = "0"
+    try:
+        with sched_telemetry() as telem:
+            rc, out, err, wall = run_cli(argv)
+    finally:
+        os.environ.pop("RACON_TPU_SCHED", None)
+        device_poa.set_stage_clock(False)
+        device_poa.set_host_clock(False)
+    launches = dict(kernels.LAUNCHES)
+    r = dict(rc=rc, out=out, err=err, wall=wall, launches=launches,
+             ovl=dict(ovl_align.STATS),
+             groups=[dict(g) for g in ovl_align.TILED_GROUPS],
+             ugroups=[dict(g) for g in ovl_align.UNTILED_GROUPS],
+             stages=clock.ms(), stage_launches=clock.launches(),
+             host_s=dict(host.s), host_n=dict(host.n),
+             peak=torch.cuda.max_memory_allocated() if device == "cuda"
+             else None, telemetry=telem[-1] if telem else None)
+    r["walks"] = r["stage_launches"].get("walk", {}).get("col_walk", 0)
+    r["k1_consensus"] = r["stage_launches"].get("forward", {}).get(
+        "band_fwd", 0)
+    if rc:
+        fail(f"main run ({'scheduler' if sched else 'RACON_TPU_SCHED=0'}) "
+             f"failed: {err[-3000:]}")
+    return r
+
+
+def main_record(r, ds, n_windows):
+    """Phase 4's record of one run: times, stages, host split, launches,
+    memory, routes and edit distances."""
+    recs = fasta_records(r["out"])
+    ed_draft = ed_pol = 0
     from racon_tpu_torch.utils.synth import edit_distance
+    for c, (t, d) in enumerate(zip(ds["truth"], ds["drafts"])):
+        pol = recs.get(f"ctg{c}")
+        if pol is None or len(pol) == 0:
+            fail(f"main run: contig ctg{c} missing from the output")
+        ed_draft += edit_distance(d, t)
+        ed_pol += edit_distance(pol, t)
+    cons_s = consensus_seconds(r["err"])
+    phases = phase_seconds(r["err"])
+    flagged, host = routed(r["err"])
+    # One h2d a chunk (the redo's chunks too).
+    chunks = r["host_n"].get("h2d", 0)
+    rec = dict(wall_s=r["wall"], consensus_s=cons_s,
+               windows_per_s=n_windows / cons_s,
+               windows_per_s_end_to_end=n_windows / r["wall"],
+               align_s=phases.get("aligned overlaps"), phase_s=phases,
+               stage_ms=r["stages"], host_split_s=r["host_s"],
+               host_split_n=r["host_n"], chunks=chunks,
+               chunk_rounds=r["k1_consensus"], chunk_rounds_scheduled=4 *
+               chunks, max_memory_allocated=r["peak"],
+               launches=r["launches"], consensus_walks=r["walks"],
+               redo_windows=flagged, host_windows=host, ed_draft=ed_draft,
+               ed_polished=ed_pol)
+    t = r["telemetry"]
+    if t is not None:
+        line = re.findall(r"scheduler (windows=.*)$", r["err"], flags=re.M)
+        rec["sched"] = dict(
+            t.as_extras(), window_rounds=t.window_rounds(),
+            window_rounds_scheduled=t.windows * t.rounds,
+            summary=line[-1] if line else None)
+    return rec
+
+
+def phase_main(device, tmp, n_contigs=20, contig_len=50000,
+               read_len=10000, coverage=30):
     t0 = time.perf_counter()
     ds = main_dataset(tmp, n_contigs, contig_len, read_len, coverage)
     synth_s = time.perf_counter() - t0
@@ -1219,49 +1355,32 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     n_windows = sum(-(-len(d) // 500) for d in ds["drafts"])
     argv = [p["reads"], p["overlaps"], p["draft"], "-t",
             str(os.cpu_count() or 1), "--device", device]
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    clock = device_poa.set_stage_clock(True)
-    ovl_align.reset_stats()
-    kernels.reset_launches()
-    rc, out, err, wall = run_cli(argv)
-    launches = dict(kernels.LAUNCHES)
-    ovl = dict(ovl_align.STATS)
-    groups = [dict(g) for g in ovl_align.TILED_GROUPS]
-    ugroups = [dict(g) for g in ovl_align.UNTILED_GROUPS]
-    stages = clock.ms()
-    walks = clock.launches().get("walk", {}).get("col_walk", 0)
-    k1_consensus = clock.launches().get("forward", {}).get("band_fwd", 0)
-    device_poa.set_stage_clock(False)
-    if rc:
-        fail(f"main run failed: {err[-3000:]}")
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    recs = fasta_records(out)
-    ed_draft = ed_pol = 0
-    for c, (t, d) in enumerate(zip(ds["truth"], ds["drafts"])):
-        pol = recs.get(f"ctg{c}")
-        if pol is None or len(pol) == 0:
-            fail(f"main run: contig ctg{c} missing from the output")
-        ed_draft += edit_distance(d, t)
-        ed_pol += edit_distance(pol, t)
-    cons_s = consensus_seconds(err)
-    phases = phase_seconds(err)
-    flagged, host = routed(err)
+    # The main path (the convergence scheduler, the default), then the same
+    # inputs on the fixed-round engine.
+    main = main_run(device, argv, True)
+    fixed = main_run(device, argv, False)
+    rec = main_record(main, ds, n_windows)
+    rec_fixed = main_record(fixed, ds, n_windows)
+    launches, ovl = main["launches"], main["ovl"]
+    groups, ugroups = main["groups"], main["ugroups"]
     emit("main", draft_bp=sum(len(d) for d in ds["drafts"]),
-         windows=n_windows, synth_s=synth_s, wall_s=wall,
-         consensus_s=cons_s, windows_per_s=n_windows / cons_s,
-         windows_per_s_end_to_end=n_windows / wall,
-         align_s=phases.get("aligned overlaps"), phase_s=phases,
-         ovl=ovl, tiled_groups=groups, untiled_groups=ugroups,
-         stage_ms=stages,
-         max_memory_allocated=peak,
-         launches=launches, consensus_walks=walks, redo_windows=flagged,
-         host_windows=host,
-         ed_draft=ed_draft, ed_polished=ed_pol)
+         windows=n_windows, synth_s=synth_s, ovl=ovl, tiled_groups=groups,
+         untiled_groups=ugroups, **rec)
+    emit("main_fixed", identical=fixed["out"] == main["out"], **rec_fixed)
+    if fixed["out"] != main["out"]:
+        fail("main run: the scheduler's FASTA differs from RACON_TPU_SCHED=0's")
+    if rec.get("sched") is None or not rec["sched"]["sched_windows"]:
+        fail("main run: the convergence scheduler did not run")
+    if rec_fixed.get("sched") is not None:
+        fail("main run: RACON_TPU_SCHED=0 ran the scheduler")
+    if launches["merge_windows_sched"] <= 0:
+        fail("main run: M2's sched mode never launched")
+    if fixed["launches"]["merge_windows_sched"] != 0:
+        fail("main run: M2's sched mode launched under RACON_TPU_SCHED=0")
     for name in ("band_fwd", "band_tile_fwd", "col_walk"):
         if launches[name] <= 0:
             fail(f"main run: {name} never launched")
-    if walks <= 0:
+    if main["walks"] <= 0:
         fail("main run: the consensus engine never launched col_walk")
     if ovl["device_jobs"] <= 0:
         fail("main run: no overlap was aligned on the card")
@@ -1274,35 +1393,47 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     for g in groups + ugroups:
         if g["chunks"] > 1 and (g["G"] <= 1 or g["groups"] >= g["chunks"]):
             fail(f"main run: bucket {g} was not grouped")
-    # One K1 launch and one walk for each untiled group, beside the
-    # consensus forward's K1 launches.
     untiled = sum(g["groups"] for g in ugroups)
-    if launches["band_fwd"] != k1_consensus + untiled:
-        fail(f"main run: band_fwd launched {launches['band_fwd']} times, not "
-             f"{k1_consensus} consensus + {untiled} untiled groups")
-    # The round merge: M1 and M2 once a consensus round each, inside the
-    # stage clock's merge stage (a round is one consensus K1 launch).
-    merge_launches = clock.launches().get("merge", {})
-    for name in ("merge_votes", "merge_windows"):
-        if not launches[name] == merge_launches.get(name) == k1_consensus:
-            fail(f"main run: {name} launched {launches[name]} times "
-                 f"({merge_launches.get(name)} in the merge stage), not once "
-                 f"a consensus round ({k1_consensus})")
-    if "aligned overlaps" not in phases:
-        fail("main run: the logger printed no 'aligned overlaps' phase")
-    if not ed_pol * 3 <= ed_draft:
-        fail(f"main run: polished ED {ed_pol} > draft ED {ed_draft} / 3")
-    # W1's launches by case: the tiled groups, the consensus walks and the
-    # untiled groups; K1's: the consensus forward and the untiled groups.
     tiled = sum(g["groups"] for g in groups)
-    if launches["col_walk"] != tiled + walks + untiled:
-        fail(f"main run: col_walk launched {launches['col_walk']} times, not "
-             f"{tiled} tiled + {walks} consensus + {untiled} untiled")
-    by_case = {("col_walk", 0): tiled, ("col_walk", "consensus"): walks,
-               ("col_walk", "untiled"): untiled,
-               ("band_fwd", 4): k1_consensus, ("band_fwd", "untiled"): untiled,
+    for name, r in (("scheduler", main), ("RACON_TPU_SCHED=0", fixed)):
+        n = r["launches"]
+        k1 = r["k1_consensus"]
+        # One K1 launch and one walk for each untiled group, beside the
+        # consensus forward's K1 launches.
+        if n["band_fwd"] != k1 + untiled:
+            fail(f"main run ({name}): band_fwd launched {n['band_fwd']} "
+                 f"times, not {k1} consensus + {untiled} untiled groups")
+        # The round merge: M1 and M2 (either mode) once a consensus round
+        # each, inside the stage clock's merge stage (a round is one
+        # consensus K1 launch).
+        ml = r["stage_launches"].get("merge", {})
+        m2 = n["merge_windows"] + n["merge_windows_sched"]
+        m2_stage = ml.get("merge_windows", 0) + ml.get(
+            "merge_windows_sched", 0)
+        if not (n["merge_votes"] == ml.get("merge_votes") == m2 == m2_stage
+                == k1):
+            fail(f"main run ({name}): merge_votes {n['merge_votes']}, "
+                 f"merge_windows + sched {m2} ({ml} in the merge stage), "
+                 f"not once a consensus round ({k1})")
+        # W1's launches by case: the tiled groups, the consensus walks and
+        # the untiled groups.
+        if n["col_walk"] != tiled + r["walks"] + untiled:
+            fail(f"main run ({name}): col_walk launched {n['col_walk']} "
+                 f"times, not {tiled} tiled + {r['walks']} consensus + "
+                 f"{untiled} untiled")
+    for rr in (rec, rec_fixed):
+        if not rr["ed_polished"] * 3 <= rr["ed_draft"]:
+            fail(f"main run: polished ED {rr['ed_polished']} > draft ED "
+                 f"{rr['ed_draft']} / 3")
+    if "aligned overlaps" not in rec["phase_s"]:
+        fail("main run: the logger printed no 'aligned overlaps' phase")
+    k1 = main["k1_consensus"]
+    by_case = {("col_walk", 0): tiled, ("col_walk", "consensus"):
+               main["walks"], ("col_walk", "untiled"): untiled,
+               ("band_fwd", 4): k1, ("band_fwd", "untiled"): untiled,
                ("merge_votes", 0): launches["merge_votes"],
-               ("merge_windows", 0): launches["merge_windows"]}
+               ("merge_windows", 0): launches["merge_windows"],
+               ("merge_windows_sched", 0): launches["merge_windows_sched"]}
     return launches, by_case, p
 
 
@@ -1532,7 +1663,7 @@ def merge_chunk(device, paths, scale=0.2):
     return dict(cols=cols, esc_w=esc_w, q=q, qw8=qw8, w_read=w_read,
                 lt=fwd[3], t_off=fwd[4], bb=bb, bbw=bbw, alen=alen,
                 begin=begin, end=end, win=win, ovf=ovf, plan=plan,
-                band_w=st["band_w"])
+                band_w=st["band_w"], lq=lq, nxt_k=st["nxt_k"])
 
 
 def vote_needs(votes, bb, bbw, alen, scale):
@@ -1581,8 +1712,15 @@ def vote_needs(votes, bb, bbw, alen, scale):
                 need[:, 17 + i] = sel                       # ins1_c
         if k + 2 < K:
             need[:, 123 + k] = vgap & (e >= k + 2)          # lenw
+    return need_sectors(need), need
+
+
+def need_sectors(need) -> int:
+    """The 32-byte sectors of M1's f32 sums that a bool mask of entries
+    touches."""
+    import torch.nn.functional as F
     flat = F.pad(need.reshape(-1), (0, (-need.numel()) % 8))
-    return int(flat.view(-1, 8).any(1).sum().item()), need
+    return int(flat.view(-1, 8).any(1).sum().item())
 
 
 def votes_reads(cols, q, qw8, lt, t_off, win, n_win, LA):
@@ -1782,7 +1920,132 @@ def phase_merge_kernels(device, paths, scale=0.2):
     if not rec_w["bitwise"]:
         fail(f"merge_windows disagrees with its plain version (max_abs_err="
              f"{rec_w['max_abs_err']})")
-    return {("merge_votes", 0): rec_v, ("merge_windows", 0): rec_w}
+    rec_s = phase_sched_merge(c, scale)
+    return {("merge_votes", 0): rec_v, ("merge_windows", 0): rec_w,
+            ("merge_windows_sched", 0): rec_s}
+
+
+def phase_sched_merge(c, scale, scale_final=0.6):
+    """Phase 7's M2 sched mode: the chunk of merge_chunk advanced one round
+    on the card (round 0's M1 and M2), round 1's forward and walk, then
+    M2's sched mode at round 1 with detect (the windows that reached a
+    fixed point freeze) and the sticky flag set on two windows, with
+    ``last`` off and on, in both variants, bitwise against its plain
+    version; timed as CUDA graphs in turns against the base mode on the
+    same inputs. Its bound counts the sectors of the sums that the base
+    vote-out reads and those that the freezing windows' second vote-out
+    at the final scale reads (vote_needs at each scale), and the freezing
+    windows' output rows; the count is checked by poisoning the rest."""
+    import torch
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops import kernels
+    plan = c["plan"]
+    B, LA, n_win = plan.B, plan.LA, plan.n_win
+    mem = dm.window_members(c["win"], n_win)
+    bb, bbw, alen, begin, end, _, ovf, _ = P._merge_round(
+        c["cols"], c["esc_w"], c["lt"], c["t_off"], c["q"], c["qw8"],
+        c["w_read"], c["bb"], c["bbw"], c["alen"], c["begin"], c["end"],
+        c["win"], c["ovf"], mem, ins_scale=scale, n_win=n_win, LA=LA)
+    bw1 = P.round_band_width(c["band_w"], 1)
+    lq = c["lq"]
+    fwd = P._lane_fwd(bb, alen, begin, end, c["q"], lq, c["win"], match=5,
+                      mismatch=-4, gap=-8, Lq=plan.Lq, LA=LA, band_w=bw1,
+                      nxt_k=c["nxt_k"])
+    cols, esc_w = P._lane_walk(*fwd, lq, LA=LA, band_w=bw1)
+    votes, wesc = dm.merge_votes_plain(cols, c["q"], c["qw8"], c["w_read"],
+                                       fwd[3], fwd[4], esc_w, c["win"],
+                                       n_win=n_win, LA=LA)
+    ovf = ovf.clone()
+    ovf[[3, 7]] = True
+    args = (votes, wesc, bb, bbw, alen, begin, end, c["win"], ovf)
+    orig = torch.arange(n_win, dtype=torch.int32, device=bb.device)
+    fresh = (torch.zeros((n_win + 1, LA), dtype=torch.uint8,
+                         device=bb.device),
+             torch.zeros((n_win + 1, LA), dtype=torch.int32,
+                         device=bb.device),
+             torch.ones(n_win + 1, dtype=torch.int32, device=bb.device),
+             torch.zeros(n_win + 1, dtype=torch.bool, device=bb.device))
+    ok, err, mix = True, 0.0, {}
+    for last in (False, True):
+        kw = dict(ins_scale=scale, scale_final=scale_final, last=last,
+                  n_win=n_win, LA=LA, detect=True)
+        ref_out = tuple(t.clone() for t in fresh)
+        ref = dm.merge_windows_sched_plain(*args, orig, ref_out, **kw)
+        froze = ref[6] | ref[7] | last
+        real = torch.arange(n_win, device=bb.device) < plan.n_real_win
+        mix["last" if last else "not_last"] = dict(conv=int((ref[7] & real).sum().item()),
+                         ovf=int((ref[6] & real).sum().item()),
+                         frozen=int((froze & real).sum().item()),
+                         padded=n_win - plan.n_real_win)
+        for variant in (None, "wide"):
+            got_out = tuple(t.clone() for t in fresh)
+            got = kernels.merge_windows_sched(*args, mem, orig, got_out,
+                                              variant=variant, **kw)
+            ok &= same_bits(ref, got) and same_bits(ref_out, got_out)
+            err = max(err, float_err(ref, got), float_err(ref_out, got_out))
+    # The bound at last = False, the main path's usual mix (a freezing
+    # window's second pass reads what vote_needs counts at the final
+    # scale).
+    kw = dict(ins_scale=scale, scale_final=scale_final, last=False,
+              n_win=n_win, LA=LA, detect=True)
+    ref_out = tuple(t.clone() for t in fresh)
+    ref = dm.merge_windows_sched_plain(*args, orig, ref_out, **kw)
+    froze = ref[6] | ref[7]
+    _, need0 = vote_needs(votes, bb, bbw, alen, scale)
+    _, need_f = vote_needs(votes, bb, bbw, alen, scale_final)
+    need = need0 | (need_f & froze[:, None, None])
+    sectors = need_sectors(need)
+    for fill in (float("nan"), 1e30):
+        pout = tuple(t.clone() for t in fresh)
+        pres = dm.merge_windows_sched_plain(votes.masked_fill(~need, fill),
+                                            *args[1:], orig, pout, **kw)
+        if not (same_bits(ref, pres) and same_bits(ref_out, pout)):
+            fail(f"merge_windows_sched's byte count misses sums it reads "
+                 f"(entries outside it set to {fill} change its output)")
+    n_froze = int(froze.sum().item())
+    sched_bytes = (32 * sectors + 4 * n_win +
+                   5 * int(alen[:-1].sum().item()) + 4 * (n_win + 1) +
+                   16 * B + 8 * n_win + n_win + 5 * (n_win + 1) * LA +
+                   4 * (n_win + 1) + 8 * B + 4 * n_win * LA + 2 * n_win +
+                   4 * n_win + n_froze * (5 * LA + 5))
+    mem_g = mem
+    base_kw = dict(ins_scale=scale, n_win=n_win, LA=LA, detect=True)
+    outs = [tuple(t.clone() for t in fresh) for _ in range(3)]
+    base_ms, sched_ms, last_ms, wide_ms = time_graph_turns(
+        [lambda: kernels.merge_windows(*args, mem_g, **base_kw),
+         lambda: kernels.merge_windows_sched(*args, mem_g, orig, outs[0],
+                                             **kw),
+         lambda: kernels.merge_windows_sched(*args, mem_g, orig, outs[1],
+                                             **dict(kw, last=True)),
+         lambda: kernels.merge_windows_sched(*args, mem_g, orig, outs[2],
+                                             variant="wide", **kw)],
+        reps=20, calls=10)
+    plain_ms, = time_turns([lambda: dm.merge_windows_sched_plain(
+        *args, orig, tuple(t.clone() for t in fresh), **kw)], reps=3)
+    occ = kernels.merge_occupancy("windows_sched", LA, n_win=n_win)
+    occ_wide = kernels.merge_occupancy("windows_sched", LA, "wide",
+                                       n_win=n_win)
+    keys = ("regs", "spills", "blocks_per_sm", "threads", "smem", "waves")
+    b_ms, b_by = bound(sched_bytes, 0)
+    rec = dict(shape=[B, plan.Lq, LA, n_win], max_abs_err=err, bitwise=ok,
+               ms=sched_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None, bytes=sched_bytes,
+               vote_bytes_read=32 * sectors, last_ms=last_ms,
+               base_mode_ms=base_ms, wide_ms=wide_ms,
+               variant=occ["variant"], freeze_mix=mix,
+               wide={k: occ_wide[k] for k in keys},
+               **{k: occ[k] for k in keys})
+    emit("merge_sched", round=1, band_w=bw1, **rec)
+    if not ok:
+        fail(f"merge_windows_sched disagrees with its plain version "
+             f"(max_abs_err={err})")
+    m = mix["not_last"]
+    if not (m["conv"] and m["ovf"] and m["frozen"] < plan.n_real_win):
+        fail(f"merge_windows_sched: the freeze mix lacks a reason ({mix})")
+    if occ["spills"]:
+        fail(f"merge_windows_sched: the narrow kernel spills ({occ})")
+    return rec
 
 
 def main() -> int:
@@ -1860,7 +2123,9 @@ def main() -> int:
                                  "C", "regs", "spills", "blocks_per_sm",
                                  "smem_per_block", "shapes", "threads",
                                  "smem", "bytes", "tiles", "gaps", "waves",
-                                 "variant", "wide") if n in r}})
+                                 "variant", "wide", "last_ms",
+                                 "base_mode_ms", "freeze_mix")
+               if n in r}})
     print(json.dumps({"kernels": rows}))
     print(CARD)
     print(json.dumps({"ok": True, "device": {

@@ -79,6 +79,18 @@
 // id n_win, sorted after every real lane), which read that window's maps
 // as the plain version's clamp does, and carries the dummy anchor row
 // over.
+//
+// M2's sched mode (both variants; the template parameter Sched) is the
+// convergence scheduler's round merge, held bitwise against
+// device_merge.merge_windows_sched_plain. It is the base mode's launch,
+// and then, in a window that freezes (converged, flagged or the schedule's
+// last round: a block-uniform test once the flags are known), a second
+// pass: the same sums voted out again at the final insertion scale (only
+// the insertion ranks depend on the scale; the kept columns, their codes
+// and coverages are the first pass's), scanned and compacted into the
+// window's row of the scheduler's output accumulators (SchedOut), with its
+// clipped length and the flag of its freeze reason. A window that does not
+// freeze, or whose row is the trash row, writes nothing there.
 
 #include <climits>
 #include <cstdint>
@@ -114,6 +126,18 @@ constexpr int kZeroStep = 4;       // M1: run channels zeroed a job
 constexpr int kWinMaxThreads = 1024;        // M2 narrow: most gaps a block
 constexpr int kWinThreads = 256;            // M2 wide: threads a block
 constexpr unsigned kFull = 0xffffffffu;
+
+// M2's sched mode: where a freezing window's final-scale output goes.
+struct SchedOut {
+  const int32_t* orig_ids;  // [n_win] each window's output row
+  uint8_t* codes;           // [n_keep + 1, LA]
+  int32_t* cov;             // [n_keep + 1, LA]
+  int32_t* total;           // [n_keep + 1]
+  uint8_t* ovf;             // [n_keep + 1]
+  int n_keep;               // rows below the trash row n_keep
+  float scale;              // the final round's insertion scale
+  int last;                 // the schedule's last round: every window freezes
+};
 
 // ------------------------------------------------------------------ M1
 
@@ -494,9 +518,11 @@ __device__ __forceinline__ int warp_scan(int v, int lane, Op op) {
 // the warp totals through ``buf`` (32 ints of shared memory that no other
 // scan of the launch uses) and one barrier, then each warp scans the warp
 // totals itself. Returns the scan at this thread; ``*total`` gets the
-// block's reduction. Every thread of the block calls it.
+// block's reduction. Every thread of the block calls it. Always inlined
+// (the sched mode calls the sum scan twice).
 template <bool Reverse, class Op>
-__device__ int scan_block(int v, int identity, Op op, int* buf, int* total) {
+__device__ __forceinline__ int scan_block(int v, int identity, Op op,
+                                          int* buf, int* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   v = warp_scan<Reverse>(v, lane, op);
@@ -511,6 +537,75 @@ __device__ int scan_block(int v, int identity, Op op, int* buf, int* total) {
   return op(before, v);
 }
 
+// The insertion ranks of gap p (narrow M2) at ``scale``, from the folded
+// crossing weight dw: (x) the ranks emitted (rank 0 folds in the single
+// insertions; rank k is tested only while every rank before it emitted),
+// (y) their codes, 3 bits a rank.
+__device__ __forceinline__ uint2 ins_ranks(const float* __restrict__ votes,
+                                           int vp, int LA1, float dw,
+                                           float scale, bool emit) {
+  int e = 0;
+  unsigned icode = 0;
+  float stopped = __fmul_rn(dw, scale);
+#pragma unroll
+  for (int k = 0; k < kKins && emit; ++k) {
+    const int vk = vp + (kPileW + kNbase * k) * LA1;
+    float cw[kNbase];
+#pragma unroll
+    for (int i = 0; i < kNbase; ++i) {
+      cw[i] = votes[vk + i * LA1];
+      if (k == 0) cw[i] = __fadd_rn(cw[i], votes[vp + (kIns1W + i) * LA1]);
+    }
+    float tot = cw[0];
+#pragma unroll
+    for (int i = 1; i < kNbase; ++i) tot = __fadd_rn(tot, cw[i]);
+    emit = tot > stopped;
+    int bk = 0;
+    float top = cw[0];
+#pragma unroll
+    for (int i = 1; i < kNbase; ++i)
+      if (cw[i] > top) {
+        top = cw[i];
+        bk = i;
+      }
+    if (emit) {
+      icode |= (unsigned)bk << (3 * k);
+      ++e;
+      if (k + 1 < kKins)
+        stopped = __fadd_rn(
+            stopped, votes[vp + (k == 0 ? kIns1Stop : kLenw + k - 1) * LA1]);
+    }
+  }
+  return make_uint2((unsigned)e, icode);
+}
+
+// Gap p's crossing weight with the backbone's folded in (narrow M2, 32-bit
+// offsets: vp gap p's sums, ap the window's anchor row).
+__device__ __forceinline__ float fold_direct_at(
+    const float* __restrict__ votes, const float* __restrict__ bbw, int vp,
+    int ap, int p, int al, int LA, int LA1, float eps) {
+  float dw = votes[vp + kDirect * LA1];
+  if (p <= al) {
+    const float bwl = bbw[ap + min(max(al - 1, 0), LA - 1)];
+    float left = p == 0 ? bbw[ap] : bbw[ap + p - 1];
+    float right = p < LA ? bbw[ap + p] : bwl;
+    if (p == al) left = right = bwl;
+    dw = __fadd_rn(dw, __fadd_rn(__fmul_rn(0.5f, __fadd_rn(left, right)),
+                                 eps));
+  }
+  return dw;
+}
+
+// The count of gap p's emitted rank k, code bk (narrow M2), read from the
+// sums again.
+__device__ __forceinline__ int ins_count(const float* __restrict__ votes,
+                                         int vp, int LA1, int k, int bk) {
+  float c = votes[vp + (kPileC + kNbase * k + bk) * LA1];
+  if (k == 0) c = __fadd_rn(c, votes[vp + (kIns1C + bk) * LA1]);
+  return (int)c;
+}
+
+template <bool Sched>
 __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
     const float* __restrict__ votes, const float* __restrict__ wesc,
     const uint8_t* __restrict__ bb, const float* __restrict__ bbw,
@@ -522,7 +617,7 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
     int32_t* __restrict__ new_alen, int32_t* __restrict__ nb,
     int32_t* __restrict__ ne, int32_t* __restrict__ cov_out,
     uint8_t* __restrict__ ovf_out, uint8_t* __restrict__ conv, int B,
-    int n_win, int LA, float ins_scale, float eps, int detect) {
+    int n_win, int LA, float ins_scale, float eps, int detect, SchedOut so) {
   extern __shared__ int maps[];  // [2][LA]: map_b, then map_e
   __shared__ int red[3][32];     // warp totals of the three scans
   const int p = threadIdx.x;
@@ -543,15 +638,7 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
   unsigned icode = 0;
   bool kept = false;
   if (p <= LA) {
-    float dw = votes[vp + kDirect * LA1];
-    if (p <= al) {
-      const float bwl = bbw[ap + min(max(al - 1, 0), LA - 1)];
-      float left = p == 0 ? bbw[ap] : bbw[ap + p - 1];
-      float right = p < LA ? bbw[ap + p] : bwl;
-      if (p == al) left = right = bwl;
-      dw = __fadd_rn(dw, __fadd_rn(__fmul_rn(0.5f, __fadd_rn(left, right)),
-                                   eps));
-    }
+    const float dw = fold_direct_at(votes, bbw, vp, ap, p, al, LA, LA1, eps);
     if (p < LA) {
       float bw[kNbase + 1];
 #pragma unroll
@@ -579,38 +666,9 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
         ccov = (int)c;
       }
     }
-    // The insertion ranks (rank 0 folds in the single insertions).
-    float stopped = __fmul_rn(dw, ins_scale);
-    bool emit = p <= al;
-#pragma unroll
-    for (int k = 0; k < kKins && emit; ++k) {
-      const int vk = vp + (kPileW + kNbase * k) * LA1;
-      float cw[kNbase];
-#pragma unroll
-      for (int i = 0; i < kNbase; ++i) {
-        cw[i] = votes[vk + i * LA1];
-        if (k == 0) cw[i] = __fadd_rn(cw[i], votes[vp + (kIns1W + i) * LA1]);
-      }
-      float tot = cw[0];
-#pragma unroll
-      for (int i = 1; i < kNbase; ++i) tot = __fadd_rn(tot, cw[i]);
-      emit = tot > stopped;
-      int bk = 0;
-      float top = cw[0];
-#pragma unroll
-      for (int i = 1; i < kNbase; ++i)
-        if (cw[i] > top) {
-          top = cw[i];
-          bk = i;
-        }
-      if (emit) {
-        icode |= (unsigned)bk << (3 * k);
-        ++e;
-        if (k + 1 < kKins)
-          stopped = __fadd_rn(
-              stopped, votes[vp + (k == 0 ? kIns1Stop : kLenw + k - 1) * LA1]);
-      }
-    }
+    const uint2 r = ins_ranks(votes, vp, LA1, dw, ins_scale, p <= al);
+    e = (int)r.x;
+    icode = r.y;
   }
 
   // Each gap's start in the compacted row, and the window's total.
@@ -631,10 +689,8 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
     const int pos = st + k;
     if (pos < LA) {
       const int bk = (icode >> (3 * k)) & 7;
-      float c = votes[vp + (kPileC + kNbase * k + bk) * LA1];
-      if (k == 0) c = __fadd_rn(c, votes[vp + (kIns1C + bk) * LA1]);
       new_bb[ap + pos] = (uint8_t)bk;
-      cov_out[ap + pos] = (int)c;
+      cov_out[ap + pos] = ins_count(votes, vp, LA1, k, bk);
       if (detect) same = same && bb[ap + pos] == bk;
     }
   }
@@ -683,10 +739,12 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
     changed = changed || (r < n_real && (nbv != b || nev != en));
   }
   const bool unchanged = __syncthreads_and(same && !changed);
+  const bool ovf_pre = ovf[w] || wesc[w] > 0.0f;
+  const bool cv = detect && total == al && unchanged;
   if (p == 0) {
     new_alen[w] = tot_c;
-    ovf_out[w] = ovf[w] || total > LA || wesc[w] > 0.0f;
-    conv[w] = detect && total == al && unchanged;
+    ovf_out[w] = ovf_pre || total > LA;
+    conv[w] = cv;
   }
   if (w == n_win - 1) {
     for (int i = p; i < LA; i += blockDim.x) {
@@ -694,6 +752,51 @@ __global__ void __launch_bounds__(kWinMaxThreads) merge_windows_kernel(
       new_bbw[(size_t)n_win * LA + i] = 0.0f;
     }
     if (p == 0) new_alen[n_win] = alen[n_win];
+  }
+  if constexpr (Sched) {
+    // The dual assembly of a freezing window (the test is the same in
+    // every thread of the block): the insertion ranks again at the final
+    // scale, a scan and the scatter into the window's output row. The
+    // folded crossing weight is computed again rather than kept: held
+    // across the remap, it made the kernel spill at its 32 registers.
+    const bool ovf_new = ovf_pre || total > LA;
+    const int orow = so.orig_ids[w];
+    if (!(cv || ovf_new || so.last) || orow < 0 || orow >= so.n_keep) return;
+    const uint2 r_f =
+        p <= LA ? ins_ranks(votes, vp, LA1,
+                            fold_direct_at(votes, bbw, vp, ap, p, al, LA,
+                                           LA1, eps),
+                            so.scale, p <= al)
+                : make_uint2(0u, 0u);
+    const int e_f = (int)r_f.x;
+    const unsigned icode_f = r_f.y;
+    const int ulen_f = e_f + (int)kept;
+    int total_f;
+    const int st_f =
+        scan_block<false>(ulen_f, 0, OpSum(), red[0], &total_f) - ulen_f;
+    uint8_t* oc = so.codes + (size_t)orow * LA;
+    int32_t* ov = so.cov + (size_t)orow * LA;
+    if (p < LA && p >= total_f) {
+      oc[p] = 0;
+      ov[p] = 0;
+    }
+    for (int k = 0; k < e_f; ++k) {
+      const int pos = st_f + k;
+      if (pos < LA) {
+        const int bk = (icode_f >> (3 * k)) & 7;
+        oc[pos] = (uint8_t)bk;
+        ov[pos] = ins_count(votes, vp, LA1, k, bk);
+      }
+    }
+    const int pk_f = st_f + e_f;
+    if (kept && pk_f < LA) {
+      oc[pk_f] = (uint8_t)best;
+      ov[pk_f] = ccov;
+    }
+    if (p == 0) {
+      so.total[orow] = min(max(total_f, 1), LA);
+      so.ovf[orow] = (so.last ? ovf_pre : ovf_new) || total_f > LA;
+    }
   }
 }
 
@@ -803,6 +906,75 @@ __device__ __forceinline__ int first_max5(const float* v) {
   return best;
 }
 
+// Gap p's crossing weight with the backbone's folded in (wide M2): v =
+// the window's sums at gap p, bwr its anchor weights.
+__device__ __forceinline__ float fold_direct(const float* v, const float* bwr,
+                                            int p, int al, int LA, int LA1,
+                                            float bwl, float eps) {
+  float dw = v[(size_t)kDirect * LA1];
+  if (p <= al) {
+    float left = p == 0 ? bwr[0] : bwr[p - 1];
+    float right = p < LA ? bwr[p] : bwl;
+    if (p == al) left = right = bwl;
+    dw = __fadd_rn(dw, __fadd_rn(__fmul_rn(0.5f, __fadd_rn(left, right)),
+                                 eps));
+  }
+  return dw;
+}
+
+// Gap p's insertion ranks at ``scale`` (wide M2): each reached rank's code
+// and count into the scratch; returns the ranks emitted.
+__device__ __forceinline__ int wide_ins(const float* v, const WinScratch& s,
+                                        int p, int LA1, float dw, float scale,
+                                        bool emit) {
+  float stopped = __fmul_rn(dw, scale);
+  int e = 0;
+  for (int k = 0; k < kKins && emit; ++k) {
+    float cw[kNbase], cc[kNbase];
+#pragma unroll
+    for (int i = 0; i < kNbase; ++i) {
+      cw[i] = v[(size_t)(kPileW + kNbase * k + i) * LA1];
+      cc[i] = v[(size_t)(kPileC + kNbase * k + i) * LA1];
+      if (k == 0) {
+        cw[i] = __fadd_rn(cw[i], v[(size_t)(kIns1W + i) * LA1]);
+        cc[i] = __fadd_rn(cc[i], v[(size_t)(kIns1C + i) * LA1]);
+      }
+    }
+    float tot = cw[0];
+#pragma unroll
+    for (int i = 1; i < kNbase; ++i) tot = __fadd_rn(tot, cw[i]);
+    emit = tot > stopped;
+    const int bk = first_max5(cw);
+    s.ins_code[k * LA1 + p] = (uint8_t)bk;
+    s.ins_cnt[k * LA1 + p] = (int)cc[bk];
+    e += emit;
+    if (k == 0) stopped = __fadd_rn(stopped, v[(size_t)kIns1Stop * LA1]);
+    if (k >= 1) stopped = __fadd_rn(stopped, v[(size_t)(kLenw + k - 1) * LA1]);
+  }
+  return e;
+}
+
+// Scatter each gap's run (wide M2) from the scanned starts in the scratch
+// into a compacted row: codes and coverage at positions below LA.
+__device__ __forceinline__ void wide_scatter(const WinScratch& s, int LA,
+                                             uint8_t* codes, int32_t* cov) {
+  const int LA1 = LA + 1;
+  for (int p = threadIdx.x; p <= LA; p += blockDim.x) {
+    const int st = s.start[p];
+    const int e = s.e[p];
+    for (int k = 0; k < e; ++k)
+      if (st + k < LA) {
+        codes[st + k] = s.ins_code[k * LA1 + p];
+        cov[st + k] = s.ins_cnt[k * LA1 + p];
+      }
+    if (p < LA && s.kept[p] && st + e < LA) {
+      codes[st + e] = s.col_code[p];
+      cov[st + e] = s.col_cov[p];
+    }
+  }
+}
+
+template <bool Sched>
 __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
     const float* __restrict__ votes, const float* __restrict__ wesc,
     const uint8_t* __restrict__ bb, const float* __restrict__ bbw,
@@ -815,7 +987,7 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
     int32_t* __restrict__ ne, int32_t* __restrict__ cov_out,
     uint8_t* __restrict__ ovf_out, uint8_t* __restrict__ conv,
     uint8_t* __restrict__ scratch, int B, int n_win, int LA, float ins_scale,
-    float eps, int detect) {
+    float eps, int detect, SchedOut so) {
   __shared__ int red[32];  // scan scratch
   __shared__ int changed;  // the window's changed spans
   const int T = blockDim.x, t = threadIdx.x;
@@ -834,14 +1006,7 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
   // Backbone fold and vote-out of each gap.
   for (int p = t; p <= LA; p += T) {
     const float* v = V + p;
-    float dw = v[(size_t)kDirect * LA1];
-    if (p <= al) {
-      float left = p == 0 ? bwr[0] : bwr[p - 1];
-      float right = p < LA ? bwr[p] : bwl;
-      if (p == al) left = right = bwl;
-      dw = __fadd_rn(dw, __fadd_rn(__fmul_rn(0.5f, __fadd_rn(left, right)),
-                                   eps));
-    }
+    const float dw = fold_direct(v, bwr, p, al, LA, LA1, bwl, eps);
     bool kept = false;
     if (p < LA) {
       float bw[kNbase + 1], bc[kNbase];
@@ -860,31 +1025,7 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
       s.col_code[p] = (uint8_t)best;
       s.col_cov[p] = (int)bc[best];
     }
-    float stopped = __fmul_rn(dw, ins_scale);
-    bool emit = p <= al;
-    int e = 0;
-    for (int k = 0; k < kKins && emit; ++k) {
-      float cw[kNbase], cc[kNbase];
-#pragma unroll
-      for (int i = 0; i < kNbase; ++i) {
-        cw[i] = v[(size_t)(kPileW + kNbase * k + i) * LA1];
-        cc[i] = v[(size_t)(kPileC + kNbase * k + i) * LA1];
-        if (k == 0) {
-          cw[i] = __fadd_rn(cw[i], v[(size_t)(kIns1W + i) * LA1]);
-          cc[i] = __fadd_rn(cc[i], v[(size_t)(kIns1C + i) * LA1]);
-        }
-      }
-      float tot = cw[0];
-#pragma unroll
-      for (int i = 1; i < kNbase; ++i) tot = __fadd_rn(tot, cw[i]);
-      emit = tot > stopped;
-      const int bk = first_max5(cw);
-      s.ins_code[k * LA1 + p] = (uint8_t)bk;
-      s.ins_cnt[k * LA1 + p] = (int)cc[bk];
-      e += emit;
-      if (k == 0) stopped = __fadd_rn(stopped, v[(size_t)kIns1Stop * LA1]);
-      if (k >= 1) stopped = __fadd_rn(stopped, v[(size_t)(kLenw + k - 1) * LA1]);
-    }
+    const int e = wide_ins(v, s, p, LA1, dw, ins_scale, p <= al);
     s.e[p] = (uint8_t)e;
     s.kept[p] = kept;
     s.start[p] = e + kept;
@@ -898,23 +1039,11 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
 
   // Compaction: a scatter from each gap, and each kept column's landing
   // position for the maps.
-  for (int p = t; p <= LA; p += T) {
-    const int st = s.start[p];
-    const int e = s.e[p];
-    for (int k = 0; k < e; ++k)
-      if (st + k < LA) {
-        codes[st + k] = s.ins_code[k * LA1 + p];
-        cov[st + k] = s.ins_cnt[k * LA1 + p];
-      }
-    if (p < LA) {
-      const bool kept = s.kept[p];
-      if (kept && st + e < LA) {
-        codes[st + e] = s.col_code[p];
-        cov[st + e] = s.col_cov[p];
-      }
-      s.map_b[p] = kept ? st + e : kHi;
-      s.map_e[p] = kept ? st + e : -kHi;
-    }
+  wide_scatter(s, LA, codes, cov);
+  for (int p = t; p < LA; p += T) {
+    const int pk = s.start[p] + s.e[p];
+    s.map_b[p] = s.kept[p] ? pk : kHi;
+    s.map_e[p] = s.kept[p] ? pk : -kHi;
   }
   __syncthreads();
   const int first_kept =
@@ -958,10 +1087,12 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
     new_bbw[(size_t)w * LA + i] = 0.0f;
   }
   same = __syncthreads_and(same);
+  const bool ovf_pre = ovf[w] || wesc[w] > 0.0f;
+  const bool cv = detect && total == al && changed == 0 && same;
   if (t == 0) {
     new_alen[w] = tot_c;
-    ovf_out[w] = ovf[w] || total > LA || wesc[w] > 0.0f;
-    conv[w] = detect && total == al && changed == 0 && same;
+    ovf_out[w] = ovf_pre || total > LA;
+    conv[w] = cv;
   }
   if (w == n_win - 1) {
     for (int i = t; i < LA; i += T) {
@@ -969,6 +1100,34 @@ __global__ void __launch_bounds__(kWinThreads) merge_windows_wide_kernel(
       new_bbw[(size_t)n_win * LA + i] = 0.0f;
     }
     if (t == 0) new_alen[n_win] = alen[n_win];
+  }
+  if constexpr (Sched) {
+    // The dual assembly of a freezing window (the same test in every
+    // thread): the insertion ranks again at the final scale into the
+    // scratch (the first pass is done with it), a scan and the scatter
+    // into the window's output row.
+    const bool ovf_new = ovf_pre || total > LA;
+    const int orow = so.orig_ids[w];
+    if (!(cv || ovf_new || so.last) || orow < 0 || orow >= so.n_keep) return;
+    uint8_t* oc = so.codes + (size_t)orow * LA;
+    int32_t* ov = so.cov + (size_t)orow * LA;
+    for (int p = t; p <= LA; p += T) {
+      const float dw = fold_direct(V + p, bwr, p, al, LA, LA1, bwl, eps);
+      const int e = wide_ins(V + p, s, p, LA1, dw, so.scale, p <= al);
+      s.e[p] = (uint8_t)e;
+      s.start[p] = e + s.kept[p];
+    }
+    for (int i = t; i < LA; i += T) {
+      oc[i] = 0;
+      ov[i] = 0;
+    }
+    __syncthreads();
+    const int total_f = block_scan(s.start, LA1, 0, false, true, OpSum(), red);
+    wide_scatter(s, LA, oc, ov);
+    if (t == 0) {
+      so.total[orow] = min(max(total_f, 1), LA);
+      so.ovf[orow] = (so.last ? ovf_pre : ovf_new) || total_f > LA;
+    }
   }
 }
 
@@ -1024,6 +1183,11 @@ extern "C" long long racon_merge_windows_scratch(int LA) {
 // from LA+1 to kWinMaxThreads, scratch unused; 1: the wide kernel,
 // kWinThreads threads, scratch n_win * racon_merge_windows_scratch(LA)
 // bytes, 16-byte aligned, read only after this launch writes it.
+// ``sched`` 1: the sched mode, which also writes each freezing window's
+// final-scale output (at ``scale_final``; every window freezes when
+// ``last``) into row orig_ids[w] (i32 [n_win]) of out_codes u8 / out_cov
+// i32 [n_keep+1, LA], out_total i32 and out_ovf u8 [n_keep+1], unless
+// that row is n_keep or more; 0: those are not read.
 extern "C" int racon_merge_windows(
     const void* votes, const void* wesc, const void* bb, const void* bbw,
     const void* alen, const void* begin, const void* end, const void* win,
@@ -1031,8 +1195,14 @@ extern "C" int racon_merge_windows(
     const void* ovf, void* new_bb, void* new_bbw, void* new_alen, void* nb,
     void* ne, void* cov, void* ovf_out, void* conv, void* scratch, int B,
     int n_win, int LA, float ins_scale, float eps, int detect, int wide,
-    int threads, void* stream) {
+    int threads, const void* orig_ids, void* out_codes, void* out_cov,
+    void* out_total, void* out_ovf, int n_keep, float scale_final, int last,
+    int sched, void* stream) {
   if (B <= 0 || n_win <= 0 || LA <= 0) return (int)cudaErrorInvalidValue;
+  if (sched && (orig_ids == nullptr || out_codes == nullptr ||
+                out_cov == nullptr || out_total == nullptr ||
+                out_ovf == nullptr || n_keep < 0))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* v = static_cast<const float*>(votes);
   const float* we = static_cast<const float*>(wesc);
@@ -1046,42 +1216,64 @@ extern "C" int racon_merge_windows(
   const int32_t* sa = static_cast<const int32_t*>(starts);
   const int32_t* co = static_cast<const int32_t*>(counts);
   const uint8_t* ov = static_cast<const uint8_t*>(ovf);
+  uint8_t* nbb = static_cast<uint8_t*>(new_bb);
+  float* nbw = static_cast<float*>(new_bbw);
+  int32_t* nal = static_cast<int32_t*>(new_alen);
+  int32_t* nb_ = static_cast<int32_t*>(nb);
+  int32_t* ne_ = static_cast<int32_t*>(ne);
+  int32_t* cv = static_cast<int32_t*>(cov);
+  uint8_t* oo = static_cast<uint8_t*>(ovf_out);
+  uint8_t* cf = static_cast<uint8_t*>(conv);
+  const SchedOut so{static_cast<const int32_t*>(orig_ids),
+                    static_cast<uint8_t*>(out_codes),
+                    static_cast<int32_t*>(out_cov),
+                    static_cast<int32_t*>(out_total),
+                    static_cast<uint8_t*>(out_ovf), n_keep, scale_final,
+                    last};
   if (wide) {
     if (threads != kWinThreads || scratch == nullptr ||
         reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    merge_windows_wide_kernel<<<n_win, kWinThreads, 0, st>>>(
-        v, we, b8, bw, al, be, en, wi, od, sa, co, ov,
-        static_cast<uint8_t*>(new_bb), static_cast<float*>(new_bbw),
-        static_cast<int32_t*>(new_alen), static_cast<int32_t*>(nb),
-        static_cast<int32_t*>(ne), static_cast<int32_t*>(cov),
-        static_cast<uint8_t*>(ovf_out), static_cast<uint8_t*>(conv),
-        static_cast<uint8_t*>(scratch), B, n_win, LA, ins_scale, eps, detect);
+    uint8_t* sc = static_cast<uint8_t*>(scratch);
+    if (sched)
+      merge_windows_wide_kernel<true><<<n_win, kWinThreads, 0, st>>>(
+          v, we, b8, bw, al, be, en, wi, od, sa, co, ov, nbb, nbw, nal, nb_,
+          ne_, cv, oo, cf, sc, B, n_win, LA, ins_scale, eps, detect, so);
+    else
+      merge_windows_wide_kernel<false><<<n_win, kWinThreads, 0, st>>>(
+          v, we, b8, bw, al, be, en, wi, od, sa, co, ov, nbb, nbw, nal, nb_,
+          ne_, cv, oo, cf, sc, B, n_win, LA, ins_scale, eps, detect, so);
   } else {
     if (threads % 32 != 0 || threads < LA + 1 || threads > kWinMaxThreads)
       return (int)cudaErrorInvalidValue;
-    merge_windows_kernel<<<n_win, threads, windows_smem(LA), st>>>(
-        v, we, b8, bw, al, be, en, wi, od, sa, co, ov,
-        static_cast<uint8_t*>(new_bb), static_cast<float*>(new_bbw),
-        static_cast<int32_t*>(new_alen), static_cast<int32_t*>(nb),
-        static_cast<int32_t*>(ne), static_cast<int32_t*>(cov),
-        static_cast<uint8_t*>(ovf_out), static_cast<uint8_t*>(conv), B,
-        n_win, LA, ins_scale, eps, detect);
+    const size_t shm = windows_smem(LA);
+    if (sched)
+      merge_windows_kernel<true><<<n_win, threads, shm, st>>>(
+          v, we, b8, bw, al, be, en, wi, od, sa, co, ov, nbb, nbw, nal, nb_,
+          ne_, cv, oo, cf, B, n_win, LA, ins_scale, eps, detect, so);
+    else
+      merge_windows_kernel<false><<<n_win, threads, shm, st>>>(
+          v, we, b8, bw, al, be, en, wi, od, sa, co, ov, nbb, nbw, nal, nb_,
+          ne_, cv, oo, cf, B, n_win, LA, ins_scale, eps, detect, so);
   }
   return (int)cudaGetLastError();
 }
 
 // out: resident blocks an SM, registers a thread, local-memory bytes a
 // thread, threads a block and shared memory a block of M1 (which = 0),
-// the narrow M2 (1) or the wide M2 (2), launched with ``threads`` threads
-// and ``smem`` bytes of dynamic shared memory.
+// the narrow M2 (1) or the wide M2 (2), or M2's sched mode, narrow (3) or
+// wide (4), launched with ``threads`` threads and ``smem`` bytes of
+// dynamic shared memory.
 extern "C" int racon_merge_occupancy(int which, int threads, int smem,
                                      int* out) {
-  if (which < 0 || which > 2 || threads < 1 || smem < 0)
+  if (which < 0 || which > 4 || threads < 1 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  const void* fn = which == 0   ? (const void*)merge_votes_kernel
-                   : which == 1 ? (const void*)merge_windows_kernel
-                                : (const void*)merge_windows_wide_kernel;
+  const void* fns[] = {(const void*)merge_votes_kernel,
+                       (const void*)merge_windows_kernel<false>,
+                       (const void*)merge_windows_wide_kernel<false>,
+                       (const void*)merge_windows_kernel<true>,
+                       (const void*)merge_windows_wide_kernel<true>};
+  const void* fn = fns[which];
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;

@@ -356,6 +356,7 @@ class Polisher:
                 self.windows[s:s + self.window_chunk])
             log.tick(
                 "[racon_tpu_torch::Polisher::polish] generating consensus")
+        self._log_sched_summary()
         for i, w in enumerate(self.windows):
             done = asm.feed(i, w)
             if done is not None:
@@ -363,6 +364,14 @@ class Polisher:
 
         log.phase("[racon_tpu_torch::Polisher::polish] generated consensus")
         self.windows = []
+
+    def _log_sched_summary(self) -> None:
+        """The convergence scheduler's one stderr line, from its
+        telemetry (sched/telemetry.py), when it ran."""
+        telem = self.engine.sched_telemetry
+        if telem is not None and telem.windows:
+            self.logger.line("[racon_tpu_torch::Polisher::polish] "
+                             "scheduler " + telem.summary())
 
     def polish(self, drop_unpolished_sequences: bool = True
                ) -> List[PolishedSequence]:

@@ -26,7 +26,10 @@ aggregate_votes, M1) returns the per-window sums as one channel-major
 buffer [n_win, VOTE_CH, LA+1] (``pack_votes``; ``vote_views`` gives
 aggregate_votes' dict back as views of it), and ``merge_windows_plain``
 (add_backbone -> assemble -> compact -> coord_maps -> remap_state, M2)
-the next round's state.
+the next round's state. ``merge_windows_sched_plain`` is the plain
+version of M2's sched mode, the convergence scheduler's round merge: the
+same round, and the frozen windows' final-scale outputs written into the
+scheduler's accumulators.
 """
 
 from __future__ import annotations
@@ -637,6 +640,29 @@ def remap_state(codes, total, map_b, map_e, bb, alen, begin, end, win,
     return new_bb, new_alen, nb, ne
 
 
+def _windows_plain(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
+                   ins_scale: float, n_win: int, LA: int, detect: bool):
+    """merge_windows_plain's body; also returns the folded sums and the
+    sticky flag before this round's assembly (``ovf_pre``)."""
+    acc = add_backbone(vote_views(votes), bb[:-1], bbw[:-1], alen[:-1])
+    asm = assemble(acc, alen[:-1], ins_scale)
+    codes, cov, total = compact(asm, LA)
+    map_b, map_e = coord_maps(asm, alen[:-1], LA)
+    new_bb, new_alen, nb, ne = remap_state(
+        codes, total, map_b, map_e, bb, alen, begin, end, win, LA)
+    new_bbw = torch.zeros_like(bbw)
+    ovf_pre = ovf | (wesc > 0)
+    if detect:
+        chg = ((nb != begin) | (ne != end)).to(torch.float32)
+        wchg = aggregate_flags(chg, win, n_win)
+        conv = converged_windows(codes, total, bb[:-1], alen[:-1], wchg)
+    else:
+        conv = torch.zeros(n_win, dtype=torch.bool, device=bb.device)
+    out = (new_bb, new_bbw, new_alen, nb, ne, cov, ovf_pre | (total > LA),
+           conv)
+    return out, acc, ovf_pre
+
+
 def merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
                         ins_scale: float, n_win: int, LA: int,
                         detect: bool = False):
@@ -645,18 +671,41 @@ def merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end, win, ovf, *,
     per-window fixed-point predicate. bb/bbw/alen carry the dummy row
     (n_win + 1 rows). Returns (new_bb, new_bbw, new_alen, new_begin,
     new_end, cov, ovf, conv)."""
-    acc = add_backbone(vote_views(votes), bb[:-1], bbw[:-1], alen[:-1])
-    asm = assemble(acc, alen[:-1], ins_scale)
-    codes, cov, total = compact(asm, LA)
-    map_b, map_e = coord_maps(asm, alen[:-1], LA)
-    new_bb, new_alen, nb, ne = remap_state(
-        codes, total, map_b, map_e, bb, alen, begin, end, win, LA)
-    new_bbw = torch.zeros_like(bbw)
-    ovf = ovf | (total > LA) | (wesc > 0)
-    if detect:
-        chg = ((nb != begin) | (ne != end)).to(torch.float32)
-        wchg = aggregate_flags(chg, win, n_win)
-        conv = converged_windows(codes, total, bb[:-1], alen[:-1], wchg)
-    else:
-        conv = torch.zeros(n_win, dtype=torch.bool, device=bb.device)
-    return new_bb, new_bbw, new_alen, nb, ne, cov, ovf, conv
+    return _windows_plain(votes, wesc, bb, bbw, alen, begin, end, win, ovf,
+                          ins_scale=ins_scale, n_win=n_win, LA=LA,
+                          detect=detect)[0]
+
+
+def merge_windows_sched_plain(votes, wesc, bb, bbw, alen, begin, end, win,
+                              ovf, orig_ids, out, *, ins_scale: float,
+                              scale_final: float, last: bool, n_win: int,
+                              LA: int, detect: bool = False):
+    """The plain version of M2's sched mode, the convergence scheduler's
+    round merge (the reference's sched/rounds.py ``_sched_core`` and the
+    scatter of ``sched_rounds``): merge_windows_plain's round, and for
+    every window that freezes (converged, flagged or ``last``) the dual
+    assembly — the same sums assembled and compacted at ``scale_final`` —
+    written into row ``orig_ids[w]`` of the scheduler's output
+    accumulators ``out`` = (codes u8 [R+1, LA], cov i32 [R+1, LA], total
+    i32 [R+1], ovf bool [R+1]), in place. Row R is the trash row of the
+    windows with no output row (padding after a repack): nothing is
+    written there. The written length is clip(total_f, 1, LA); the flag
+    the final-scale one when ``last`` (the fixed engine's last round runs
+    no base-scale assembly), else the carried flag with the final-scale
+    overflow. Returns merge_windows_plain's tuple."""
+    res, acc, ovf_pre = _windows_plain(
+        votes, wesc, bb, bbw, alen, begin, end, win, ovf,
+        ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect)
+    ovf_new, conv = res[6], res[7]
+    codes_f, cov_f, total_f = compact(
+        assemble(acc, alen[:-1], scale_final), LA)
+    ovf_f = ovf_pre | (total_f > LA)
+    out_codes, out_cov, out_total, out_ovf = out
+    sel = (conv | ovf_new | bool(last)) & \
+        (orig_ids < out_codes.shape[0] - 1)
+    rows = orig_ids[sel].long()
+    out_codes[rows] = codes_f[sel]
+    out_cov[rows] = cov_f[sel]
+    out_total[rows] = torch.clamp(total_f, 1, LA)[sel].to(out_total.dtype)
+    out_ovf[rows] = (ovf_f if last else ovf_new | (total_f > LA))[sel]
+    return res

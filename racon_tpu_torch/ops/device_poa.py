@@ -4,7 +4,9 @@
 Per chunk:
 
   h2d once:  two packed byte buffers (ChunkPlan.packed_bufs): layer
-             codes/weights/spans and the backbone anchors
+             codes/weights/spans and the backbone anchors, copied from
+             pinned memory on a copy stream (put_chunk_bufs), so that a
+             caller can start chunk i+1's copy before chunk i's rounds
   per round (all on the device):
     - job geometry from spans (full-span 1% rule, src/window.cpp:82)
     - the shifted target buffer (tband / tbuf) by gather from the anchors
@@ -22,6 +24,12 @@ a lane that fails it, or whose walk saturates, flags its window (sticky
 ``ovf``) for the wide-band redo (ops/redo.py) and, failing that, the host
 path. With ``adaptive`` the middle rounds stop as soon as every window is
 converged or flagged — the skipped rounds are exact replays.
+
+This module is the fixed-round engine (``RACON_TPU_SCHED=0``); the
+convergence scheduler (sched/) drives the same round pieces window by
+window. ``set_stage_clock`` times the device stages of both (tband,
+forward, walk, merge, and the scheduler's repack gathers),
+``set_host_clock`` the host parts of the chunk loops.
 """
 
 from __future__ import annotations
@@ -243,10 +251,10 @@ class ChunkPlan:
 
 class StageClock:
     """Per-stage device time of the chunk rounds (tband, forward, walk,
-    merge): CUDA events on a GPU, the host clock on the CPU; and the kernel
-    launches made inside each stage (the change of ``kernels.LAUNCHES``).
-    Enabled with :func:`set_stage_clock`; read once at the end (one
-    synchronize)."""
+    merge, and the scheduler's survivor gathers, repack): CUDA events on a
+    GPU, the host clock on the CPU; and the kernel launches made inside
+    each stage (the change of ``kernels.LAUNCHES``). Enabled with
+    :func:`set_stage_clock`; read once at the end (one synchronize)."""
 
     def __init__(self):
         self._ev: Dict[str, list] = {}
@@ -307,6 +315,47 @@ def _stage(name: str, device: torch.device):
     if _CLOCK is None:
         return contextlib.nullcontext()
     return _CLOCK.stage(name, device)
+
+
+class HostClock:
+    """Host seconds of the chunk loops, summed by part over chunks:
+    ``plan`` (ChunkPlan and packed_bufs), ``h2d`` (the copies' enqueue),
+    ``rounds`` (the round launches; the fixed engine's adaptive test
+    waits on the card here), ``flags`` (the scheduler's flag pulls, which
+    wait on the card), ``repack`` (RepackPlan, its index copies and the
+    gathers' launches), ``collect`` (the d2h, which waits on the card)
+    and ``apply`` (the windows' consensus applied); ``n`` counts the
+    times each part ran. Enabled with :func:`set_host_clock`."""
+
+    def __init__(self):
+        self.s: Dict[str, float] = {}
+        self.n: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+            self.n[name] = self.n.get(name, 0) + 1
+
+
+_HOST: Optional[HostClock] = None
+
+
+def set_host_clock(on: bool = True) -> Optional[HostClock]:
+    """Start (or stop, ``on=False``) the host split; returns the clock."""
+    global _HOST
+    _HOST = HostClock() if on else None
+    return _HOST
+
+
+def host_part(name: str):
+    """Time a host part of a chunk loop (no-op when the clock is off)."""
+    if _HOST is None:
+        return contextlib.nullcontext()
+    return _HOST.part(name)
 
 
 # ------------------------------------------------------------ one round
@@ -379,13 +428,15 @@ def _lane_walk(cells, nxt, nxt2, lt, t_off, klo, esc0, lq, *, LA,
 
 def _merge_round(cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw, alen,
                  begin, end, win, ovf, members, *, ins_scale, n_win, LA,
-                 detect=False):
+                 detect=False, freeze=None):
     """The back half of a round, from the walk's columns to the next
     round's state: M1 (kernels.merge_votes: vote extraction and the
     per-window sums) and M2 (kernels.merge_windows: backbone, vote-out,
     compaction, coordinate maps, state remap), on the card with no host
     sync; their plain versions on the CPU. ``members``: the chunk's
-    dm.window_members (the plain versions do not read it).
+    dm.window_members (the plain versions do not read it). ``freeze``:
+    the convergence scheduler's (orig_ids, out, scale_final, last), which
+    runs M2 in its sched mode (kernels.merge_windows_sched).
     Returns (new_bb, new_bbw, new_alen, new_begin, new_end, cov, ovf,
     conv)."""
     with _stage("merge", bb.device):
@@ -394,16 +445,23 @@ def _merge_round(cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw, alen,
         votes, wesc = kernels.merge_votes(
             cols, q, qw8, w_read, lt, t_off, esc_w, win, members, n_win=n_win,
             LA=LA)
-        return kernels.merge_windows(
-            votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
-            ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect)
+        state = (votes, wesc, bb, bbw, alen, begin, end, win, ovf, members)
+        if freeze is None:
+            return kernels.merge_windows(
+                *state, ins_scale=ins_scale, n_win=n_win, LA=LA,
+                detect=detect)
+        orig_ids, out, scale_final, last = freeze
+        return kernels.merge_windows_sched(
+            *state, orig_ids, out, ins_scale=ins_scale,
+            scale_final=scale_final, last=last, n_win=n_win, LA=LA,
+            detect=detect)
 
 
 def _round_core(bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf,
                 members, *, match, mismatch, gap, ins_scale, Lq, n_win, LA,
-                band_w=0, nxt_k=2, detect=False):
-    """One alignment + merge round (see _merge_round for the outputs and
-    ``members``)."""
+                band_w=0, nxt_k=2, detect=False, freeze=None):
+    """One alignment + merge round (see _merge_round for the outputs,
+    ``members`` and ``freeze``)."""
     fwd = _lane_fwd(bb, alen, begin, end, q, lq, win, match=match,
                     mismatch=mismatch, gap=gap, Lq=Lq, LA=LA,
                     band_w=band_w, nxt_k=nxt_k)
@@ -412,7 +470,7 @@ def _round_core(bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf,
     return _merge_round(cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw,
                         alen, begin, end, win, ovf, members,
                         ins_scale=ins_scale, n_win=n_win, LA=LA,
-                        detect=detect)
+                        detect=detect, freeze=freeze)
 
 
 def round_band_width(band_w: int, r: int) -> int:
@@ -531,29 +589,93 @@ def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
 
 def chunk_statics(plan: ChunkPlan, *, ins_scale, rounds: int) -> dict:
     """The per-chunk selections: band width (0 = full width), walk depth
-    and the adaptive gate."""
+    (at the plan's B and round-0 band, so every round of the chunk shares
+    it) and the adaptive gate (``RACON_TPU_ADAPTIVE``; only with a middle
+    round to skip and uniform non-final scales)."""
     band_w = 0 if env.band_disabled() else plan.band_w
     nxt_k = walk_k_for(plan.B * plan.Lq * band_w) if band_w else 1
     sc = ins_scale if isinstance(ins_scale, tuple) \
         else (ins_scale,) * rounds
-    adaptive = rounds >= 3 and len(set(sc[:-1])) <= 1
+    adaptive = (env.adaptive_enabled() and rounds >= 3 and
+                len(set(sc[:-1])) <= 1)
     return {"band_w": band_w, "nxt_k": nxt_k, "adaptive": adaptive}
+
+
+_COPY_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+class ChunkBufs:
+    """A chunk's two packed byte buffers on ``device``, maybe still in
+    flight (put_chunk_bufs). ``tensors()`` makes the current stream wait
+    for the copy and returns ``(job_buf, win_buf)``."""
+
+    __slots__ = ("job", "win", "event", "host")
+
+    def __init__(self, job, win, event=None, host=None):
+        self.job, self.win, self.event, self.host = job, win, event, host
+
+    def tensors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.event is not None:
+            cur = torch.cuda.current_stream(self.job.device)
+            cur.wait_event(self.event)
+            # The buffers were allocated on the copy stream; the caching
+            # allocator must not hand them out again before the compute
+            # stream is done with them.
+            self.job.record_stream(cur)
+            self.win.record_stream(cur)
+            self.event = None
+            self.host = None
+        return self.job, self.win
+
+
+def put_chunk_bufs(plan: ChunkPlan, device) -> ChunkBufs:
+    """Start the h2d of a chunk's two packed byte buffers without
+    blocking: on a GPU, pinned host copies go up with ``non_blocking`` on
+    a copy stream of their own, and an event marks their end, which the
+    compute stream waits on before the unpack (ChunkBufs.tensors). On the
+    CPU the buffers are ready at once."""
+    with host_part("plan"):
+        job_h, win_h = plan.packed_bufs()
+    dims = (plan.B, plan.Lq, plan.n_win, plan.LA)
+    dev = torch.device(device)
+    with host_part("h2d"):
+        if dev.type != "cuda":
+            return ChunkBufs(*load_packed(job_h, win_h, dims, dev))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        stream = _COPY_STREAMS.get(dev.index)
+        if stream is None:
+            stream = _COPY_STREAMS[dev.index] = torch.cuda.Stream(dev)
+        host = tuple(torch.from_numpy(a).pin_memory() for a in (job_h, win_h))
+        # No wait on the compute stream: the buffers come from the copy
+        # stream's own pool, whose blocks the allocator hands out again
+        # only after the streams recorded on them (tensors()) are done.
+        with torch.cuda.stream(stream):
+            job, win = (h.to(dev, non_blocking=True) for h in host)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return ChunkBufs(job, win, event, host)
 
 
 def dispatch_chunk(plan: ChunkPlan, *, match: int, mismatch: int, gap: int,
                    ins_scale, rounds: int, device,
-                   stats: Optional[dict] = None):
-    """Ship a chunk to ``device`` and run all its rounds; returns the
-    packed output buffer (still on the device)."""
+                   stats: Optional[dict] = None,
+                   bufs: Optional[ChunkBufs] = None):
+    """Ship a chunk to ``device`` (or take ``bufs``, a put_chunk_bufs
+    result started earlier) and launch all its rounds; returns the packed
+    output buffer (still on the device: only the adaptive exit's test
+    waits on the card)."""
     t0 = time.perf_counter()
     st = chunk_statics(plan, ins_scale=ins_scale, rounds=rounds)
-    job_buf, win_buf = load_packed(
-        *plan.packed_bufs(), (plan.B, plan.Lq, plan.n_win, plan.LA), device)
-    packed = device_chunk_packed(
-        job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
-        ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win, LA=plan.LA,
-        band_w=st["band_w"], rounds=rounds, adaptive=st["adaptive"],
-        nxt_k=st["nxt_k"])
+    if bufs is None:
+        bufs = put_chunk_bufs(plan, device)
+    with host_part("rounds"):
+        job_buf, win_buf = bufs.tensors()
+        packed = device_chunk_packed(
+            job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
+            ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win, LA=plan.LA,
+            band_w=st["band_w"], rounds=rounds, adaptive=st["adaptive"],
+            nxt_k=st["nxt_k"])
     if stats is not None:
         stats["chunks"] = stats.get("chunks", 0) + 1
         stats["dispatch_s"] = stats.get("dispatch_s", 0.0) + \
@@ -566,6 +688,11 @@ def collect_chunk(plan: ChunkPlan, packed, stats: Optional[dict] = None
                              List[Optional[np.ndarray]]]:
     """Pull a chunk's packed output and unpack per window. A flagged
     window (sticky ``ovf``) yields ``None`` in both lists."""
+    with host_part("collect"):
+        return _collect(plan, packed, stats)
+
+
+def _collect(plan: ChunkPlan, packed, stats: Optional[dict]):
     ph = packed.cpu().numpy()
     Nw, LA = plan.n_win, plan.LA
     codes_h = ph[:Nw * LA].reshape(Nw, LA)

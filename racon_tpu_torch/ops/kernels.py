@@ -29,7 +29,10 @@ its column-walk scan:
   (extract_votes_cols, aggregate_votes; add_backbone, assemble, compact,
   coord_maps) and the remap of racon_tpu/ops/device_poa.py; plain
   versions ops/device_merge.py::merge_votes_plain and
-  ::merge_windows_plain.
+  ::merge_windows_plain. ``merge_windows_sched`` is M2's sched mode, the
+  convergence scheduler's round merge (the reference's
+  racon_tpu/sched/rounds.py ``_sched_core`` and ``sched_rounds``'
+  scatter); plain version ::merge_windows_sched_plain.
 
 ``chase`` (csrc/probe.cu) ports nothing: it times a chain of dependent
 loads, through device memory (the floor of a walk that loads every step
@@ -75,6 +78,7 @@ from racon_tpu_torch.ops.colwalk import col_walk
 from racon_tpu_torch.ops.device_merge import (EPS, VOTE_CH,
                                               merge_votes_plain,
                                               merge_windows_plain,
+                                              merge_windows_sched_plain,
                                               monotone_count_plain)
 from racon_tpu_torch.ops.flat import fw_dirs_flat_plain
 
@@ -87,7 +91,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"band_fwd": 0, "band_tile_fwd": 0, "flat_fwd": 0,
             "col_walk": 0, "nw_fwd": 0, "nw_fwd_wide": 0, "nw_traceback": 0,
-            "monotone_count": 0, "merge_votes": 0, "merge_windows": 0}
+            "monotone_count": 0, "merge_votes": 0, "merge_windows": 0,
+            "merge_windows_sched": 0}
 # Shared memory a block may use on an H100 (opt-in maximum).
 SMEM_MAX = 232448
 
@@ -172,7 +177,9 @@ def _lib():
             lib.racon_merge_windows.restype = ci
             lib.racon_merge_windows.argtypes = ([vp] * 21 + [ci] * 3 +
                                                 [ctypes.c_float] * 2 +
-                                                [ci] * 3 + [vp])
+                                                [ci] * 3 + [vp] * 5 + [ci] +
+                                                [ctypes.c_float] +
+                                                [ci] * 2 + [vp])
             lib.racon_merge_windows_scratch.restype = ctypes.c_longlong
             lib.racon_merge_windows_scratch.argtypes = [ci]
             lib.racon_merge_occupancy.restype = ci
@@ -996,8 +1003,9 @@ def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
 
 def merge_occupancy(which: str, LA: int, variant: str | None = None,
                     n_win: int | None = None) -> dict:
-    """What M1 (``which`` "votes") or M2 ("windows", in ``variant`` or
-    the one :func:`merge_windows_plan` picks) gets on the current card at
+    """What M1 (``which`` "votes") or M2 ("windows", or its sched mode
+    "windows_sched", in ``variant`` or the one :func:`merge_windows_plan`
+    picks) gets on the current card at
     anchor width LA: the plan with ``blocks_per_sm``, ``regs`` a thread,
     ``spills`` (local-memory bytes a thread), ``threads`` and ``smem`` a
     block; given ``n_win``, the grid's ``blocks`` and its ``waves`` on the
@@ -1006,9 +1014,11 @@ def merge_occupancy(which: str, LA: int, variant: str | None = None,
     if which == "votes":
         plan = merge_votes_plan(LA)
         code, smem = 0, 0
-    elif which == "windows":
+    elif which in ("windows", "windows_sched"):
         plan = merge_windows_plan(LA, variant)
-        code, smem = (1 if plan["variant"] == "narrow" else 2), plan["smem"]
+        code = (1 if plan["variant"] == "narrow" else 2) + \
+            (2 if which == "windows_sched" else 0)
+        smem = plan["smem"]
     else:
         raise KernelError(f"[racon_tpu_torch::kernels] unknown merge kernel "
                           f"{which!r}")
@@ -1067,6 +1077,54 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         return merge_windows_plain(votes, wesc, bb, bbw, alen, begin, end,
                                    win, ovf, ins_scale=ins_scale, n_win=n_win,
                                    LA=LA, detect=detect)
+    out = _merge_windows_launch(
+        votes, wesc, bb, bbw, alen, begin, end, win, ovf, members, None,
+        ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect,
+        variant=variant)
+    LAUNCHES["merge_windows"] += 1
+    return out
+
+
+def merge_windows_sched(votes, wesc, bb, bbw, alen, begin, end, win, ovf,
+                        members, orig_ids, out, *, ins_scale: float,
+                        scale_final: float, last: bool, n_win: int, LA: int,
+                        detect: bool = False, variant: str | None = None):
+    """M2's sched mode (device_merge.merge_windows_sched_plain's
+    contract): merge_windows' round and, for every window that freezes
+    (converged, flagged or ``last``), its output at ``scale_final``
+    written in place into row ``orig_ids[w]`` (i32 [n_win]) of the
+    scheduler's accumulators ``out`` = (codes u8 [R+1, LA], cov i32 [R+1,
+    LA], total i32 [R+1], ovf bool [R+1]); row R, the trash row, is never
+    written. Returns merge_windows' tuple.
+
+    On the card, the same launch as merge_windows in the same variants
+    (the kernels' Sched instances): a freezing window's block votes its
+    insertion ranks out again at the final scale, scans and scatters them
+    into its output row; the others write nothing more. Launches count
+    under "merge_windows_sched". Bound: merge_windows' bytes and the
+    freezing windows' output rows (bytes bound)."""
+    if votes.device.type == "cpu":
+        if variant is not None:
+            raise KernelError("[racon_tpu_torch::kernels] merge_windows "
+                              "variants are the card's")
+        return merge_windows_sched_plain(
+            votes, wesc, bb, bbw, alen, begin, end, win, ovf, orig_ids, out,
+            ins_scale=ins_scale, scale_final=scale_final, last=last,
+            n_win=n_win, LA=LA, detect=detect)
+    res = _merge_windows_launch(
+        votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
+        (orig_ids, out, float(scale_final), bool(last)),
+        ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect,
+        variant=variant)
+    LAUNCHES["merge_windows_sched"] += 1
+    return res
+
+
+def _merge_windows_launch(votes, wesc, bb, bbw, alen, begin, end, win, ovf,
+                          members, sched, *, ins_scale, n_win, LA, detect,
+                          variant):
+    """One racon_merge_windows launch (the base mode, or with ``sched`` =
+    (orig_ids, out, scale_final, last) the sched mode)."""
     if votes.device.type != "cuda":
         raise KernelError("[racon_tpu_torch::kernels] merge_windows needs a "
                           "CPU or CUDA tensor")
@@ -1084,6 +1142,21 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         _check(t, name, torch.int32, (B,), dev)
     _check(ovf, "ovf", torch.bool, (n_win,), dev)
     order, starts, counts = _members(members, n_win, B, dev)
+    sched_args = [None] * 5 + [0, 0.0, 0, 0]
+    if sched is not None:
+        orig_ids, (o_codes, o_cov, o_total, o_ovf), scale_final, last = sched
+        R = o_codes.shape[0] - 1
+        if R < 0:
+            raise KernelError("[racon_tpu_torch::kernels] merge_windows_sched "
+                              "needs output accumulators with a trash row")
+        _check(orig_ids, "orig_ids", torch.int32, (n_win,), dev)
+        _check(o_codes, "out codes", torch.uint8, (R + 1, LA), dev)
+        _check(o_cov, "out cov", torch.int32, (R + 1, LA), dev)
+        _check(o_total, "out total", torch.int32, (R + 1,), dev)
+        _check(o_ovf, "out ovf", torch.bool, (R + 1,), dev)
+        sched_args = [orig_ids.data_ptr(), o_codes.data_ptr(),
+                      o_cov.data_ptr(), o_total.data_ptr(), o_ovf.data_ptr(),
+                      R, scale_final, int(last), 1]
     plan = merge_windows_plan(LA, variant)
     wide = plan["variant"] == "wide"
     if not wide and votes.numel() >= 2 ** 31:
@@ -1108,11 +1181,12 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         new_alen.data_ptr(), nb.data_ptr(), ne.data_ptr(), cov.data_ptr(),
         ovf_out.data_ptr(), conv.data_ptr(),
         scratch.data_ptr() if wide else None, B, n_win, LA, float(ins_scale),
-        EPS, int(bool(detect)), int(wide), plan["threads"], _stream(dev))
+        EPS, int(bool(detect)), int(wide), plan["threads"], *sched_args,
+        _stream(dev))
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] merge_windows launch "
-                          f"failed (cudaError {rc}, plan {plan})")
-    LAUNCHES["merge_windows"] += 1
+                          f"failed (cudaError {rc}, plan {plan}, sched "
+                          f"{sched is not None})")
     return new_bb, new_bbw, new_alen, nb, ne, cov, ovf_out, conv
 
 

@@ -9,7 +9,9 @@ module docstring for the full derivation).
 Routes:
 
 - the device engine (ops/device_poa.py): every round of every chunk on
-  ``device`` — CUDA kernels on a GPU, their plain versions on the CPU;
+  ``device`` — CUDA kernels on a GPU, their plain versions on the CPU —
+  driven by the convergence scheduler (sched/) by default, or by the
+  fixed-round engine in a depth-2 pipeline (``RACON_TPU_SCHED=0``);
 - the wide-band device redo (ops/redo.py) for flagged windows;
 - the host path (numpy merge + native C++ aligner) for jumbo windows,
   windows the redo cannot certify, and anchor overflow.
@@ -98,6 +100,10 @@ class PoaEngine:
         # Optional dict: chunk counts, rounds executed, redo routing, and
         # the (B, Lq, Lt) of every batch _align_device runs.
         self.stats: Optional[dict] = None
+        # The convergence scheduler's counters (sched/telemetry.py),
+        # summed over a run's consensus_windows calls; None until the
+        # scheduler runs.
+        self.sched_telemetry = None
         self._native = None
 
     # ------------------------------------------------------------ public API
@@ -209,23 +215,27 @@ class PoaEngine:
     def _redo_trunc(self, trunc: List[Window]) -> None:
         """Flagged windows (anchor overflow / escape failure / saturation)
         re-run through the wide-band device pass (ops/redo.py); what it
-        cannot certify takes the host path."""
+        cannot certify takes the host path. With ``RACON_TPU_REDO=0``
+        every flagged window takes the host path."""
         if not trunc:
             return
-        from racon_tpu_torch.ops.redo import device_redo
-        print(f"[racon_tpu_torch::PoaEngine] {len(trunc)} window(s) "
-              "flagged; re-polishing through the wide-band device pass",
-              file=self.log)
-        resolved, remaining = device_redo(
-            trunc, match=self.match, mismatch=self.mismatch, gap=self.gap,
-            ins_scale=self._round_scales(self.refine_rounds + 1),
-            rounds=self.refine_rounds + 1, device=self.device,
-            jobs_cap=self.device_batch, stats=self.stats)
-        for w, c, cv in resolved:
-            w.apply_consensus(
-                decode_bases(np.frombuffer(c, dtype=np.uint8)), cv,
-                log=self.log)
-        self._count("redo_device_windows", len(resolved))
+        remaining = trunc
+        if env.redo_enabled():
+            from racon_tpu_torch.ops.redo import device_redo
+            print(f"[racon_tpu_torch::PoaEngine] {len(trunc)} window(s) "
+                  "flagged; re-polishing through the wide-band device pass",
+                  file=self.log)
+            resolved, remaining = device_redo(
+                trunc, match=self.match, mismatch=self.mismatch,
+                gap=self.gap,
+                ins_scale=self._round_scales(self.refine_rounds + 1),
+                rounds=self.refine_rounds + 1, device=self.device,
+                jobs_cap=self.device_batch, stats=self.stats)
+            for w, c, cv in resolved:
+                w.apply_consensus(
+                    decode_bases(np.frombuffer(c, dtype=np.uint8)), cv,
+                    log=self.log)
+            self._count("redo_device_windows", len(resolved))
         if remaining:
             self._count("redo_host_windows", len(remaining))
             print(f"[racon_tpu_torch::PoaEngine] {len(remaining)} "
@@ -233,12 +243,28 @@ class PoaEngine:
                   "re-polishing on the host path", file=self.log)
             self._consensus_host_impl(remaining)
 
+    def _make_scheduler(self):
+        """A ConvergenceScheduler on this engine's device, wired to its
+        run-long telemetry."""
+        from racon_tpu_torch.sched import ConvergenceScheduler, SchedTelemetry
+        rounds = self.refine_rounds + 1
+        if self.sched_telemetry is None or \
+                self.sched_telemetry.rounds != rounds:
+            self.sched_telemetry = SchedTelemetry(rounds)
+        return ConvergenceScheduler(
+            match=self.match, mismatch=self.mismatch, gap=self.gap,
+            scales=self._round_scales(rounds), device=self.device,
+            telemetry=self.sched_telemetry)
+
     def _consensus_device(self, active: List[Window], lq_max: int,
                           la_max: int) -> int:
-        """Device path: all refinement rounds of a chunk on ``device``,
-        one h2d / one d2h per chunk (ops/device_poa.py)."""
+        """Device path: every refinement round of a chunk on ``device``,
+        one h2d / one d2h a chunk (ops/device_poa.py). By default the
+        convergence scheduler drives each chunk (sched/), with chunk
+        i+1's h2d started before chunk i's rounds; ``RACON_TPU_SCHED=0``
+        runs the fixed-round engine in a depth-2 pipeline instead."""
         from racon_tpu_torch.ops.device_poa import (ChunkPlan, collect_chunk,
-                                                    dispatch_chunk)
+                                                    dispatch_chunk, host_part)
         sp = self._plan_device_slice(active, lq_max, la_max)
         if sp.overflow_msg:
             print(sp.overflow_msg, file=self.log)
@@ -250,17 +276,59 @@ class PoaEngine:
             n_wide = self._consensus_host_impl(sp.host)
         trunc: List[Window] = []
         rounds = self.refine_rounds + 1
-        for ws in sp.groups:
-            plan = ChunkPlan(ws, lq_cap=sp.lq_cap, la_cap=sp.la_cap,
-                             band_cap=sp.band_cap)
-            packed = dispatch_chunk(
-                plan, match=self.match, mismatch=self.mismatch,
-                gap=self.gap, ins_scale=self._round_scales(rounds),
-                rounds=rounds, device=self.device, stats=self.stats)
-            codes, covs = collect_chunk(plan, packed, stats=self.stats)
-            self._apply_group(ws, codes, covs, trunc)
+        groups = sp.groups
+
+        def make_plan(ws: List[Window]) -> ChunkPlan:
+            with host_part("plan"):
+                return ChunkPlan(ws, lq_cap=sp.lq_cap, la_cap=sp.la_cap,
+                                 band_cap=sp.band_cap)
+
+        def apply(ws, codes, covs) -> None:
+            with host_part("apply"):
+                self._apply_group(ws, codes, covs, trunc)
+
+        if env.sched_enabled():
+            # The next chunk is planned and its h2d started before this
+            # chunk's rounds run (the reference's order).
+            sched = self._make_scheduler()
+
+            def prefetch(ws: List[Window]):
+                plan = make_plan(ws)
+                return plan, sched.put_chunk(plan)
+
+            nxt = prefetch(groups[0]) if groups else None
+            for k, ws in enumerate(groups):
+                plan, bufs = nxt
+                nxt = prefetch(groups[k + 1]) if k + 1 < len(groups) \
+                    else None
+                codes, covs = sched.run_chunk(plan, bufs=bufs,
+                                              stats=self.stats)
+                apply(ws, codes, covs)
+        else:
+            # Fixed rounds: chunk i+1's h2d and rounds go out while chunk
+            # i still computes (depth 2 bounds the chunks in flight);
+            # stats collection runs the chunks one at a time.
+            depth = 0 if self.stats is not None else 2
+            pending: list = []
+
+            def finish(entry) -> None:
+                ws, plan, packed = entry
+                codes, covs = collect_chunk(plan, packed, stats=self.stats)
+                apply(ws, codes, covs)
+
+            for ws in groups:
+                plan = make_plan(ws)
+                packed = dispatch_chunk(
+                    plan, match=self.match, mismatch=self.mismatch,
+                    gap=self.gap, ins_scale=self._round_scales(rounds),
+                    rounds=rounds, device=self.device, stats=self.stats)
+                pending.append((ws, plan, packed))
+                if len(pending) > depth:
+                    finish(pending.pop(0))
+            for entry in pending:
+                finish(entry)
         self._redo_trunc(trunc)
-        return sum(len(g) for g in sp.groups) + n_wide
+        return sum(len(g) for g in groups) + n_wide
 
     @staticmethod
     def _run_band_width(active: List[Window], la_cap: int) -> int:

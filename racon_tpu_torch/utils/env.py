@@ -1,6 +1,6 @@
-"""The port's environment gates — the only three it honours.
+"""The port's environment gates.
 
-Both keep the JAX package's names and meanings, so one variable set in a
+Each keeps the JAX package's name and meaning, so one variable set in a
 test steers the reference and the port alike:
 
 - ``RACON_TPU_NO_BAND`` (flag): disable the banded forward; every round
@@ -10,6 +10,15 @@ test steers the reference and the port alike:
 - ``RACON_TPU_OVL_TILED`` ("0" turns it off): the tiled route of the
   device overlap aligner (ops/ovl_align.py); with it off, overlaps too
   long for the untiled route take the host aligner.
+- ``RACON_TPU_SCHED`` ("0" or "false" turns it off): the convergence
+  scheduler (sched/), the device engine's default chunk loop; with it
+  off, chunks run the fixed-round engine in a depth-2 pipeline.
+- ``RACON_TPU_ADAPTIVE`` ("0" or "false" turns it off): the adaptive
+  exit of the fixed-round engine's middle rounds and of the scheduler's
+  fused tail; with it off, every scheduled round runs.
+- ``RACON_TPU_REDO`` ("0" or "false" turns it off): the wide-band device
+  redo of flagged windows (ops/redo.py); with it off, every flagged
+  window takes the host path.
 """
 
 from __future__ import annotations
@@ -19,7 +28,10 @@ import os
 NO_BAND = "RACON_TPU_NO_BAND"
 WALK_K = "RACON_TPU_WALK_K"
 OVL_TILED = "RACON_TPU_OVL_TILED"
-_KNOWN = (NO_BAND, WALK_K, OVL_TILED)
+SCHED = "RACON_TPU_SCHED"
+ADAPTIVE = "RACON_TPU_ADAPTIVE"
+REDO = "RACON_TPU_REDO"
+_KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO)
 
 
 def read(name: str) -> str:
@@ -35,3 +47,15 @@ def band_disabled() -> bool:
 
 def ovl_tiled() -> bool:
     return read(OVL_TILED) != "0"
+
+
+def sched_enabled() -> bool:
+    return read(SCHED) not in ("0", "false")
+
+
+def adaptive_enabled() -> bool:
+    return read(ADAPTIVE) not in ("0", "false")
+
+
+def redo_enabled() -> bool:
+    return read(REDO) not in ("0", "false")

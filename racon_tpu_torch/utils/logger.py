@@ -76,6 +76,12 @@ class Logger:
             if self._bar == 20:
                 self._bar = 0
 
+    def line(self, msg: str) -> None:
+        """Print a plain diagnostic line (closing any partial bar)."""
+        with self._lock:
+            self._close_bar()
+            print(msg, file=self.stream)
+
     def total(self, msg: str) -> None:
         """Print total wall time — the reference's ``logger->total()``."""
         with self._lock:
@@ -96,6 +102,9 @@ class NullLogger(Logger):
         pass
 
     def tick(self, msg: str) -> None:
+        pass
+
+    def line(self, msg: str) -> None:
         pass
 
     def total(self, msg: str) -> None:

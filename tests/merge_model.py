@@ -736,3 +736,79 @@ def random_round(seed, B, Lq, LA, n_win):
         begin=rng.integers(-2, LA + 3, B).astype(np.int32),
         end=rng.integers(-2, LA + 3, B).astype(np.int32),
         ovf=rng.random(n_win) < 0.1)
+
+
+# ------------------------------------------------------------ scheduler inputs
+# Windows for the convergence scheduler's tests (tests/test_torch_sched.py
+# with both packages' Window classes, tests/test_torch_cuda.py with the
+# port's): the reference's tests/test_sched.py batches.
+
+def _noisy_seq(rng, seq, rate):
+    out = []
+    for b in seq:
+        r = rng.random()
+        if r < rate / 3:
+            continue
+        elif r < 2 * rate / 3:
+            out.append(int(rng.integers(0, 4)))
+        elif r < rate:
+            out.append(int(b))
+            out.append(int(rng.integers(0, 4)))
+        else:
+            out.append(int(b))
+    return decode_bases(np.array(out, np.uint8))
+
+
+def sched_noisy_windows(seed, n, wlen, layers, rate=0.1, W=Window,
+                        WT=WindowType):
+    """Windows of a ``rate``-error backbone and ``layers`` layers of a
+    hidden truth: rarely a fixed point."""
+    rng = np.random.default_rng(seed)
+    ws = []
+    for _ in range(n):
+        true = rng.integers(0, 4, wlen).astype(np.uint8)
+        backbone = _noisy_seq(rng, true, rate)
+        w = W(0, 0, WT.TGS, backbone, None)
+        for _ in range(layers):
+            w.add_layer(_noisy_seq(rng, true, rate), None, 0,
+                        len(backbone) - 1)
+        ws.append(w)
+    return ws
+
+
+def sched_stable_windows(seed, n, wlen, layers=6, W=Window, WT=WindowType):
+    """Windows whose layers equal the backbone: a fixed point after round
+    1, so detection freezes them with rounds_used = 2."""
+    rng = np.random.default_rng(seed)
+    ws = []
+    for _ in range(n):
+        backbone = decode_bases(rng.integers(0, 4, wlen).astype(np.uint8))
+        w = W(0, 0, WT.TGS, backbone, None)
+        for _ in range(layers):
+            w.add_layer(backbone, None, 0, len(backbone) - 1)
+        ws.append(w)
+    return ws
+
+
+def growing_window(seed, wlen=150, W=Window, WT=WindowType):
+    """A window whose layers are twice its backbone's length: its
+    consensus outgrows the anchor slack, so it carries the sticky flag."""
+    rng = np.random.default_rng(seed)
+    true = rng.integers(0, 4, 2 * wlen).astype(np.uint8)
+    w = W(0, 0, WT.TGS, decode_bases(true[:wlen]), None)
+    for _ in range(6):
+        w.add_layer(_noisy_seq(rng, true, 0.05), None, 0, wlen - 1)
+    return w
+
+
+# The three control-flow paths of the scheduler's chunk loop: 10% noise
+# rarely reaches a fixed point (the fused tail); 28 self-converging windows
+# beside 8 noisy ones halve the window bucket (a repack); windows that all
+# converge skip rounds 2 and 3 (full early exit).
+SCHED_BATCHES = {
+    "fused_tail": lambda W, WT: sched_noisy_windows(21, 10, 200, 8, W=W,
+                                                    WT=WT),
+    "repack": lambda W, WT: (sched_stable_windows(31, 28, 160, W=W, WT=WT) +
+                             sched_noisy_windows(32, 8, 160, 8, W=W, WT=WT)),
+    "early_exit": lambda W, WT: sched_stable_windows(41, 8, 150, W=W, WT=WT),
+}

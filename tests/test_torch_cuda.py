@@ -3,8 +3,9 @@ the banded forward (untiled and tiled, each also over a group of
 chunks' lanes at the overlap routes' widths), the full-width forward, the
 column walk (band and flat layouts) and the walk's latency probe, the
 batched NW forward (K4) and its traceback (T1), the monotone count (K5),
-the batched aligner end to end, and the round merge (M1, M2: each
-against its plain version, and a chunk's rounds against the CPU run).
+the batched aligner end to end, and the round merge (M1, M2 and M2's
+sched mode: each against its plain version, and a chunk's rounds, under
+the fixed engine and the convergence scheduler, against the CPU run).
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -1206,6 +1207,150 @@ def test_merge_wrappers_reject_bad_inputs(cuda):
                               ins_scale=0.2, n_win=n_win, LA=LA)
 
 
+def _sched_round_case(cuda, LA, seed):
+    """Round 1's merge inputs of a chunk at anchor width LA, built on the
+    CPU by the plain versions (any LA) and moved to the card: windows
+    that converge at round 1, noisy ones, one whose consensus outgrows
+    the anchor, the padding of the 32-window grid, and the sticky flag
+    carried on two more windows; a scheduler output accumulator of
+    random bytes."""
+    from merge_model import (growing_window, sched_noisy_windows,
+                             sched_stable_windows)
+    from racon_tpu_torch.ops import device_merge as dm
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.sched.rounds import sched_unpack
+    wlen = min(LA - 64, 600) * 9 // 10
+    wins = (sched_stable_windows(seed, 6, wlen) +
+            sched_noisy_windows(seed + 1, 4, wlen, 8) +
+            [growing_window(seed + 2, wlen // 2)])
+    plan = P.ChunkPlan(wins, la_cap=LA)
+    st = P.chunk_statics(plan, ins_scale=0.2, rounds=4)
+    (bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, _,
+     mem) = sched_unpack(*P.load_packed(
+        *plan.packed_bufs(), (plan.B, plan.Lq, plan.n_win, plan.LA), "cpu"),
+        Lq=plan.Lq, LA=LA, n_win=plan.n_win)
+    kw = dict(match=5, mismatch=-4, gap=-8, Lq=plan.Lq, LA=LA,
+              nxt_k=st["nxt_k"])
+    bb, bbw, alen, begin, end, _, ovf, _ = P._round_core(
+        bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, mem,
+        ins_scale=0.2, n_win=plan.n_win, band_w=st["band_w"], **kw)
+    ovf = ovf.clone()
+    ovf[[0, 6]] = True
+    bw1 = P.round_band_width(st["band_w"], 1)
+    fwd = P._lane_fwd(bb, alen, begin, end, q, lq, win, band_w=bw1,
+                      **{k: kw[k] for k in ("match", "mismatch", "gap", "Lq",
+                                             "LA", "nxt_k")})
+    cols, esc_w = P._lane_walk(*fwd, lq, LA=LA, band_w=bw1)
+    votes, wesc = dm.merge_votes_plain(cols, q, qw8, w_read, fwd[3], fwd[4],
+                                       esc_w, win, n_win=plan.n_win, LA=LA)
+    g = torch.Generator().manual_seed(seed)
+    R = plan.n_win + 5
+    out = (torch.randint(0, 256, (R + 1, LA), generator=g,
+                         dtype=torch.uint8),
+           torch.randint(-9, 9, (R + 1, LA), generator=g, dtype=torch.int32),
+           torch.randint(1, LA, (R + 1,), generator=g, dtype=torch.int32),
+           torch.rand(R + 1, generator=g) < 0.5)
+    # Rows as after a repack: shuffled, the last few windows on the trash
+    # row.
+    orig = torch.randperm(R, generator=g)[:plan.n_win].to(torch.int32)
+    orig[-3:] = R
+    args = tuple(t.to(cuda) for t in (votes, wesc, bb, bbw, alen, begin,
+                                       end, win, ovf))
+    return dict(args=args, mem=dm.window_members(args[7], plan.n_win),
+                out=tuple(t.to(cuda) for t in out), orig=orig.to(cuda),
+                n_win=plan.n_win, n_real=plan.n_real_win)
+
+
+@pytest.mark.parametrize("LA", [127, 450, 640, 1023, 1024, 1100])
+def test_merge_windows_sched_kernel_matches_plain(cuda, LA):
+    """M2's sched mode, both variants, bitwise against its plain version
+    at anchor widths around the narrow kernel's limit: the base outputs,
+    and the output accumulators (trash row and rows of windows that do
+    not freeze untouched) with ``last`` off and on, on a chunk where some
+    windows converge, some carry the sticky flag, some are padding and
+    some have no output row."""
+    from racon_tpu_torch.ops.device_merge import merge_windows_sched_plain
+    c = _sched_round_case(cuda, LA, 70 + LA % 97)
+    n_win = c["n_win"]
+    variants = [None] + (["wide"] if LA + 1 <= 1024 else [])
+    seen = set()
+    for last in (False, True):
+        kw = dict(ins_scale=0.2, scale_final=0.6, last=last, n_win=n_win,
+                  LA=LA, detect=True)
+        ref_out = tuple(t.clone() for t in c["out"])
+        ref = merge_windows_sched_plain(*c["args"], c["orig"], ref_out, **kw)
+        conv, ovf = ref[7], ref[6]
+        seen.add((bool(conv[:c["n_real"]].any()), bool(ovf.any()),
+                  bool((~(conv | ovf))[:c["n_real"]].any())))
+        for variant in variants:
+            got_out = tuple(t.clone() for t in c["out"])
+            n0 = dict(kernels.LAUNCHES)
+            got = kernels.merge_windows_sched(*c["args"], c["mem"], c["orig"],
+                                              got_out, variant=variant, **kw)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["merge_windows_sched"] == \
+                n0["merge_windows_sched"] + 1
+            assert kernels.LAUNCHES["merge_windows"] == n0["merge_windows"]
+            for i, (r, g) in enumerate(zip(ref, got)):
+                assert torch.equal(_bits(r), _bits(g)), (variant, last, i)
+            for i, (r, g) in enumerate(zip(ref_out, got_out)):
+                assert torch.equal(_bits(r), _bits(g)), (variant, last, i)
+        # Rows of windows that do not freeze and the trash row keep their
+        # bytes.
+        froze = conv | ovf | last
+        keep = torch.ones(c["out"][0].shape[0], dtype=torch.bool,
+                          device=cuda)
+        keep[c["orig"][froze & (c["orig"] < keep.numel() - 1)].long()] = False
+        for a, b in zip(c["out"], ref_out):
+            assert torch.equal(_bits(a[keep]), _bits(b[keep]))
+    assert (True, True, True) in seen
+
+
+def test_merge_sched_occupancy(cuda):
+    """M2's sched mode keeps the base mode's shape: the narrow kernel
+    with no local memory and two blocks of 672 threads an SM at LA = 640;
+    the wide kernel at least one block an SM."""
+    for LA in (127, 640, 1023):
+        occ = kernels.merge_occupancy("windows_sched", LA)
+        assert occ["variant"] == "narrow" and occ["spills"] == 0
+    occ = kernels.merge_occupancy("windows_sched", 640, n_win=160)
+    assert occ["blocks_per_sm"] >= 2 and occ["waves"] == 1
+    wide = kernels.merge_occupancy("windows_sched", 1100)
+    assert wide["variant"] == "wide" and wide["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("name", ["fused_tail", "repack", "early_exit"])
+def test_sched_control_paths_cuda_matches_cpu(cuda, name, monkeypatch):
+    """The scheduler's three control-flow paths on the card: the engine's
+    consensus equals the CPU run's and the fixed engine's on the card,
+    M2's sched mode launched once a dispatch's last round."""
+    from merge_model import SCHED_BATCHES
+    from racon_tpu_torch.models.window import Window, WindowType
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    out = {}
+    for dev, sched in (("cpu", "1"), ("cuda", "1"), ("cuda", "0")):
+        monkeypatch.setenv("RACON_TPU_SCHED", sched)
+        monkeypatch.setattr(P, "_CAP_HISTORY", set())
+        monkeypatch.setattr(P, "_BAND_HISTORY", set())
+        ws = SCHED_BATCHES[name](Window, WindowType)
+        eng = PoaEngine(device=dev)
+        n0 = dict(kernels.LAUNCHES)
+        eng.consensus_windows(ws)
+        n = {k: v - n0[k] for k, v in kernels.LAUNCHES.items()}
+        out[(dev, sched)] = ([w.consensus for w in ws], eng, n)
+    cpu, gpu, fixed = out[("cpu", "1")], out[("cuda", "1")], out[
+        ("cuda", "0")]
+    assert gpu[0] == cpu[0] == fixed[0]
+    t, tc = gpu[1].sched_telemetry, cpu[1].sched_telemetry
+    assert t.hist == tc.hist and t.dispatches_saved == tc.dispatches_saved
+    n = gpu[2]
+    assert n["merge_windows_sched"] >= 1
+    assert n["merge_votes"] == n["merge_windows"] + \
+        n["merge_windows_sched"] == n["band_fwd"] + n["flat_fwd"]
+    assert fixed[2]["merge_windows_sched"] == 0
+
+
 @pytest.mark.parametrize("wlen", [3100, 4000])
 def test_device_chunk_long_windows(cuda, wlen):
     """Windows past the anchor width that a block's shared memory could
@@ -1245,5 +1390,17 @@ def test_device_chunk_long_windows(cuda, wlen):
     assert kernels.LAUNCHES["merge_windows"] - n0["merge_windows"] == rounds
     cpu = P.run_chunk(P.ChunkPlan(wins), device="cpu", **ckw)
     for (gc, gv), (rc, rv) in zip(zip(*out), zip(*cpu)):
+        assert gc == rc
+        assert (gv is None and rv is None) or np.array_equal(gv, rv)
+    # The convergence scheduler on the same chunk (the wide M2's sched
+    # mode at this width): the fixed engine's bytes.
+    from racon_tpu_torch.sched import ConvergenceScheduler
+    sched = ConvergenceScheduler(match=5, mismatch=-4, gap=-8,
+                                 scales=ckw["ins_scale"], device=cuda)
+    n0 = dict(kernels.LAUNCHES)
+    got = sched.run_chunk(P.ChunkPlan(wins))
+    assert kernels.LAUNCHES["merge_windows_sched"] > \
+        n0["merge_windows_sched"]
+    for (gc, gv), (rc, rv) in zip(zip(*got), zip(*cpu)):
         assert gc == rc
         assert (gv is None and rv is None) or np.array_equal(gv, rv)

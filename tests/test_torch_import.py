@@ -51,6 +51,7 @@ def test_port_modules_found():
     assert "racon_tpu_torch.ops.device_poa" in mods
     assert "racon_tpu_torch.ops.ovl_align" in mods
     assert "racon_tpu_torch.cli" in mods
+    assert "racon_tpu_torch.sched.scheduler" in mods
 
 
 def test_import_loads_no_jax_and_no_reference_module():
