@@ -89,7 +89,10 @@ any failure exits non-zero and prints no result):
               round, freeze histogram, window-rounds saved). In both,
               merge_votes = merge_windows + merge_windows_sched =
               consensus K1 launches, and the sched mode launches only
-              under the scheduler;
+              under the scheduler. The inputs parse on the ingest plane
+              (RACON_TPU_INGEST, default on: a prefetch thread a file,
+              mmap readers), which must have run; each run prints the
+              logger's "loaded ..." seconds and the ingest counters;
 5. flat path  the band-off route (RACON_TPU_NO_BAND=1, the full-width
               forward) through the CLI on a 100 kb input, with its own
               launch counts; flat_fwd must have launched and the
@@ -131,7 +134,26 @@ any failure exits non-zero and prints no result):
               against merge_windows_sched_plain, timed as graphs in turns
               against the base mode; its bound adds the sums that the
               freezing windows' final-scale vote-out reads and their
-              output rows.
+              output rows;
+8. pipeline   phase 4's input through the CLI with --pipeline-depth 2
+              (the streaming pipeline: build, pack, h2d, compute and walk
+              stages on threads with bounded queues), under the scheduler
+              and under RACON_TPU_SCHED=0, where every chunk but the last
+              walks its final round decoupled (dispatch_chunk_fwd on the
+              compute thread, dispatch_walk on the walk thread, the walk
+              queue sized from the card's memory). Counts reset just
+              before each run and read just after. Both FASTAs must be
+              phase 4's serial FASTA byte for byte; the scheduler's run
+              walks nothing decoupled, the fixed run all chunks but one;
+              the launch rules of phase 4 hold exactly with two launching
+              threads (col_walk's consensus walks = merge_votes =
+              consensus K1). Each run prints its consensus seconds beside
+              phase 4's serial run of the same chunk loop, every stage's busy
+              and blocked seconds and items, every queue's peak and
+              blocked seconds, the walk meter (decoupled walks, fused
+              chunks, walk and overlap seconds), the ingest parse and
+              wait seconds, stage ms, host split and peak bytes; the
+              kernels line adds each row's launches in both runs.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -1269,23 +1291,28 @@ def sched_telemetry():
         PoaEngine._make_scheduler = make
 
 
-def main_run(device, argv, sched: bool):
+def main_run(device, argv, sched: bool, pipeline: bool = False):
     """One CLI run of phase 4's input, under the convergence scheduler or
-    (``sched`` False) RACON_TPU_SCHED=0: launch counts, stage clock and
-    host split from zero just before, read just after."""
+    (``sched`` False) RACON_TPU_SCHED=0, serial or (``pipeline``) with
+    --pipeline-depth 2: launch counts, stage clock, host split and the
+    pipeline's and ingest plane's counters from zero just before, read
+    just after."""
     import torch
     from racon_tpu_torch.ops import device_poa, kernels, ovl_align
+    from racon_tpu_torch.pipeline import metrics
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     clock = device_poa.set_stage_clock(True)
     host = device_poa.set_host_clock(True)
     ovl_align.reset_stats()
+    metrics.reset()
     kernels.reset_launches()
     if not sched:
         os.environ["RACON_TPU_SCHED"] = "0"
     try:
         with sched_telemetry() as telem:
-            rc, out, err, wall = run_cli(argv)
+            rc, out, err, wall = run_cli(
+                argv + (["--pipeline-depth", "2"] if pipeline else []))
     finally:
         os.environ.pop("RACON_TPU_SCHED", None)
         device_poa.set_stage_clock(False)
@@ -1297,15 +1324,61 @@ def main_run(device, argv, sched: bool):
              ugroups=[dict(g) for g in ovl_align.UNTILED_GROUPS],
              stages=clock.ms(), stage_launches=clock.launches(),
              host_s=dict(host.s), host_n=dict(host.n),
+             counters=metrics.registry().snapshot(),
              peak=torch.cuda.max_memory_allocated() if device == "cuda"
              else None, telemetry=telem[-1] if telem else None)
     r["walks"] = r["stage_launches"].get("walk", {}).get("col_walk", 0)
     r["k1_consensus"] = r["stage_launches"].get("forward", {}).get(
         "band_fwd", 0)
     if rc:
-        fail(f"main run ({'scheduler' if sched else 'RACON_TPU_SCHED=0'}) "
+        fail(f"{'pipeline' if pipeline else 'main'} run "
+             f"({'scheduler' if sched else 'RACON_TPU_SCHED=0'}) "
              f"failed: {err[-3000:]}")
     return r
+
+
+def check_launches(name, r):
+    """The launch rules of one run of phase 4's input (phases 4 and 8):
+    K1 once a consensus round beside one launch a untiled overlap group;
+    M1 and M2 (either mode) once a consensus round each, inside the stage
+    clock's merge stage; W1 once a consensus round beside the overlap
+    groups' walks. The stage clock counts each thread's launches, so the
+    rules hold with the pipeline's two launching threads too."""
+    n = r["launches"]
+    k1 = r["k1_consensus"]
+    untiled = sum(g["groups"] for g in r["ugroups"])
+    tiled = sum(g["groups"] for g in r["groups"])
+    if n["band_fwd"] != k1 + untiled:
+        fail(f"{name}: band_fwd launched {n['band_fwd']} times, not {k1} "
+             f"consensus + {untiled} untiled groups")
+    ml = r["stage_launches"].get("merge", {})
+    m2 = n["merge_windows"] + n["merge_windows_sched"]
+    m2_stage = ml.get("merge_windows", 0) + ml.get("merge_windows_sched", 0)
+    if not (n["merge_votes"] == ml.get("merge_votes") == m2 == m2_stage
+            == k1):
+        fail(f"{name}: merge_votes {n['merge_votes']}, merge_windows + "
+             f"sched {m2} ({ml} in the merge stage), not once a consensus "
+             f"round ({k1})")
+    if n["col_walk"] != tiled + r["walks"] + untiled:
+        fail(f"{name}: col_walk launched {n['col_walk']} times, not "
+             f"{tiled} tiled + {r['walks']} consensus + {untiled} untiled")
+    if r["walks"] != k1:
+        fail(f"{name}: {r['walks']} consensus walks, not one a consensus "
+             f"round ({k1})")
+
+
+def launches_by_case(r):
+    """A run's launches of each kernels-line row (W1 and K1 by case)."""
+    n = r["launches"]
+    untiled = sum(g["groups"] for g in r["ugroups"])
+    return {("col_walk", 0): sum(g["groups"] for g in r["groups"]),
+            ("col_walk", "consensus"): r["walks"],
+            ("col_walk", "untiled"): untiled,
+            ("band_fwd", 4): r["k1_consensus"],
+            ("band_fwd", "untiled"): untiled,
+            ("merge_votes", 0): n["merge_votes"],
+            ("merge_windows", 0): n["merge_windows"],
+            ("merge_windows_sched", 0): n["merge_windows_sched"]}
 
 
 def main_record(r, ds, n_windows):
@@ -1335,7 +1408,9 @@ def main_record(r, ds, n_windows):
                chunks, max_memory_allocated=r["peak"],
                launches=r["launches"], consensus_walks=r["walks"],
                redo_windows=flagged, host_windows=host, ed_draft=ed_draft,
-               ed_polished=ed_pol)
+               ed_polished=ed_pol,
+               ingest={k: v for k, v in r["counters"].items()
+                       if k.startswith("ingest_")})
     t = r["telemetry"]
     if t is not None:
         line = re.findall(r"scheduler (windows=.*)$", r["err"], flags=re.M)
@@ -1393,48 +1468,96 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
     for g in groups + ugroups:
         if g["chunks"] > 1 and (g["G"] <= 1 or g["groups"] >= g["chunks"]):
             fail(f"main run: bucket {g} was not grouped")
-    untiled = sum(g["groups"] for g in ugroups)
-    tiled = sum(g["groups"] for g in groups)
     for name, r in (("scheduler", main), ("RACON_TPU_SCHED=0", fixed)):
-        n = r["launches"]
-        k1 = r["k1_consensus"]
-        # One K1 launch and one walk for each untiled group, beside the
-        # consensus forward's K1 launches.
-        if n["band_fwd"] != k1 + untiled:
-            fail(f"main run ({name}): band_fwd launched {n['band_fwd']} "
-                 f"times, not {k1} consensus + {untiled} untiled groups")
-        # The round merge: M1 and M2 (either mode) once a consensus round
-        # each, inside the stage clock's merge stage (a round is one
-        # consensus K1 launch).
-        ml = r["stage_launches"].get("merge", {})
-        m2 = n["merge_windows"] + n["merge_windows_sched"]
-        m2_stage = ml.get("merge_windows", 0) + ml.get(
-            "merge_windows_sched", 0)
-        if not (n["merge_votes"] == ml.get("merge_votes") == m2 == m2_stage
-                == k1):
-            fail(f"main run ({name}): merge_votes {n['merge_votes']}, "
-                 f"merge_windows + sched {m2} ({ml} in the merge stage), "
-                 f"not once a consensus round ({k1})")
-        # W1's launches by case: the tiled groups, the consensus walks and
-        # the untiled groups.
-        if n["col_walk"] != tiled + r["walks"] + untiled:
-            fail(f"main run ({name}): col_walk launched {n['col_walk']} "
-                 f"times, not {tiled} tiled + {r['walks']} consensus + "
-                 f"{untiled} untiled")
+        check_launches(f"main run ({name})", r)
     for rr in (rec, rec_fixed):
         if not rr["ed_polished"] * 3 <= rr["ed_draft"]:
             fail(f"main run: polished ED {rr['ed_polished']} > draft ED "
                  f"{rr['ed_draft']} / 3")
     if "aligned overlaps" not in rec["phase_s"]:
         fail("main run: the logger printed no 'aligned overlaps' phase")
-    k1 = main["k1_consensus"]
-    by_case = {("col_walk", 0): tiled, ("col_walk", "consensus"):
-               main["walks"], ("col_walk", "untiled"): untiled,
-               ("band_fwd", 4): k1, ("band_fwd", "untiled"): untiled,
-               ("merge_votes", 0): launches["merge_votes"],
-               ("merge_windows", 0): launches["merge_windows"],
-               ("merge_windows_sched", 0): launches["merge_windows_sched"]}
-    return launches, by_case, p
+    if rec["ingest"].get("ingest_parse_prefetch_files") != 3:
+        fail(f"main run: the inputs did not parse on the ingest plane's "
+             f"prefetch threads ({rec['ingest']})")
+    serial = dict(argv=argv, ds=ds, n_windows=n_windows, out=main["out"],
+                  rec=rec, rec_fixed=rec_fixed)
+    return launches, launches_by_case(main), p, serial
+
+
+def pipeline_record(r, serial_rec):
+    """Phase 8's record of one streamed run beside phase 4's serial run of
+    the same chunk loop: consensus seconds, the stages' busy and blocked
+    seconds, the queues' peaks and blocked seconds, the walk meter, the
+    ingest plane's seconds, stage ms, host split and peak bytes."""
+    c = r["counters"]
+    stages = {}
+    for k, v in c.items():
+        m = re.match(r"pipe_stage_(\w+?)_(busy_s|stall_in_s|stall_out_s|"
+                     r"items)$", k)
+        if m:
+            stages.setdefault(m.group(1), {})[m.group(2)] = v
+    queues = {}
+    for k, v in c.items():
+        m = re.match(r"pipe_queue_(\w+?)_(peak|put_wait_s|get_wait_s)$", k)
+        if m:
+            queues.setdefault(m.group(1), {})[m.group(2)] = v
+    cons_s = consensus_seconds(r["err"])
+    return dict(
+        consensus_s=cons_s, serial_consensus_s=serial_rec["consensus_s"],
+        wall_s=r["wall"], serial_wall_s=serial_rec["wall_s"],
+        pipe_wall_s=c.get("pipe_wall_s"), stages=stages, queues=queues,
+        walk={k: v for k, v in c.items() if k.startswith("walk_")},
+        ingest={k: v for k, v in c.items() if k.startswith("ingest_")},
+        phase_s=phase_seconds(r["err"]), stage_ms=r["stages"],
+        host_split_s=r["host_s"], host_split_n=r["host_n"],
+        launches=r["launches"], consensus_k1=r["k1_consensus"],
+        consensus_walks=r["walks"], max_memory_allocated=r["peak"],
+        serial_max_memory_allocated=serial_rec["max_memory_allocated"])
+
+
+def phase_pipeline(device, serial):
+    """Phase 8 (module docstring): phase 4's input through the CLI with
+    --pipeline-depth 2, under the scheduler and under RACON_TPU_SCHED=0
+    (the decoupled walk). Returns each run's (launches by kernels-line
+    row, launches by kernel)."""
+    argv = serial["argv"]
+    streamed = {}
+    for sched in (True, False):
+        streamed[sched] = main_run(device, argv, sched, pipeline=True)
+    for sched, r in streamed.items():
+        name = f"pipeline ({'scheduler' if sched else 'RACON_TPU_SCHED=0'})"
+        if r["out"] != serial["out"]:
+            fail(f"{name}: the FASTA differs from phase 4's serial FASTA")
+        if not r["counters"].get("pipe_runs"):
+            fail(f"{name}: the streaming pipeline did not run")
+        check_launches(name, r)
+        if r["counters"].get("ingest_parse_prefetch_files") != 3:
+            fail(f"{name}: the inputs did not parse on prefetch threads")
+    sch, fixed = streamed[True], streamed[False]
+    rec = pipeline_record(sch, serial["rec"])
+    rec_fixed = pipeline_record(fixed, serial["rec_fixed"])
+    # The walk gate: under the scheduler every chunk runs fused; under
+    # RACON_TPU_SCHED=0 every chunk but the last walks decoupled (the
+    # card's walk-queue budget admits phase 4's chunk), one h2d a chunk.
+    w, wf = rec["walk"], rec_fixed["walk"]
+    if w.get("walk_dispatches") != 0 or w.get("walk_async_enabled") != 0:
+        fail(f"pipeline (scheduler): decoupled walks under the scheduler "
+             f"({w})")
+    chunks = fixed["host_n"].get("h2d", 0)
+    if not (wf.get("walk_async_enabled") == 1
+            and wf.get("walk_fused_chunks") == 1
+            and wf.get("walk_dispatches", 0) > 0
+            and wf["walk_dispatches"] + 1 == chunks):
+        fail(f"pipeline (RACON_TPU_SCHED=0): {wf.get('walk_dispatches')} "
+             f"decoupled walks and {wf.get('walk_fused_chunks')} fused "
+             f"chunks, not {chunks - 1} and 1 ({wf})")
+    if fixed["host_n"].get("walk") != wf["walk_dispatches"]:
+        fail("pipeline (RACON_TPU_SCHED=0): dispatch_walk ran "
+             f"{fixed['host_n'].get('walk')} times, not once a decoupled "
+             "chunk")
+    emit("pipeline", depth=2, chunks=chunks, **rec)
+    emit("pipeline_fixed", depth=2, chunks=chunks, **rec_fixed)
+    return [(launches_by_case(r), r["launches"]) for r in (sch, fixed)]
 
 
 def phase_flat(device, tmp, contig_len=100000):
@@ -2075,10 +2198,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
         phase_small("cuda", tmp)
-        main_launches, main_by_case, main_paths = phase_main("cuda", tmp)
+        main_launches, main_by_case, main_paths, serial = phase_main(
+            "cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
         op_launches = phase_op_strings("cuda", main_paths)
         recs.update(phase_merge_kernels("cuda", main_paths))
+        pipe_runs = phase_pipeline("cuda", serial)
 
     rows = []
     for (name, k), r in recs.items():
@@ -2105,6 +2230,16 @@ def main() -> int:
                  "consensus": "consensus", 4: "consensus",
                  0: "tiled overlap group", "merge": "route merge shape",
                  "T1": "T1 op strings"}
+        # The same row's launches in phase 8's streamed runs (scheduler,
+        # RACON_TPU_SCHED=0): by case where the row is a case, W1's flat
+        # layout as what is left of that run's col_walk count after its
+        # other cases, else the kernel's whole count in that run (K5's
+        # two shape rows share it: the counter does not split by shape).
+        pipe = [by_case[(name, k)] if (name, k) in by_case else
+                counts[name] - sum(v for (n, _), v in by_case.items()
+                                   if n == name) if k == "flat" else
+                counts[name]
+                for by_case, counts in pipe_runs]
         rows.append({
             "name": (f"{name} ({label[k]})"
                      if name in ("col_walk", "band_fwd", "monotone_count")
@@ -2112,6 +2247,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches,
+            "pipeline_launches": pipe[0], "pipeline_fixed_launches": pipe[1],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

@@ -65,6 +65,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "aligner (<=0 uses all cores)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="default: cuda; where the consensus engine runs")
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    metavar="N",
+                    help="default: unset (RACON_TPU_PIPELINE decides); "
+                         "N>0 runs the consensus through the streaming "
+                         "pipeline with N chunks in flight a stage (2 = "
+                         "double buffering), 0 forces the serial path")
     ap.add_argument("--version", action="store_true",
                     help="prints the version number")
     ap.add_argument("-h", "--help", action="store_true",
@@ -90,8 +96,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from racon_tpu_torch.io.parsers import ParseError
     from racon_tpu_torch.models.overlap import PolisherError
     from racon_tpu_torch.models.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.pipeline import StageError
+    from racon_tpu_torch.pipeline import configure as configure_pipeline
     from racon_tpu_torch.utils.device import DeviceError, resolve_device
     from racon_tpu_torch.utils.logger import Logger
+
+    try:
+        configure_pipeline(args.pipeline_depth)
+    except ValueError as exc:
+        print(str(exc), file=sys.stderr)
+        return 1
 
     out = sys.stdout.buffer
     logger = Logger()
@@ -109,7 +123,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             if rec is not None:
                 out.write(b">" + rec.name.encode() + b"\n" + rec.data +
                           b"\n")
-    except (DeviceError, PolisherError, ParseError, ValueError) as exc:
+    except (DeviceError, PolisherError, ParseError, StageError,
+            ValueError) as exc:
+        # A pipeline stage's failure (or a stall) ends the run: nothing
+        # falls back to the host path.
         print(str(exc), file=sys.stderr)
         return 1
     out.flush()

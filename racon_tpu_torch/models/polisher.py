@@ -111,6 +111,13 @@ class Polisher:
         log = self.logger
         log.begin()
 
+        # The ingest plane (RACON_TPU_INGEST, default on): the three input
+        # files parse on prefetch threads at once, so phases 1-3 wait on
+        # the slowest file instead of the sum; the chunk protocol and the
+        # errors are the serial loops'.
+        from racon_tpu_torch.io.ingest import prefetch_ok
+        from racon_tpu_torch.pipeline.streaming import (IngestPrefetcher,
+                                                        serial_chunks)
         # kF single-parse: a fragment-correction invocation passes the
         # SAME file as reads and targets, so phase 2 replays the loaded
         # targets instead of parsing the file twice (byte-identical).
@@ -119,14 +126,32 @@ class Polisher:
         shared = (s_path is not None and t_path is not None
                   and os.path.realpath(s_path)
                   == os.path.realpath(t_path))
-        src_t = _serial_chunks(self.tparser, CHUNK_SIZE)
-        src_s = None if shared else _serial_chunks(self.sparser, CHUNK_SIZE)
-        src_o = _serial_chunks(self.oparser, CHUNK_SIZE)
-        self._load_inputs(src_t, src_s, src_o, log)
+        prefetchers: List[IngestPrefetcher] = []
+        src_s = None
+        if prefetch_ok():
+            pf_t = IngestPrefetcher(self.tparser, CHUNK_SIZE, "targets")
+            pf_o = IngestPrefetcher(self.oparser, CHUNK_SIZE, "overlaps")
+            prefetchers = [pf_t, pf_o]
+            if not shared:
+                pf_s = IngestPrefetcher(self.sparser, CHUNK_SIZE, "reads")
+                prefetchers.append(pf_s)
+                src_s = pf_s.chunks()
+            src_t = pf_t.chunks()
+            src_o = pf_o.chunks()
+        else:
+            src_t = serial_chunks(self.tparser, CHUNK_SIZE)
+            if not shared:
+                src_s = serial_chunks(self.sparser, CHUNK_SIZE)
+            src_o = serial_chunks(self.oparser, CHUNK_SIZE)
+        try:
+            self._load_inputs(src_t, src_s, src_o, log)
+        finally:
+            for pf in prefetchers:
+                pf.close()
 
     def _load_inputs(self, src_t, src_s, src_o, log) -> None:
-        """Phases 1-7 of initialize(), consuming the three parser chunk
-        streams. ``src_s`` may
+        """Phases 1-7 of initialize(), consuming the three ingest chunk
+        streams (prefetched or serial: the same protocol). ``src_s`` may
         be None — the reads ARE the targets (kF single-parse above) —
         and phase 2 then replays the loaded target records through the
         identical dedup/bookkeeping path without touching the file."""
@@ -345,22 +370,43 @@ class Polisher:
     def polish_records(self, drop_unpolished_sequences: bool = True):
         """The polishing loop: yield ``(target_id, record-or-None)`` as
         each target's last window finalizes, in target input order
-        (``record`` is None for a target dropped as unpolished)."""
+        (``record`` is None for a target dropped as unpolished). With the
+        streaming pipeline on (RACON_TPU_PIPELINE / --pipeline-depth;
+        pipeline/) the windows go through stream_consensus, and records
+        come out as their windows finalize; the serial and streamed paths
+        feed the same assembler and give the same records."""
+        from racon_tpu_torch.pipeline import pipeline_depth, pipeline_enabled
         log = self.logger
         log.begin()
         asm = _ContigAssembler(self, drop_unpolished_sequences)
 
-        n_windows = len(self.windows)
-        for s in range(0, n_windows, self.window_chunk):
-            self.engine.consensus_windows(
-                self.windows[s:s + self.window_chunk])
-            log.tick(
-                "[racon_tpu_torch::Polisher::polish] generating consensus")
-        self._log_sched_summary()
-        for i, w in enumerate(self.windows):
-            done = asm.feed(i, w)
-            if done is not None:
-                yield done
+        if pipeline_enabled():
+            from racon_tpu_torch.pipeline.streaming import stream_consensus
+
+            def _tick():
+                log.tick(
+                    "[racon_tpu_torch::Polisher::polish] generating consensus")
+
+            for s, e in stream_consensus(self.engine, self.windows,
+                                         chunk=self.window_chunk,
+                                         depth=pipeline_depth(), tick=_tick):
+                for i in range(s, e):
+                    done = asm.feed(i, self.windows[i])
+                    if done is not None:
+                        yield done
+            self._log_sched_summary()
+        else:
+            n_windows = len(self.windows)
+            for s in range(0, n_windows, self.window_chunk):
+                self.engine.consensus_windows(
+                    self.windows[s:s + self.window_chunk])
+                log.tick(
+                    "[racon_tpu_torch::Polisher::polish] generating consensus")
+            self._log_sched_summary()
+            for i, w in enumerate(self.windows):
+                done = asm.feed(i, w)
+                if done is not None:
+                    yield done
 
         log.phase("[racon_tpu_torch::Polisher::polish] generated consensus")
         self.windows = []
@@ -380,6 +426,15 @@ class Polisher:
         return [rec for _tid, rec
                 in self.polish_records(drop_unpolished_sequences)
                 if rec is not None]
+
+    def polish_stream(self, drop_unpolished_sequences: bool = True):
+        """Yield each PolishedSequence as soon as all of its windows
+        finalize, in the order polish() lists them (under the streaming
+        pipeline, while later windows are still being packed and
+        computed)."""
+        for _tid, rec in self.polish_records(drop_unpolished_sequences):
+            if rec is not None:
+                yield rec
 
 class _ContigAssembler:
     """Incremental contig stitching: feed finalized windows in input
@@ -436,12 +491,3 @@ def _filter_overlap_group(group: List[Overlap], error_threshold: float,
             best = o
     return [best]
 
-
-def _serial_chunks(parser, max_bytes: int):
-    """``(records, more)`` chunks of one parser, from its start."""
-    parser.reset()
-    while True:
-        chunk, more = parser.parse(max_bytes)
-        yield chunk, more
-        if not more:
-            return

@@ -83,6 +83,74 @@ def walk_k_for(elems: int, env_k=None) -> int:
 # card's memory (the group planner's, not an admission rule).
 GROUP_MEM_FRACTION = 0.25
 
+
+# ------------------------------------- decoupled-walk in-flight queue
+
+# The JAX package's aggregate budget for the final-round planes that
+# decoupled chunks park between their forward and their walk
+# (pipeline/streaming.py): one XLA buffer's worth, with the 9/10 margin.
+WALK_QUEUE_BYTES = BUFFER_BYTES * _MARGIN_NUM // _MARGIN_DEN
+
+
+def walk_queue_bytes(device_type: str, total_bytes: int = 0) -> int:
+    """The walk queue's byte budget on a device: on ``cuda``,
+    GROUP_MEM_FRACTION of the card's ``total_bytes`` (the share a launch
+    group's planes may take); elsewhere the JAX package's
+    WALK_QUEUE_BYTES.
+
+    The reference caps the queue at one XLA buffer (2^31 bytes less the
+    margin), which at the main chunk's final round (B = 4096, Lq = 640,
+    band 192, k = 4: 2.01 GB of planes) admits no chunk, so every chunk
+    would take the fused path. A card's memory is the real limit here:
+    on an 80 GB card the budget is 20 GB, and three parked chunks take 6.
+    The budget decides only which chunks walk decoupled; either way the
+    output bytes are the same. The CPU keeps the reference's constant,
+    so the CPU runs admit exactly the chunks the reference admits."""
+    if device_type == "cuda":
+        return int(GROUP_MEM_FRACTION * int(total_bytes))
+    return WALK_QUEUE_BYTES
+
+
+def walk_plane_bytes(B: int, Lq: int, W: int, nxt_k: int) -> int:
+    """Device bytes of ONE chunk's walk-input planes at lanes B, query
+    padding Lq, (band or anchor) width W and walk depth nxt_k: the u8
+    cell plane, the u8 ``nxt`` plane at k >= 2 and the u16 ``nxt2`` plane
+    at k >= 4. The per-lane scalars and the carried round state are small
+    beside them and are not counted."""
+    per = 1 + (1 if nxt_k >= 2 else 0) + (2 if nxt_k >= 4 else 0)
+    return int(B) * int(Lq) * int(W) * per
+
+
+def walk_queue_depth(plane_bytes: int, want: int,
+                     budget: int = WALK_QUEUE_BYTES) -> int:
+    """Admissible in-flight walk-queue depth: ``want`` clamped so that
+    ``depth * plane_bytes <= budget`` (walk_queue_bytes). 0 means the
+    decoupled path is off; a chunk too large for even one queued plane
+    set clamps to 0."""
+    if want <= 0:
+        return 0
+    if plane_bytes <= 0:
+        return int(want)
+    return min(int(want), int(budget) // int(plane_bytes))
+
+
+def walk_queue_env(default: int) -> int:
+    """The requested walk-queue depth from ``RACON_TPU_WALK_QUEUE`` (empty:
+    ``default``, the pipeline depth). Non-integers and negatives are
+    errors."""
+    raw = env.read(env.WALK_QUEUE).strip()
+    if not raw:
+        return int(default)
+    try:
+        d = int(raw)
+    except ValueError:
+        d = -1
+    if d < 0:
+        raise ValueError(
+            f"[racon_tpu_torch::budget] {env.WALK_QUEUE}={raw!r} invalid — "
+            "expected a non-negative integer queue depth")
+    return d
+
 # Usable fraction of the reference's per-core VMEM scoped limit
 # (admission rule, see the module docstring).
 VMEM_BUDGET = 12 * 1024 * 1024

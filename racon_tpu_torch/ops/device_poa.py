@@ -27,8 +27,11 @@ converged or flagged — the skipped rounds are exact replays.
 
 This module is the fixed-round engine (``RACON_TPU_SCHED=0``); the
 convergence scheduler (sched/) drives the same round pieces window by
-window. ``set_stage_clock`` times the device stages of both (tband,
-forward, walk, merge, and the scheduler's repack gathers),
+window. The streaming pipeline can split a fixed-round chunk in two:
+``dispatch_chunk_fwd`` runs every round but the final one's walk and
+merge, which dispatch_walk then runs on another thread, with the
+fused chunk's bytes. ``set_stage_clock`` times the device stages of both
+(tband, forward, walk, merge, and the scheduler's repack gathers),
 ``set_host_clock`` the host parts of the chunk loops.
 """
 
@@ -47,7 +50,7 @@ from racon_tpu_torch.ops import device_merge as dm
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import band_geometry, band_targets
 from racon_tpu_torch.ops.budget import (max_dir_elems, round_up,
-                                        walk_k_for)
+                                        walk_k_for, walk_plane_bytes)
 from racon_tpu_torch.utils import env
 
 # Per-plane element budget for the cell planes (ops/budget.py).
@@ -251,43 +254,55 @@ class ChunkPlan:
 
 class StageClock:
     """Per-stage device time of the chunk rounds (tband, forward, walk,
-    merge, and the scheduler's survivor gathers, repack): CUDA events on a
-    GPU, the host clock on the CPU; and the kernel launches made inside
-    each stage (the change of ``kernels.LAUNCHES``). Enabled with
+    merge, and the scheduler's survivor gathers, repack): CUDA events on
+    the calling thread's current stream on a GPU, the host clock on the
+    CPU; and the kernel launches made inside each stage by the calling
+    thread (the change of ``kernels.thread_launches``), so a stage is
+    charged only its own thread's launches when the streaming pipeline
+    launches from two threads. Those two threads share one stream
+    (pipeline/streaming.py), so a stage's event span there can include
+    kernels the other thread queued inside it. Enabled with
     :func:`set_stage_clock`; read once at the end (one synchronize)."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self._ev: Dict[str, list] = {}
         self._launches: Dict[str, Dict[str, int]] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, device: torch.device):
-        before = dict(kernels.LAUNCHES)
+        before = kernels.thread_launches()
         if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
+            a.record(stream)
             yield
-            b.record()
-            self._ev.setdefault(name, []).append((a, b))
+            b.record(stream)
+            rec = (a, b)
         else:
             t0 = time.perf_counter()
             yield
-            self._ev.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1e3)
-        got = self._launches.setdefault(name, {})
-        for k, n in kernels.LAUNCHES.items():
-            if n != before.get(k, 0):
-                got[k] = got.get(k, 0) + n - before.get(k, 0)
+            rec = (time.perf_counter() - t0) * 1e3
+        after = kernels.thread_launches()
+        with self._lock:
+            self._ev.setdefault(name, []).append(rec)
+            got = self._launches.setdefault(name, {})
+            for k, n in after.items():
+                if n != before.get(k, 0):
+                    got[k] = got.get(k, 0) + n - before.get(k, 0)
 
     def launches(self) -> Dict[str, Dict[str, int]]:
         """Kernel launches made inside each stage: {stage: {kernel: n}}."""
-        return {k: dict(v) for k, v in self._launches.items()}
+        with self._lock:
+            return {k: dict(v) for k, v in self._launches.items()}
 
     def ms(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
         synced = False
-        for k, vs in self._ev.items():
+        with self._lock:
+            evs = {k: list(vs) for k, vs in self._ev.items()}
+        for k, vs in evs.items():
             tot = 0.0
             for v in vs:
                 if isinstance(v, tuple):
@@ -322,12 +337,16 @@ class HostClock:
     ``plan`` (ChunkPlan and packed_bufs), ``h2d`` (the copies' enqueue),
     ``rounds`` (the round launches; the fixed engine's adaptive test
     waits on the card here), ``flags`` (the scheduler's flag pulls, which
-    wait on the card), ``repack`` (RepackPlan, its index copies and the
-    gathers' launches), ``collect`` (the d2h, which waits on the card)
+    wait on the card), ``walk`` (the decoupled final-round walk's
+    launches, dispatch_walk), ``repack`` (RepackPlan, its index
+    copies and the gathers' launches), ``collect`` (the d2h, which waits on the card)
     and ``apply`` (the windows' consensus applied); ``n`` counts the
-    times each part ran. Enabled with :func:`set_host_clock`."""
+    times each part ran. The streaming pipeline's stage threads time their
+    parts concurrently, so there the parts overlap and their sum can pass
+    the wall. Enabled with :func:`set_host_clock`."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.s: Dict[str, float] = {}
         self.n: Dict[str, int] = {}
 
@@ -337,8 +356,10 @@ class HostClock:
         try:
             yield
         finally:
-            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
-            self.n[name] = self.n.get(name, 0) + 1
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.s[name] = self.s.get(name, 0.0) + dt
+                self.n[name] = self.n.get(name, 0) + 1
 
 
 _HOST: Optional[HostClock] = None
@@ -539,17 +560,20 @@ def _pack_body(codes, cov, alen, ovf, rounds_exec: int, rounds_sched: int):
     ])
 
 
-def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
-                        ins_scale, Lq, n_win, LA, band_w, rounds,
-                        adaptive=False, nxt_k=2):
-    """One chunk end to end from its two byte buffers (on the device).
+def _rounds_before_final(job_buf, win_buf, *, match, mismatch, gap,
+                         ins_scale, Lq, n_win, LA, band_w, rounds, adaptive,
+                         nxt_k):
+    """Unpack a chunk and run its rounds 0 .. rounds-2: the shared prefix
+    of the fused chunk (device_chunk_packed) and its forward half
+    (device_chunk_fwd), so the decoupled walk path runs exactly the fused
+    path's round chain, adaptive exit included. ``adaptive``: after round
+    0, run the middle rounds only while some window is neither converged
+    nor flagged.
 
-    ``ins_scale``: a float or a per-round tuple of length ``rounds``.
-    ``adaptive``: after round 0, run the middle rounds only while some
-    window is neither converged nor flagged (needs rounds >= 3 and
-    uniform non-final scales; the caller checks both). Returns the packed
-    output buffer (see _pack_body).
-    """
+    Returns ``(job, state, executed, scales)``: the round-invariant lane
+    tensors (q, qw8, lq, w_read, win) and the chunk's membership, the
+    state entering the final round (bb, bbw, alen, begin, end, ovf), the
+    rounds run so far and the per-round scales."""
     (q, qw8, begin, end, lq, win, w_read, bb, bbw, alen) = \
         _unpack_bufs(job_buf, win_buf, Lq, LA)
     scales = ins_scale if isinstance(ins_scale, tuple) \
@@ -562,12 +586,12 @@ def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
 
     def run(r, sc, detect):
         nonlocal bb, bbw, alen, begin, end, ovf
-        bb, bbw, alen, begin, end, cov, ovf, conv = _round_core(
+        bb, bbw, alen, begin, end, _cov, ovf, conv = _round_core(
             bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, mem,
             match=match, mismatch=mismatch, gap=gap, ins_scale=sc, Lq=Lq,
             n_win=n_win, LA=LA, band_w=round_band_width(band_w, r),
             nxt_k=nxt_k, detect=detect)
-        return cov, conv
+        return conv
 
     if not adaptive:
         for r in range(rounds - 1):
@@ -577,14 +601,87 @@ def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
         # Round 0 cannot be a fixed point (its anchor carries backbone
         # quality weights); middle rounds stop once every window is
         # converged or flagged.
-        _, conv = run(0, scales[0], False)
+        conv = run(0, scales[0], False)
         executed = 1
         while executed < rounds - 1 and \
                 not bool(torch.all(conv | ovf).item()):
-            _, conv = run(1, scales[1], True)
+            conv = run(1, scales[1], True)
             executed += 1
-    cov, _ = run(rounds - 1, scales[-1], False)
+    return ((q, qw8, lq, w_read, win, mem), (bb, bbw, alen, begin, end, ovf),
+            executed, scales)
+
+
+def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
+                        ins_scale, Lq, n_win, LA, band_w, rounds,
+                        adaptive=False, nxt_k=2):
+    """One chunk end to end from its two byte buffers (on the device).
+
+    ``ins_scale``: a float or a per-round tuple of length ``rounds``.
+    ``adaptive``: the middle rounds' early exit (needs rounds >= 3 and
+    uniform non-final scales; the caller checks both). Returns the packed
+    output buffer (see _pack_body).
+    """
+    job, state, executed, scales = _rounds_before_final(
+        job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
+        ins_scale=ins_scale, Lq=Lq, n_win=n_win, LA=LA, band_w=band_w,
+        rounds=rounds, adaptive=adaptive, nxt_k=nxt_k)
+    q, qw8, lq, w_read, win, mem = job
+    bb, bbw, alen, begin, end, ovf = state
+    bb, _bbw, alen, _b, _e, cov, ovf, _conv = _round_core(
+        bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, mem,
+        match=match, mismatch=mismatch, gap=gap, ins_scale=scales[-1],
+        Lq=Lq, n_win=n_win, LA=LA,
+        band_w=round_band_width(band_w, rounds - 1), nxt_k=nxt_k,
+        detect=False)
     return _pack_body(bb[:-1], cov, alen[:-1], ovf, executed + 1, rounds)
+
+
+def device_chunk_fwd(job_buf, win_buf, *, match, mismatch, gap, ins_scale,
+                     Lq, n_win, LA, band_w, rounds, adaptive=False, nxt_k=2):
+    """The forward half of a chunk: rounds 0 .. rounds-2 as
+    device_chunk_packed runs them (adaptive exit included), then the final
+    round's tband and forward only. Its walk and merge are left to
+    walk_chunk_packed, which finishes the chunk with the same
+    bytes: only the final round's walk has no later round waiting on it,
+    so it alone can leave the chunk's launching thread.
+
+    Returns ``(fwd_out, job)``: ``fwd_out`` = (cells, nxt, nxt2, lt,
+    t_off, klo, esc0) of the final round's forward (None where the depth
+    or layout has no such plane), then the state entering the final round
+    (bb, bbw, alen, begin, end, ovf) and the rounds executed so far;
+    ``job`` = the chunk's round-invariant lane tensors (q, qw8, lq,
+    w_read, win) and its membership."""
+    job, state, executed, _scales = _rounds_before_final(
+        job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
+        ins_scale=ins_scale, Lq=Lq, n_win=n_win, LA=LA, band_w=band_w,
+        rounds=rounds, adaptive=adaptive, nxt_k=nxt_k)
+    q, _qw8, lq, _w_read, win, _mem = job
+    bb, bbw, alen, begin, end, ovf = state
+    planes = _lane_fwd(bb, alen, begin, end, q, lq, win, match=match,
+                       mismatch=mismatch, gap=gap, Lq=Lq, LA=LA,
+                       band_w=round_band_width(band_w, rounds - 1),
+                       nxt_k=nxt_k)
+    return tuple(planes) + (bb, bbw, alen, begin, end, ovf, executed), job
+
+
+def walk_chunk_packed(job, cells, nxt, nxt2, lt, t_off, klo, esc0, bb, bbw,
+                      alen, begin, end, ovf, rounds_exec, *, ins_scale,
+                      n_win, LA, band_w, rounds):
+    """The walk half of a chunk: finish device_chunk_fwd's final round —
+    the column walk (W1), M1 and M2 — and pack the output, byte for byte
+    the buffer device_chunk_packed gives. It runs the fused chunk's own
+    pieces (_lane_walk, _merge_round, _pack_body) on the planes and state
+    device_chunk_fwd left on the device. ``job``: the chunk's (q, qw8, lq,
+    w_read, win, members); ``ins_scale``: the final round's scale."""
+    q, qw8, lq, w_read, win, members = job
+    cols, esc_w = _lane_walk(cells, nxt, nxt2, lt, t_off, klo, esc0, lq,
+                             LA=LA, band_w=band_w)
+    new_bb, _bbw, new_alen, _b, _e, cov, ovf, _conv = _merge_round(
+        cols, esc_w, lt, t_off, q, qw8, w_read, bb, bbw, alen, begin, end,
+        win, ovf, members, ins_scale=ins_scale, n_win=n_win, LA=LA,
+        detect=False)
+    return _pack_body(new_bb[:-1], cov, new_alen[:-1], ovf, rounds_exec + 1,
+                      rounds)
 
 
 def chunk_statics(plan: ChunkPlan, *, ins_scale, rounds: int) -> dict:
@@ -681,6 +778,57 @@ def dispatch_chunk(plan: ChunkPlan, *, match: int, mismatch: int, gap: int,
         stats["dispatch_s"] = stats.get("dispatch_s", 0.0) + \
             time.perf_counter() - t0
     return packed
+
+
+def walk_plane_bytes_for(plan: ChunkPlan, *, ins_scale, rounds: int,
+                         statics: Optional[dict] = None) -> int:
+    """Device bytes of the final-round planes that one decoupled chunk
+    holds between its forward and its walk: budget.walk_plane_bytes at
+    the final round's band width (the only round whose planes outlive
+    their launch). The streaming executor admits a chunk to the decoupled
+    walk against budget.walk_queue_depth."""
+    st = statics if statics is not None else \
+        chunk_statics(plan, ins_scale=ins_scale, rounds=rounds)
+    band_w = st["band_w"]
+    W = round_band_width(band_w, rounds - 1) if band_w else plan.LA
+    return walk_plane_bytes(plan.B, plan.Lq, W,
+                            st["nxt_k"] if band_w else 1)
+
+
+def dispatch_chunk_fwd(plan: ChunkPlan, *, match: int, mismatch: int,
+                       gap: int, ins_scale, rounds: int, device,
+                       bufs: Optional[ChunkBufs] = None):
+    """Launch a chunk's forward half (device_chunk_fwd) from ``bufs`` (or
+    ship the buffers here). Returns ``(fwd_out, meta)``: the final round's
+    planes and the carried state, still being computed, and ``meta`` =
+    the chunk's statics plus its lane tensors (``job``), ``ins_scale`` and
+    ``rounds``, which dispatch_walk needs to finish the chunk."""
+    st = chunk_statics(plan, ins_scale=ins_scale, rounds=rounds)
+    if bufs is None:
+        bufs = put_chunk_bufs(plan, device)
+    with host_part("rounds"):
+        job_buf, win_buf = bufs.tensors()
+        fwd_out, job = device_chunk_fwd(
+            job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
+            ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win, LA=plan.LA,
+            band_w=st["band_w"], rounds=rounds, adaptive=st["adaptive"],
+            nxt_k=st["nxt_k"])
+    meta = dict(st, job=job, ins_scale=ins_scale, rounds=rounds)
+    return fwd_out, meta
+
+
+def dispatch_walk(plan: ChunkPlan, fwd_out, meta):
+    """Launch the walk half of a chunk whose forward half
+    dispatch_chunk_fwd launched; returns the packed output buffer (still
+    being computed) for collect_chunk."""
+    rounds = meta["rounds"]
+    sc = meta["ins_scale"]
+    scales = sc if isinstance(sc, tuple) else (sc,) * rounds
+    with host_part("walk"):
+        return walk_chunk_packed(
+            meta["job"], *fwd_out, ins_scale=scales[-1], n_win=plan.n_win,
+            LA=plan.LA, band_w=round_band_width(meta["band_w"], rounds - 1),
+            rounds=rounds)
 
 
 def collect_chunk(plan: ChunkPlan, packed, stats: Optional[dict] = None

@@ -104,9 +104,33 @@ class KernelError(RuntimeError):
     pass
 
 
+# LAUNCHES is updated under this lock: the streaming pipeline launches
+# from two threads (its compute and walk stages). Each thread also keeps
+# its own counts, which the stage clock reads (thread_launches).
+_COUNT_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def _launched(name: str) -> None:
+    """Count one launch of kernel ``name`` (every wrapper calls this right
+    after its kernel launched, and nowhere else)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+    own = getattr(_THREAD, "launches", None)
+    if own is None:
+        own = _THREAD.launches = {}
+    own[name] = own.get(name, 0) + 1
+
+
+def thread_launches() -> dict:
+    """The calling thread's launches so far, by kernel (never reset)."""
+    return dict(getattr(_THREAD, "launches", {}))
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -246,7 +270,7 @@ def fw_dirs_band(tband: torch.Tensor, qT: torch.Tensor, klo: torch.Tensor,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] band_fwd launch "
                           f"failed (cudaError {rc})")
-    LAUNCHES["band_fwd"] += 1
+    _launched("band_fwd")
     return cells, nxt, nxt2, hlast
 
 
@@ -345,7 +369,7 @@ def fw_dirs_band_tile(tband: torch.Tensor, qT: torch.Tensor,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] band_tile_fwd launch "
                           f"failed (cudaError {rc})")
-    LAUNCHES["band_tile_fwd"] += 1
+    _launched("band_tile_fwd")
     return tuple(None if p is None else p[i0:i0 + T] for p in out) + (
         hl_out, p_out, uc_out)
 
@@ -507,7 +531,7 @@ def col_walk_kernel(cells, lq, lt, klo, t_off, *, LA: int, layout: str,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] col_walk launch "
                           f"failed (cudaError {rc}, plan {plan})")
-    LAUNCHES["col_walk"] += 1
+    _launched("col_walk")
     return {"ins_len": out[..., 0], "qstart": out[..., 1],
             "op_c": out[..., 2], "qi_c": out[..., 3], "sat": sat}
 
@@ -537,7 +561,7 @@ def fw_dirs_flat(tbuf: torch.Tensor, qT: torch.Tensor, *, match: int,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] flat_fwd launch "
                           f"failed (cudaError {rc})")
-    LAUNCHES["flat_fwd"] += 1
+    _launched("flat_fwd")
     return cells
 
 
@@ -644,7 +668,7 @@ def nw_dirs(q: torch.Tensor, t: torch.Tensor, *, match: int, mismatch: int,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] nw_fwd launch failed "
                           f"(cudaError {rc}, plan {plan})")
-    LAUNCHES["nw_fwd" if plan["variant"] == "warp" else "nw_fwd_wide"] += 1
+    _launched("nw_fwd" if plan["variant"] == "warp" else "nw_fwd_wide")
     return dirs
 
 
@@ -774,7 +798,7 @@ def nw_traceback(dirs: torch.Tensor, lq: torch.Tensor, lt: torch.Tensor,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] nw_traceback launch "
                           f"failed (cudaError {rc}, {lpb} lanes a block)")
-    LAUNCHES["nw_traceback"] += 1
+    _launched("nw_traceback")
     return ops, n
 
 
@@ -842,7 +866,7 @@ def monotone_count(X: torch.Tensor, P: int) -> torch.Tensor:
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] monotone_count launch "
                           f"failed (cudaError {rc}, plan {plan})")
-    LAUNCHES["monotone_count"] += 1
+    _launched("monotone_count")
     return F
 
 
@@ -997,7 +1021,7 @@ def merge_votes(cols, q, qw8, w_read, lt, t_off, esc_w, win, members, *,
     if rc != 0:
         raise KernelError(f"[racon_tpu_torch::kernels] merge_votes launch "
                           f"failed (cudaError {rc}, plan {plan})")
-    LAUNCHES["merge_votes"] += 1
+    _launched("merge_votes")
     return votes, wesc
 
 
@@ -1081,7 +1105,7 @@ def merge_windows(votes, wesc, bb, bbw, alen, begin, end, win, ovf, members,
         votes, wesc, bb, bbw, alen, begin, end, win, ovf, members, None,
         ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect,
         variant=variant)
-    LAUNCHES["merge_windows"] += 1
+    _launched("merge_windows")
     return out
 
 
@@ -1116,7 +1140,7 @@ def merge_windows_sched(votes, wesc, bb, bbw, alen, begin, end, win, ovf,
         (orig_ids, out, float(scale_final), bool(last)),
         ins_scale=ins_scale, n_win=n_win, LA=LA, detect=detect,
         variant=variant)
-    LAUNCHES["merge_windows_sched"] += 1
+    _launched("merge_windows_sched")
     return res
 
 

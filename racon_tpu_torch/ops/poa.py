@@ -127,8 +127,7 @@ class PoaEngine:
         if dev:
             n += self._consensus_device(dev, lq_max, la_max)
         if host:
-            self._count("host_windows", len(host))
-            n += self._consensus_host_impl(host)
+            n += self._consensus_host(host)
         return n
 
     def _count(self, key: str, n: int) -> None:
@@ -200,6 +199,22 @@ class PoaEngine:
             sp.groups.append(ws)
         return sp
 
+    def _make_chunk_plan(self, sp: "_DeviceSlicePlan", ws: List[Window]):
+        """The ChunkPlan of one chunk group of a slice, at the slice's
+        caps (timed as the host clock's ``plan`` part)."""
+        from racon_tpu_torch.ops.device_poa import ChunkPlan, host_part
+        with host_part("plan"):
+            return ChunkPlan(ws, lq_cap=sp.lq_cap, la_cap=sp.la_cap,
+                             band_cap=sp.band_cap)
+
+    def _consensus_host(self, active: List[Window]) -> int:
+        """The host path for windows the device engine does not take
+        (native aligner, numpy merge). The streaming pipeline calls it
+        from its pack stage under one lock, which also covers the redo,
+        since both use this engine's one native aligner."""
+        self._count("host_windows", len(active))
+        return self._consensus_host_impl(active)
+
     def _apply_group(self, ws: List[Window], codes, covs,
                      trunc: List[Window]) -> None:
         """Apply one collected chunk's consensus; flagged windows collect
@@ -263,25 +278,18 @@ class PoaEngine:
         convergence scheduler drives each chunk (sched/), with chunk
         i+1's h2d started before chunk i's rounds; ``RACON_TPU_SCHED=0``
         runs the fixed-round engine in a depth-2 pipeline instead."""
-        from racon_tpu_torch.ops.device_poa import (ChunkPlan, collect_chunk,
+        from racon_tpu_torch.ops.device_poa import (collect_chunk,
                                                     dispatch_chunk, host_part)
         sp = self._plan_device_slice(active, lq_max, la_max)
         if sp.overflow_msg:
             print(sp.overflow_msg, file=self.log)
-            self._count("host_windows", len(sp.host))
-            return self._consensus_host_impl(sp.host)
+            return self._consensus_host(sp.host)
         n_wide = 0
         if sp.host:
-            self._count("host_windows", len(sp.host))
-            n_wide = self._consensus_host_impl(sp.host)
+            n_wide = self._consensus_host(sp.host)
         trunc: List[Window] = []
         rounds = self.refine_rounds + 1
         groups = sp.groups
-
-        def make_plan(ws: List[Window]) -> ChunkPlan:
-            with host_part("plan"):
-                return ChunkPlan(ws, lq_cap=sp.lq_cap, la_cap=sp.la_cap,
-                                 band_cap=sp.band_cap)
 
         def apply(ws, codes, covs) -> None:
             with host_part("apply"):
@@ -293,7 +301,7 @@ class PoaEngine:
             sched = self._make_scheduler()
 
             def prefetch(ws: List[Window]):
-                plan = make_plan(ws)
+                plan = self._make_chunk_plan(sp, ws)
                 return plan, sched.put_chunk(plan)
 
             nxt = prefetch(groups[0]) if groups else None
@@ -317,7 +325,7 @@ class PoaEngine:
                 apply(ws, codes, covs)
 
             for ws in groups:
-                plan = make_plan(ws)
+                plan = self._make_chunk_plan(sp, ws)
                 packed = dispatch_chunk(
                     plan, match=self.match, mismatch=self.mismatch,
                     gap=self.gap, ins_scale=self._round_scales(rounds),

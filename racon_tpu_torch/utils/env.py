@@ -19,6 +19,21 @@ test steers the reference and the port alike:
 - ``RACON_TPU_REDO`` ("0" or "false" turns it off): the wide-band device
   redo of flagged windows (ops/redo.py); with it off, every flagged
   window takes the host path.
+- ``RACON_TPU_PIPELINE`` (default off; "0" or "false" forces it off over
+  the CLI's ``--pipeline-depth``): the streaming pipeline (pipeline/).
+- ``RACON_TPU_PIPELINE_DEPTH`` (default 2): chunks in flight a queue of
+  the pipeline.
+- ``RACON_TPU_WALK_ASYNC`` ("0" or "false" turns it off): the decoupled
+  final-round walk of the pipeline's fixed-round path.
+- ``RACON_TPU_WALK_QUEUE`` (default: the pipeline depth): chunks whose
+  final-round planes may wait for the walk stage; 0 turns the decoupled
+  walk off (ops/budget.py::walk_queue_env).
+- ``RACON_TPU_STALL_S`` (default 300; 0 turns it off): seconds without
+  progress after which the pipeline's stall detector fails the run.
+- ``RACON_TPU_INGEST`` ("0" or "false" turns it off): the ingest plane
+  (io/ingest.py: prefetch threads, mmap readers, parallel inflate).
+- ``RACON_TPU_INGEST_WORKERS`` (default: cores, 2 to 8): the parallel
+  inflate's threads (io/inflate.py).
 """
 
 from __future__ import annotations
@@ -31,7 +46,16 @@ OVL_TILED = "RACON_TPU_OVL_TILED"
 SCHED = "RACON_TPU_SCHED"
 ADAPTIVE = "RACON_TPU_ADAPTIVE"
 REDO = "RACON_TPU_REDO"
-_KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO)
+PIPELINE = "RACON_TPU_PIPELINE"
+PIPELINE_DEPTH = "RACON_TPU_PIPELINE_DEPTH"
+WALK_ASYNC = "RACON_TPU_WALK_ASYNC"
+WALK_QUEUE = "RACON_TPU_WALK_QUEUE"
+STALL_S = "RACON_TPU_STALL_S"
+INGEST = "RACON_TPU_INGEST"
+INGEST_WORKERS = "RACON_TPU_INGEST_WORKERS"
+_KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
+          PIPELINE_DEPTH, WALK_ASYNC, WALK_QUEUE, STALL_S, INGEST,
+          INGEST_WORKERS)
 
 
 def read(name: str) -> str:
@@ -59,3 +83,4 @@ def adaptive_enabled() -> bool:
 
 def redo_enabled() -> bool:
     return read(REDO) not in ("0", "false")
+

@@ -5,7 +5,10 @@ column walk (band and flat layouts) and the walk's latency probe, the
 batched NW forward (K4) and its traceback (T1), the monotone count (K5),
 the batched aligner end to end, and the round merge (M1, M2 and M2's
 sched mode: each against its plain version, and a chunk's rounds, under
-the fixed engine and the convergence scheduler, against the CPU run).
+the fixed engine and the convergence scheduler, against the CPU run), and
+the streaming pipeline's new call paths (a chunk's decoupled walk on
+another thread against the fused chunk; stream_consensus against the
+serial engine).
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -1404,3 +1407,114 @@ def test_device_chunk_long_windows(cuda, wlen):
     for (gc, gv), (rc, rv) in zip(zip(*got), zip(*cpu)):
         assert gc == rc
         assert (gv is None and rv is None) or np.array_equal(gv, rv)
+
+
+@pytest.mark.parametrize("layout", ["band", "flat"])
+@pytest.mark.parametrize("adaptive", ["1", "0"])
+def test_decoupled_walk_matches_fused_on_the_card(cuda, monkeypatch, layout,
+                                                  adaptive):
+    """dispatch_chunk_fwd on this thread, dispatch_walk on another (as the
+    pipeline's compute and walk stages run them, on one stream): the
+    packed bytes of the fused dispatch_chunk on the card and of the CPU
+    run; the launches split between the threads add up exactly."""
+    import threading
+    from window_sets import port_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    monkeypatch.setenv("RACON_TPU_ADAPTIVE", adaptive)
+    if layout == "flat":
+        monkeypatch.setenv("RACON_TPU_NO_BAND", "1")
+    eng = PoaEngine(device=cuda)
+    ws = [w for w in port_windows(8, 5, wlen=300) if w.n_layers >= 2]
+    dev, _host, lq_max, la_max = eng._partition_device(ws)
+    sp = eng._plan_device_slice(dev, lq_max, la_max)
+    plan = eng._make_chunk_plan(sp, sp.groups[0])
+    rounds = eng.refine_rounds + 1
+    kw = dict(match=5, mismatch=-4, gap=-8,
+              ins_scale=eng._round_scales(rounds), rounds=rounds)
+    assert bool(P.chunk_statics(plan, ins_scale=kw["ins_scale"],
+                                rounds=rounds)["band_w"]) == \
+        (layout == "band")
+    cpu = P.dispatch_chunk(plan, device="cpu", **kw).numpy().tobytes()
+    fused = P.dispatch_chunk(plan, device=cuda, **kw).cpu().numpy().tobytes()
+    stream = torch.cuda.Stream(cuda)
+    n0 = dict(kernels.LAUNCHES)
+    with torch.cuda.stream(stream):
+        fwd_out, meta = P.dispatch_chunk_fwd(plan, device=cuda, **kw)
+    got, walk_n = [], {}
+
+    def walk():
+        with torch.cuda.stream(stream):
+            before = kernels.thread_launches()
+            got.append(P.dispatch_walk(plan, fwd_out, meta).cpu())
+            after = kernels.thread_launches()
+            walk_n.update({k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)})
+
+    t = threading.Thread(target=walk)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and got
+    assert got[0].numpy().tobytes() == fused == cpu
+    n = {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]}
+    fwd_k = "band_fwd" if layout == "band" else "flat_fwd"
+    assert walk_n == {"col_walk": 1, "merge_votes": 1, "merge_windows": 1}
+    assert n["col_walk"] == n["merge_votes"] == n["merge_windows"] == \
+        n[fwd_k]
+
+
+@pytest.mark.parametrize("sched", ["1", "0"])
+def test_stream_consensus_on_the_card_matches_serial(cuda, monkeypatch,
+                                                     sched):
+    """stream_consensus on the card (its stage threads on the engine's
+    stream, the decoupled walk under RACON_TPU_SCHED=0) against the serial
+    engine on the card and the CPU run; launch counts exact with two
+    launching threads."""
+    from window_sets import port_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    from racon_tpu_torch.pipeline import metrics
+    from racon_tpu_torch.pipeline.streaming import stream_consensus
+    monkeypatch.setenv("RACON_TPU_SCHED", sched)
+    out = {}
+    for dev, streamed in (("cpu", False), ("cuda", False), ("cuda", True)):
+        monkeypatch.setattr(P, "_CAP_HISTORY", set())
+        monkeypatch.setattr(P, "_BAND_HISTORY", set())
+        ws = port_windows(24, 42, wlen=300)
+        eng = PoaEngine(device=dev)
+        metrics.reset()
+        clock = P.set_stage_clock(True)
+        n0 = dict(kernels.LAUNCHES)
+        try:
+            if streamed:
+                ranges = list(stream_consensus(eng, ws, chunk=8, depth=2))
+                assert [i for s, e in ranges for i in range(s, e)] == \
+                    list(range(24))
+            else:
+                eng.consensus_windows(ws)
+        finally:
+            P.set_stage_clock(False)
+        n = {k: v - n0[k] for k, v in kernels.LAUNCHES.items()}
+        out[(dev, streamed)] = ([w.consensus for w in ws], n,
+                                clock.launches(),
+                                metrics.registry().snapshot())
+    cpu, serial, piped = out[("cpu", False)], out[("cuda", False)], out[
+        ("cuda", True)]
+    assert piped[0] == serial[0] == cpu[0]
+    n, stages, snap = piped[1], piped[2], piped[3]
+    # One forward (banded, or full width in a redo), walk and merge a
+    # round, whichever thread launched it.
+    k1 = stages["forward"].get("band_fwd", 0) + \
+        stages["forward"].get("flat_fwd", 0)
+    assert k1 > 0
+    assert n["merge_votes"] == n["merge_windows"] + \
+        n["merge_windows_sched"] == k1 == n["band_fwd"] + n["flat_fwd"]
+    assert stages["walk"]["col_walk"] == n["col_walk"] == k1
+    assert stages["merge"]["merge_votes"] == k1
+    if sched == "0":
+        assert snap["walk_dispatches"] == 2
+        assert snap["walk_fused_chunks"] == 1
+        assert n["merge_windows_sched"] == 0
+    else:
+        assert snap["walk_dispatches"] == 0
+        assert n["merge_windows_sched"] > 0

@@ -52,6 +52,8 @@ def test_port_modules_found():
     assert "racon_tpu_torch.ops.ovl_align" in mods
     assert "racon_tpu_torch.cli" in mods
     assert "racon_tpu_torch.sched.scheduler" in mods
+    assert "racon_tpu_torch.pipeline.streaming" in mods
+    assert "racon_tpu_torch.io.ingest" in mods
 
 
 def test_import_loads_no_jax_and_no_reference_module():
