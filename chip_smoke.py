@@ -154,6 +154,37 @@ any failure exits non-zero and prints no result):
               chunks, walk and overlap seconds), the ingest parse and
               wait seconds, stage ms, host split and peak bytes; the
               kernels line adds each row's launches in both runs.
+9. faults     the fault plane on the card (resilience/: the retry and
+              watchdog envelope, host degradation, stall recovery, the
+              tracer), one JSON line a run, each run's FASTA byte for
+              byte its clean run's in this call, counts reset just before
+              and read just after: (1) phase 4's input with
+              RACON_TPU_RETRY=attempts=3,base=0 under the scheduler with
+              h2d/chunk:0,1;sched/flags:3;h2d/repack:0;d2h/chunk:4, and
+              under RACON_TPU_SCHED=0 with dispatch/chunk:2;d2h/chunk:1:
+              retries = injected faults, nothing degraded, the kernel
+              launches exactly phase 4's clean run's (an injected raise
+              fires before the body); (2) RACON_TPU_SCHED=0 with a 0.5 s
+              dispatch deadline and dispatch/chunk:1!hang=2: one watchdog
+              breach, the run finishes, the launches exactly the clean
+              RACON_TPU_SCHED=0 run's (the abandoned attempt never runs
+              its body); (3) phase 3's kC case with h2d/chunk:p=1.0 and 2
+              attempts: every device window degraded to the host path, no
+              consensus K1 launch, the overlap K1 and K3 launches as in
+              phase 3; (4) phase 4's input with --pipeline-depth 2,
+              RACON_TPU_STALL_S=0.5 and pipe/pack:0!hang=3: the stall
+              detected, one stall event, the windows recovered on the
+              host path counted; (5) phase 4's input with --trace: span
+              counts by kind, the file's bytes, consensus seconds beside
+              phase 4's; (6) phase 4's input under RACON_TPU_SCHED=0
+              with a 1 us d2h deadline and 2 attempts: a real breach
+              where kernels run is not degraded, the run exits 1 with no
+              FASTA, one exhaustion at d2h/chunk, and every breach there
+              (each a retry or the exhaustion).
+              Phases 4 and 8 print each run's res_* counters
+              (pipeline/metrics.resilience_extras), which must be empty:
+              no retry, fault, breach, exhaustion or degraded window on a
+              clean run.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -1196,9 +1227,11 @@ def small_cases(tmp):
 def phase_small(device, tmp):
     """Phase 3: each of small_cases' CLI runs with --device cuda and
     --device cpu, byte-identical; the overlaps of each aligned on the card
-    and its consensus merged by M1 and M2."""
+    and its consensus merged by M1 and M2. Returns each case's argv,
+    --device cuda FASTA and launches."""
     from racon_tpu_torch.ops import kernels, ovl_align
     recs = []
+    runs = {}
     for name, argv, env in small_cases(tmp):
         argv = argv + ["-t", "8"]
         os.environ.update(env)
@@ -1220,6 +1253,7 @@ def phase_small(device, tmp):
                          identical=out_g == out_c and len(out_g) > 0,
                          wall_s_gpu=wall_g, wall_s_cpu=wall_c,
                          launches=launches, ovl=ovl))
+        runs[name] = dict(argv=argv, out=out_g, launches=launches)
     emit("small", cases=recs)
     for r in recs:
         if not r["identical"]:
@@ -1237,6 +1271,7 @@ def phase_small(device, tmp):
             fail(f"small run {r['case']!r}: M2's sched mode launched "
                  f"{n['merge_windows_sched']} times (scheduler "
                  f"{'on' if r['sched'] else 'off'})")
+    return runs
 
 
 def consensus_seconds(err: str) -> float:
@@ -1291,12 +1326,13 @@ def sched_telemetry():
         PoaEngine._make_scheduler = make
 
 
-def main_run(device, argv, sched: bool, pipeline: bool = False):
+def main_run(device, argv, sched: bool, pipeline: bool = False,
+             expect_rc: int = 0):
     """One CLI run of phase 4's input, under the convergence scheduler or
     (``sched`` False) RACON_TPU_SCHED=0, serial or (``pipeline``) with
     --pipeline-depth 2: launch counts, stage clock, host split and the
     pipeline's and ingest plane's counters from zero just before, read
-    just after."""
+    just after. A run whose exit code is not ``expect_rc`` fails."""
     import torch
     from racon_tpu_torch.ops import device_poa, kernels, ovl_align
     from racon_tpu_torch.pipeline import metrics
@@ -1325,12 +1361,13 @@ def main_run(device, argv, sched: bool, pipeline: bool = False):
              stages=clock.ms(), stage_launches=clock.launches(),
              host_s=dict(host.s), host_n=dict(host.n),
              counters=metrics.registry().snapshot(),
+             resilience=metrics.resilience_extras(),
              peak=torch.cuda.max_memory_allocated() if device == "cuda"
              else None, telemetry=telem[-1] if telem else None)
     r["walks"] = r["stage_launches"].get("walk", {}).get("col_walk", 0)
     r["k1_consensus"] = r["stage_launches"].get("forward", {}).get(
         "band_fwd", 0)
-    if rc:
+    if rc != expect_rc:
         fail(f"{'pipeline' if pipeline else 'main'} run "
              f"({'scheduler' if sched else 'RACON_TPU_SCHED=0'}) "
              f"failed: {err[-3000:]}")
@@ -1381,6 +1418,17 @@ def launches_by_case(r):
             ("merge_windows_sched", 0): n["merge_windows_sched"]}
 
 
+def check_clean(name, r):
+    """A clean run retried, injected, breached, exhausted and degraded
+    nothing: no degrade can hide a kernel on the main path."""
+    res = r["resilience"]
+    for key in ("res_retry_total", "res_fault_injected_total",
+                "res_watchdog_breach_total", "res_retry_exhausted",
+                "res_degraded_windows"):
+        if res.get(key, 0) != 0:
+            fail(f"{name}: {key} = {res[key]} on a clean run ({res})")
+
+
 def main_record(r, ds, n_windows):
     """Phase 4's record of one run: times, stages, host split, launches,
     memory, routes and edit distances."""
@@ -1410,7 +1458,8 @@ def main_record(r, ds, n_windows):
                redo_windows=flagged, host_windows=host, ed_draft=ed_draft,
                ed_polished=ed_pol,
                ingest={k: v for k, v in r["counters"].items()
-                       if k.startswith("ingest_")})
+                       if k.startswith("ingest_")},
+               resilience=r["resilience"])
     t = r["telemetry"]
     if t is not None:
         line = re.findall(r"scheduler (windows=.*)$", r["err"], flags=re.M)
@@ -1470,6 +1519,7 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
             fail(f"main run: bucket {g} was not grouped")
     for name, r in (("scheduler", main), ("RACON_TPU_SCHED=0", fixed)):
         check_launches(f"main run ({name})", r)
+        check_clean(f"main run ({name})", r)
     for rr in (rec, rec_fixed):
         if not rr["ed_polished"] * 3 <= rr["ed_draft"]:
             fail(f"main run: polished ED {rr['ed_polished']} > draft ED "
@@ -1480,7 +1530,8 @@ def phase_main(device, tmp, n_contigs=20, contig_len=50000,
         fail(f"main run: the inputs did not parse on the ingest plane's "
              f"prefetch threads ({rec['ingest']})")
     serial = dict(argv=argv, ds=ds, n_windows=n_windows, out=main["out"],
-                  rec=rec, rec_fixed=rec_fixed)
+                  rec=rec, rec_fixed=rec_fixed, launches=main["launches"],
+                  launches_fixed=fixed["launches"])
     return launches, launches_by_case(main), p, serial
 
 
@@ -1512,7 +1563,8 @@ def pipeline_record(r, serial_rec):
         host_split_s=r["host_s"], host_split_n=r["host_n"],
         launches=r["launches"], consensus_k1=r["k1_consensus"],
         consensus_walks=r["walks"], max_memory_allocated=r["peak"],
-        serial_max_memory_allocated=serial_rec["max_memory_allocated"])
+        serial_max_memory_allocated=serial_rec["max_memory_allocated"],
+        resilience=r["resilience"])
 
 
 def phase_pipeline(device, serial):
@@ -1531,6 +1583,7 @@ def phase_pipeline(device, serial):
         if not r["counters"].get("pipe_runs"):
             fail(f"{name}: the streaming pipeline did not run")
         check_launches(name, r)
+        check_clean(name, r)
         if r["counters"].get("ingest_parse_prefetch_files") != 3:
             fail(f"{name}: the inputs did not parse on prefetch threads")
     sch, fixed = streamed[True], streamed[False]
@@ -1558,6 +1611,188 @@ def phase_pipeline(device, serial):
     emit("pipeline", depth=2, chunks=chunks, **rec)
     emit("pipeline_fixed", depth=2, chunks=chunks, **rec_fixed)
     return [(launches_by_case(r), r["launches"]) for r in (sch, fixed)]
+
+
+@contextlib.contextmanager
+def fault_plan(spec, **gates):
+    """Run the block under the fault plan ``spec`` and the env ``gates``
+    (the retry policy re-read from them), then clear both."""
+    from racon_tpu_torch.resilience import faults, retry, watchdog
+    saved = {k: os.environ.get(k) for k in gates}
+    os.environ.update(gates)
+    retry.configure(None)
+    watchdog.reset()
+    faults.configure(spec)
+    try:
+        yield
+    finally:
+        faults.configure(None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        retry.configure(None)
+
+
+@contextlib.contextmanager
+def planned_windows():
+    """The windows the engines made inside the block planned into device
+    chunks (PoaEngine._plan_device_slice watched): a one-item list."""
+    from racon_tpu_torch.ops.poa import PoaEngine
+    n = [0]
+    plan = PoaEngine._plan_device_slice
+
+    def watched(self, *a, **k):
+        sp = plan(self, *a, **k)
+        n[0] += sum(len(g) for g in sp.groups)
+        return sp
+
+    PoaEngine._plan_device_slice = watched
+    try:
+        yield n
+    finally:
+        PoaEngine._plan_device_slice = plan
+
+
+def fault_record(run, r, clean_out, **extra):
+    """One phase 9 line: the run's FASTA against its clean run's, its
+    res_* counters, stall events, launches and consensus seconds."""
+    rec = dict(run=run, identical=r["out"] == clean_out,
+               resilience=r["resilience"],
+               stall_events=r["counters"].get("pipe_stall_events", 0),
+               launches=r["launches"], consensus_k1=r["k1_consensus"],
+               consensus_s=consensus_seconds(r["err"]), wall_s=r["wall"],
+               **extra)
+    emit("faults", **rec)
+    if not rec["identical"]:
+        fail(f"faults ({run}): the FASTA differs from its clean run's")
+    return rec
+
+
+def phase_faults(device, tmp, small, serial):
+    """Phase 9 (module docstring): the retry envelope, the watchdog, host
+    degradation, stall recovery and the tracer on the card, each run's
+    FASTA against its clean run's in this call."""
+    from racon_tpu_torch.ops import kernels
+    argv = serial["argv"]
+    # (1) Retries, under each chunk driver with the sites it calls.
+    retry_gates = {"RACON_TPU_RETRY": "attempts=3,base=0"}
+    for sched, spec, clean in (
+            (True, "h2d/chunk:0,1;sched/flags:3;h2d/repack:0;d2h/chunk:4",
+             serial["launches"]),
+            (False, "dispatch/chunk:2;d2h/chunk:1",
+             serial["launches_fixed"])):
+        with fault_plan(spec, **retry_gates):
+            r = main_run(device, argv, sched)
+        name = f"retries ({'scheduler' if sched else 'RACON_TPU_SCHED=0'})"
+        res = r["resilience"]
+        fault_record(name, r, serial["out"], spec=spec)
+        if not res.get("res_fault_injected_total"):
+            fail(f"faults ({name}): no fault fired ({res})")
+        if res.get("res_retry_total") != res.get("res_fault_injected_total") \
+                or res.get("res_degraded_windows", 0):
+            fail(f"faults ({name}): retries and faults differ, or windows "
+                 f"degraded ({res})")
+        if r["launches"] != clean:
+            fail(f"faults ({name}): launches {r['launches']} differ from "
+                 f"the clean run's {clean}")
+    # (2) A hang past a 0.5 s dispatch deadline (the cells term off).
+    spec = "dispatch/chunk:1!hang=2"
+    with fault_plan(spec, RACON_TPU_DEADLINE_DISPATCH="0.5",
+                    RACON_TPU_DEADLINE_CELLS_PER_S="1e18"):
+        r = main_run(device, argv, False)
+        time.sleep(2.0)          # the abandoned attempt has woken
+        launches = dict(kernels.LAUNCHES)
+    res = r["resilience"]
+    fault_record("hang", r, serial["out"], spec=spec,
+                 launches_after_wake=launches)
+    if res.get("res_watchdog_breach_total") != 1:
+        fail(f"faults (hang): {res.get('res_watchdog_breach_total')} "
+             f"watchdog breaches, not 1 ({res})")
+    if r["launches"] != serial["launches_fixed"] or \
+            launches != serial["launches_fixed"]:
+        fail(f"faults (hang): launches {r['launches']} (after the wake "
+             f"{launches}) differ from the clean RACON_TPU_SCHED=0 run's "
+             f"{serial['launches_fixed']}")
+    # (3) Every upload fails: the kC case of phase 3 degraded whole.
+    kc = small["kC"]
+    spec = "h2d/chunk:p=1.0"
+    with fault_plan(spec, RACON_TPU_RETRY="attempts=2,base=0"), \
+            planned_windows() as planned:
+        r = main_run(device, kc["argv"] + ["--device", device], True)
+    res = r["resilience"]
+    n = r["launches"]
+    untiled = sum(g["groups"] for g in r["ugroups"])
+    fault_record("degrade", r, kc["out"], spec=spec,
+                 device_windows=planned[0],
+                 phase3_launches=kc["launches"])
+    if not 0 < planned[0] == res.get("res_degraded_windows"):
+        fail(f"faults (degrade): {res.get('res_degraded_windows')} windows "
+             f"degraded, not the {planned[0]} planned for the card")
+    if r["k1_consensus"] or n["merge_votes"] or r["walks"]:
+        fail(f"faults (degrade): consensus kernels launched ({n})")
+    p3 = kc["launches"]
+    if n["band_tile_fwd"] != p3["band_tile_fwd"] or \
+            n["band_fwd"] != untiled or \
+            not p3["band_fwd"] > n["band_fwd"]:
+        fail(f"faults (degrade): overlap K1/K3 launches {n} differ from "
+             f"phase 3's {p3}")
+    # (4) A wedged pack stage: the stall detector, then the host path.
+    spec = "pipe/pack:0!hang=3"
+    with fault_plan(spec, RACON_TPU_STALL_S="0.5"):
+        r = main_run(device, argv, True, pipeline=True)
+    res = r["resilience"]
+    fault_record("stall", r, serial["out"], spec=spec,
+                 recovered_windows=res.get("res_degraded_windows", 0))
+    if "stall detected" not in r["err"] or \
+            r["counters"].get("pipe_stall_events") != 1:
+        fail(f"faults (stall): the stall was not detected once "
+             f"({r['counters'].get('pipe_stall_events')})")
+    if not res.get("res_degraded_windows"):
+        fail(f"faults (stall): no window recovered on the host ({res})")
+    # (5) The JSONL trace of phase 4's input.
+    path = os.path.join(tmp, "trace.jsonl")
+    with fault_plan(None):
+        r = main_run(device, argv + ["--trace", path], True)
+    kinds = {}
+    with open(path, encoding="utf-8") as fh:
+        lines = [json.loads(ln) for ln in fh]
+    for ln in lines:
+        if ln.get("ev") == "span":
+            kinds[ln["kind"]] = kinds.get(ln["kind"], 0) + 1
+    check_clean("faults (trace)", r)
+    fault_record("trace", r, serial["out"], spans=kinds,
+                 trace_bytes=os.path.getsize(path),
+                 serial_consensus_s=serial["rec"]["consensus_s"])
+    if lines[0].get("ev") != "begin" or lines[-1].get("ev") != "metrics" \
+            or not kinds.get("chunk") or not kinds.get("transfer"):
+        fail(f"faults (trace): a malformed trace ({kinds})")
+    # (6) A real breach where kernels run: a 1 us d2h deadline under
+    # RACON_TPU_SCHED=0, where the pull is the first wait on the chunk's
+    # kernels. A pull whose data is already on the host can still beat
+    # the caller's wake-up, so a chunk may pass on its retry; the first
+    # chunk that breaches twice ends the run. Nothing is degraded: the
+    # run exits 1 with no FASTA, and every failed attempt is a breach at
+    # d2h/chunk that was retried or exhausted the budget.
+    with fault_plan(None, RACON_TPU_RETRY="attempts=2,base=0",
+                    RACON_TPU_DEADLINE_D2H="1e-6",
+                    RACON_TPU_DEADLINE_MBPS="1e9"):
+        r = main_run(device, argv, False, expect_rc=1)
+    res = r["resilience"]
+    emit("faults", run="real breach", rc=r["rc"], fasta_bytes=len(r["out"]),
+         resilience=res, wall_s=r["wall"])
+    breaches = res.get("res_watchdog_breach_total", 0)
+    if r["out"] or res.get("res_degraded_windows", 0) or \
+            res.get("res_fault_injected_total", 0) or \
+            res.get("res_retry_exhausted") != 1 or breaches < 2 or \
+            breaches != res.get("res_retry_total", 0) + 1 or \
+            breaches != res.get("res_watchdog_site_d2h_chunk") or \
+            res.get("res_retry_total", 0) != \
+            res.get("res_retry_site_d2h_chunk", 0) or \
+            "d2h/chunk failed after 2 attempt(s)" not in r["err"]:
+        fail(f"faults (real breach): the run did not end at d2h/chunk "
+             f"with nothing degraded ({res}; {r['err'][-1500:]})")
 
 
 def phase_flat(device, tmp, contig_len=100000):
@@ -2197,13 +2432,14 @@ def main() -> int:
     recs.update(phase_op_string_kernels("cuda"))
     with tempfile.TemporaryDirectory(
             dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
-        phase_small("cuda", tmp)
+        small = phase_small("cuda", tmp)
         main_launches, main_by_case, main_paths, serial = phase_main(
             "cuda", tmp)
         flat_launches = phase_flat("cuda", tmp)
         op_launches = phase_op_strings("cuda", main_paths)
         recs.update(phase_merge_kernels("cuda", main_paths))
         pipe_runs = phase_pipeline("cuda", serial)
+        phase_faults("cuda", tmp, small, serial)
 
     rows = []
     for (name, k), r in recs.items():

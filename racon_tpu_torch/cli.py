@@ -8,6 +8,12 @@ The consensus engine runs on the GPU (``--device cuda``, the default) or,
 when asked, on the CPU (``--device cpu``). Without a usable GPU and
 without ``--device cpu`` the command fails; it never carries on quietly
 on the CPU.
+
+``--trace PATH`` (or ``RACON_TPU_TRACE``) writes the JSONL run trace
+(obs/trace.py), ending with a snapshot of the counters. A chunk whose
+transfer or dispatch exhausts its retries is polished on the host path;
+any other device error ends the run with exit code 1 and no FASTA, and a
+terminal watchdog breach with exit code 75.
 """
 
 from __future__ import annotations
@@ -71,6 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "N>0 runs the consensus through the streaming "
                          "pipeline with N chunks in flight a stage (2 = "
                          "double buffering), 0 forces the serial path")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write a structured JSONL run trace to PATH "
+                         "(same as RACON_TPU_TRACE=PATH)")
     ap.add_argument("--version", action="store_true",
                     help="prints the version number")
     ap.add_argument("-h", "--help", action="store_true",
@@ -96,8 +105,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     from racon_tpu_torch.io.parsers import ParseError
     from racon_tpu_torch.models.overlap import PolisherError
     from racon_tpu_torch.models.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.obs.trace import configure as configure_trace
     from racon_tpu_torch.pipeline import StageError
     from racon_tpu_torch.pipeline import configure as configure_pipeline
+    from racon_tpu_torch.ops.kernels import KernelError
+    from racon_tpu_torch.pipeline.metrics import registry
+    from racon_tpu_torch.resilience.retry import RetryExhausted
+    from racon_tpu_torch.resilience.watchdog import is_terminal
     from racon_tpu_torch.utils.device import DeviceError, resolve_device
     from racon_tpu_torch.utils.logger import Logger
 
@@ -107,31 +121,59 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(str(exc), file=sys.stderr)
         return 1
 
+    import torch
+    tracer = configure_trace(args.trace)
     out = sys.stdout.buffer
     logger = Logger()
     try:
-        device = resolve_device(args.device)
-        polisher = create_polisher(
-            args.paths[0], args.paths[1], args.paths[2],
-            PolisherType.kF if args.fragment_correction else PolisherType.kC,
-            args.window_length, args.quality_threshold,
-            args.error_threshold, args.match, args.mismatch, args.gap,
-            device=device, logger=logger, threads=args.threads)
-        polisher.initialize()
-        for _tid, rec in polisher.polish_records(
-                not args.include_unpolished):
-            if rec is not None:
-                out.write(b">" + rec.name.encode() + b"\n" + rec.data +
-                          b"\n")
-    except (DeviceError, PolisherError, ParseError, StageError,
-            ValueError) as exc:
-        # A pipeline stage's failure (or a stall) ends the run: nothing
-        # falls back to the host path.
+        with tracer.span("run", "racon_tpu_torch"):
+            device = resolve_device(args.device)
+            polisher = create_polisher(
+                args.paths[0], args.paths[1], args.paths[2],
+                PolisherType.kF if args.fragment_correction
+                else PolisherType.kC,
+                args.window_length, args.quality_threshold,
+                args.error_threshold, args.match, args.mismatch, args.gap,
+                device=device, logger=logger, threads=args.threads)
+            polisher.initialize()
+            for _tid, rec in polisher.polish_records(
+                    not args.include_unpolished):
+                if rec is not None:
+                    out.write(b">" + rec.name.encode() + b"\n" + rec.data +
+                              b"\n")
+    except (DeviceError, PolisherError, ParseError, StageError, KernelError,
+            RetryExhausted, ValueError,
+            getattr(torch, "AcceleratorError", ())) as exc:
+        # A kernel's error, an exhaustion that may not degrade, or a
+        # pipeline stage's failure ends the run: past the retry
+        # envelope's degradation and the stall recovery, nothing falls
+        # back to the host path.
+        if is_terminal(exc):
+            return _terminal(exc, tracer, out)
         print(str(exc), file=sys.stderr)
+        tracer.finish(metrics=registry().snapshot())
         return 1
+    except Exception as exc:
+        if not is_terminal(exc):
+            raise
+        return _terminal(exc, tracer, out)
     out.flush()
     logger.total("[racon_tpu_torch::Polisher::] total =")
+    tracer.finish(metrics=registry().snapshot())
     return 0
+
+
+def _terminal(exc, tracer, out) -> int:
+    """A terminal watchdog breach: this host is wedged; flush what was
+    written and exit with the distinct code, so a supervisor reschedules
+    the run elsewhere instead of retrying here."""
+    from racon_tpu_torch.pipeline.metrics import registry
+    from racon_tpu_torch.resilience.watchdog import EXIT_SELF_EVICT
+    out.flush()
+    print(f"[racon_tpu_torch::] terminal watchdog breach — {exc}",
+          file=sys.stderr)
+    tracer.finish(metrics=registry().snapshot())
+    return EXIT_SELF_EVICT
 
 
 if __name__ == "__main__":

@@ -31,6 +31,13 @@ Errors: mid-member truncation and corrupt deflate streams raise
 and carrying the member's *compressed* byte offset (unlike parse errors,
 whose offsets are decompressed-stream positions). The pool width is
 ``RACON_TPU_INGEST_WORKERS`` (default: cores, 2 to 8).
+
+Fault site ``io/inflate`` (resilience/faults.py): consulted before every
+block or member handed to the pool, on the consuming thread in
+submission order so that explicit indices stay deterministic, and before
+every feed of the single-member stream's producer; its fault reaches the
+parser after the blocks inflated before it and surfaces as the parser's
+offset-bearing ParseError.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from racon_tpu_torch.io.parsers import ParseError
 from racon_tpu_torch.pipeline import metrics
 from racon_tpu_torch.pipeline.queues import (BoundedQueue, PipelineAborted,
                                              QueueClosed)
+from racon_tpu_torch.resilience.faults import maybe_fault
 from racon_tpu_torch.utils import env
 
 ENV_WORKERS = env.INGEST_WORKERS
@@ -236,6 +244,7 @@ class BgzfSource(_PooledSource):
 
         def _submit_one() -> None:
             nonlocal nxt
+            maybe_fault("io/inflate")
             pending.append(pool.submit(_inflate_member, self._mm,
                                        spans[nxt][0], len(self._mm)))
             nxt += 1
@@ -297,6 +306,7 @@ class MemberSource(_PooledSource):
             nonlocal submitted
             while submitted < len(self._cands) and submitted <= limit:
                 c = self._cands[submitted]
+                maybe_fault("io/inflate")
                 futures[c] = pool.submit(_inflate_member, mm, c, size)
                 submitted += 1
 
@@ -356,6 +366,7 @@ class StreamSource(ByteSource):
             try:
                 with gzip.open(self.path, "rb") as f:
                     while True:
+                        maybe_fault("io/inflate")
                         t0 = time.perf_counter()
                         data = f.read(_FEED)
                         stats["s"] += time.perf_counter() - t0

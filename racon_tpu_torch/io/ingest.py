@@ -22,6 +22,12 @@ references it.
 Gate: ``RACON_TPU_INGEST`` — **default on**; ``0``/``false`` forces the
 serial readers everywhere (parsers, prefetch, inflate). The two paths give
 the same records, offsets and polished output.
+
+Fault sites, as the reference's: the serial readers consult ``io/read``
+once a *line*, the indexed readers once a *record* (they have no lines),
+and :func:`prefetch_ok` drops the prefetch *threads* (not the readers)
+while a fault plan names an ``io/*`` site, because files parsing at once
+would race one process-wide site counter.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import numpy as np
 from racon_tpu_torch.io import parsers as _p
 from racon_tpu_torch.io.parsers import ParseError, Parser
 from racon_tpu_torch.models.sequence import Sequence
+from racon_tpu_torch.resilience.faults import maybe_fault
 from racon_tpu_torch.utils import env
 
 ENV_INGEST = env.INGEST
@@ -49,9 +56,15 @@ def ingest_enabled() -> bool:
 
 
 def prefetch_ok() -> bool:
-    """Whether background ingest prefetch threads may run: the gate is
-    on."""
-    return ingest_enabled()
+    """Whether background ingest prefetch threads may run: the gate is on
+    AND no fault plan names an ``io/*`` site (module docstring)."""
+    if not ingest_enabled():
+        return False
+    from racon_tpu_torch.resilience.faults import get_injector
+    inj = get_injector()
+    if inj is not None and any(s.startswith("io/") for s in inj.sites()):
+        return False
+    return True
 
 
 # ------------------------------------------------- zero-copy accounting
@@ -164,6 +177,7 @@ class IndexedFastaParser(Parser):
             s, e = idx.span(i)
             if fb == 0x3E:  # '>'
                 if name is not None:
+                    maybe_fault("io/read")
                     self._pos = last_end
                     yield self._emit(idx, name, spans)
                 name = _decode_name(idx, s + 1, e)
@@ -176,6 +190,7 @@ class IndexedFastaParser(Parser):
                 spans.append((s, e))
             last_end = min(int(idx.ends[i]) + 1, idx.size)
         if name is not None:
+            maybe_fault("io/read")
             self._pos = last_end
             yield self._emit(idx, name, spans)
 
@@ -253,6 +268,7 @@ class IndexedFastqParser(Parser):
                 raise ParseError(
                     f"[racon_tpu_torch::io] error: malformed quality string "
                     f"(byte below '!') in {self.path}", offset=rec_off)
+            maybe_fault("io/read")
             data = self._payload(idx, data_spans)
             quality = self._payload(idx, qual_spans)
             self._pos = min((int(idx.ends[i - 1]) + 1) if i else 0,

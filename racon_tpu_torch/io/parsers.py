@@ -28,6 +28,7 @@ import numpy as np
 
 from racon_tpu_torch.models.sequence import Sequence
 from racon_tpu_torch.models.overlap import Overlap
+from racon_tpu_torch.resilience.faults import InjectedFault, maybe_fault
 
 # Matches the reference's parse chunk size (src/polisher.cpp:22).
 CHUNK_SIZE = 1024 * 1024 * 1024
@@ -105,9 +106,11 @@ class Parser:
 
     def _lines(self, f) -> Iterator[Tuple[bytes, int, int]]:
         """:func:`_block_lines` plus the high-water stream offset, so a
-        failure raised by ``read()`` itself still gets a byte offset."""
+        failure raised by ``read()`` itself still gets a byte offset; and
+        the ``io/read`` fault site, once a line."""
         for ln, nb, off in _block_lines(f):
             self._pos = off + nb
+            maybe_fault("io/read")
             yield ln, nb, off
 
     def parse(self, max_bytes: int = -1) -> Tuple[List[object], bool]:
@@ -149,6 +152,14 @@ class Parser:
             raise ParseError(
                 f"[racon_tpu_torch::io] error: corrupt or mislabelled input file "
                 f"{self.path} ({exc})", offset=self._pos) from exc
+        except InjectedFault as exc:
+            # An io/read or io/inflate fault models the stream failure
+            # above, and converts the same way: typed, offset-bearing,
+            # the parser poisoned.
+            self._failed = True
+            raise ParseError(
+                f"[racon_tpu_torch::io] error: read failure in {self.path} "
+                f"({exc})", offset=self._pos) from exc
         self._iter = iter(())  # exhausted
         return out, False
 

@@ -27,6 +27,17 @@ port's kernels index the planes in 64 bits, so a group's planes may pass
 the 2^31 elements that cap one chunk. The CUDA kernels' own limits (W/4
 <= 1024 threads a block; shared memory of about W + T bytes plus the
 score rows) are checked in the wrappers (ops/kernels.py).
+
+The watchdog's **deadlines** (:func:`transfer_deadline_s`,
+:func:`dispatch_deadline_s`) are the JAX package's, with its defaults and
+``RACON_TPU_DEADLINE_*`` overrides. What each bounds on the card differs
+from the reference's tunnel: ``h2d/chunk`` covers the pinned copy's
+enqueue on the copy stream (it returns before the bytes land),
+``dispatch/chunk`` the round launches plus the fixed engine's adaptive
+test (a ``.item()`` that waits for the rounds so far), ``sched/flags``
+a flag pull that waits for the rounds launched before it, and
+``d2h/chunk`` the ``.cpu()`` that waits for the whole chunk's compute —
+which is why the d2h base is the largest.
 """
 
 from __future__ import annotations
@@ -225,3 +236,92 @@ def tile_plan(lq: int, lt: int, tiers=None):
             nxt_k = 2
         return TilePlan(lanes, W, T, ch, Lq, Lq // T, max(nxt_k, 1))
     return None
+
+
+# ---------------------------------------------------------------------------
+# Watchdog deadlines (resilience/watchdog.py): generous enough that
+# legitimate work never breaches them, finite so a wedged call becomes a
+# DispatchTimeout in bounded time. Each site class has an env-tunable BASE
+# plus a geometry term at a pessimistic FLOOR rate:
+#
+#   transfer:  base(direction) + nbytes / (RACON_TPU_DEADLINE_MBPS MB/s)
+#   dispatch:  base + cells / (RACON_TPU_DEADLINE_CELLS_PER_S cells/s)
+#
+# all times RACON_TPU_DEADLINE_SCALE. A base <= 0 turns the class off (the
+# guard runs inline). An invalid value is a ValueError.
+# ---------------------------------------------------------------------------
+
+DEADLINE_H2D_ENV = env.DEADLINE_H2D
+DEADLINE_D2H_ENV = env.DEADLINE_D2H
+DEADLINE_DISPATCH_ENV = env.DEADLINE_DISPATCH
+DEADLINE_MBPS_ENV = env.DEADLINE_MBPS
+DEADLINE_CELLS_ENV = env.DEADLINE_CELLS_PER_S
+DEADLINE_SCALE_ENV = env.DEADLINE_SCALE
+
+#: Base deadlines, seconds. d2h is the largest because a result pull
+#: waits for the whole chunk's compute, not just the copy.
+_DEADLINE_BASE_DEFAULTS = {
+    DEADLINE_H2D_ENV: 60.0,
+    DEADLINE_D2H_ENV: 300.0,
+    DEADLINE_DISPATCH_ENV: 300.0,
+}
+#: Floor transfer rate (MB/s) of the byte-proportional term.
+_DEADLINE_MBPS_DEFAULT = 0.25
+#: Floor device rate (cells/s) of the dispatch term; the CPU plain
+#: versions clear it by orders of magnitude.
+_DEADLINE_CELLS_DEFAULT = 2e6
+
+
+def _deadline_env(name: str, default: float) -> float:
+    raw = env.read(name).strip()
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(
+            f"[racon_tpu_torch::budget] {name}={raw!r} invalid — expected "
+            "a number of seconds (<= 0 disables this deadline class)")
+
+
+def _deadline_scale() -> float:
+    s = _deadline_env(DEADLINE_SCALE_ENV, 1.0)
+    if s <= 0:
+        raise ValueError(
+            f"[racon_tpu_torch::budget] {DEADLINE_SCALE_ENV} must be > 0 "
+            "(disable per class with the base vars instead)")
+    return s
+
+
+def transfer_deadline_s(nbytes: int, direction: str) -> float:
+    """Watchdog deadline for one h2d/d2h transfer of ``nbytes``; 0.0 turns
+    it off (base <= 0)."""
+    if direction not in ("h2d", "d2h"):
+        raise ValueError(
+            f"[racon_tpu_torch::budget] unknown transfer direction "
+            f"{direction!r}")
+    name = DEADLINE_H2D_ENV if direction == "h2d" else DEADLINE_D2H_ENV
+    base = _deadline_env(name, _DEADLINE_BASE_DEFAULTS[name])
+    if base <= 0:
+        return 0.0
+    mbps = _deadline_env(DEADLINE_MBPS_ENV, _DEADLINE_MBPS_DEFAULT)
+    if mbps <= 0:
+        raise ValueError(
+            f"[racon_tpu_torch::budget] {DEADLINE_MBPS_ENV} must be > 0")
+    return (base + max(int(nbytes), 0) / (mbps * 1e6)) * _deadline_scale()
+
+
+def dispatch_deadline_s(cells: int) -> float:
+    """Watchdog deadline for one chunk dispatch whose forward planes
+    total ``cells`` cells (B x Lq x band-or-LA x rounds; 0 for the
+    geometry-free flag pulls, which share this class's base). 0.0 turns
+    it off."""
+    base = _deadline_env(DEADLINE_DISPATCH_ENV,
+                         _DEADLINE_BASE_DEFAULTS[DEADLINE_DISPATCH_ENV])
+    if base <= 0:
+        return 0.0
+    rate = _deadline_env(DEADLINE_CELLS_ENV, _DEADLINE_CELLS_DEFAULT)
+    if rate <= 0:
+        raise ValueError(
+            f"[racon_tpu_torch::budget] {DEADLINE_CELLS_ENV} must be > 0")
+    return (base + max(int(cells), 0) / rate) * _deadline_scale()

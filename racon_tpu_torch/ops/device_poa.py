@@ -33,11 +33,25 @@ merge, which dispatch_walk then runs on another thread, with the
 fused chunk's bytes. ``set_stage_clock`` times the device stages of both
 (tband, forward, walk, merge, and the scheduler's repack gathers),
 ``set_host_clock`` the host parts of the chunk loops.
+
+Every transfer and dispatch of a chunk runs in the reference's retry and
+watchdog envelope (resilience/retry.py::call), under its site names and
+deadlines (ops/budget.py): ``h2d/chunk`` around the buffers' copy
+(put_chunk_bufs), ``dispatch/chunk`` around the round launches (the
+fixed engine's adaptive ``.item()`` included), ``dispatch/walk`` around
+the decoupled walk, ``d2h/chunk`` around the pull. Each attempt starts
+from inputs no earlier attempt can have changed: the copy re-pins from
+the plan's host buffers, the rounds read the packed buffers through
+copies (_unpack_bufs) and never write them, and ChunkBufs.tensors orders
+the calling stream after the copy on every call. ``RACON_TPU_TIMING=1``
+runs the fixed engine's rounds one at a time with a sync and a stderr
+line after each (same bytes; its h2d in the same envelope).
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -49,8 +63,11 @@ from racon_tpu_torch.models.window import Window, window_arrays
 from racon_tpu_torch.ops import device_merge as dm
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import band_geometry, band_targets
-from racon_tpu_torch.ops.budget import (max_dir_elems, round_up,
+from racon_tpu_torch.ops.budget import (dispatch_deadline_s, max_dir_elems,
+                                        round_up, transfer_deadline_s,
                                         walk_k_for, walk_plane_bytes)
+from racon_tpu_torch.pipeline.metrics import record_d2h, record_h2d
+from racon_tpu_torch.resilience.retry import call as retry_call
 from racon_tpu_torch.utils import env
 
 # Per-plane element budget for the cell planes (ops/budget.py).
@@ -562,13 +579,14 @@ def _pack_body(codes, cov, alen, ovf, rounds_exec: int, rounds_sched: int):
 
 def _rounds_before_final(job_buf, win_buf, *, match, mismatch, gap,
                          ins_scale, Lq, n_win, LA, band_w, rounds, adaptive,
-                         nxt_k):
+                         nxt_k, on_round=None):
     """Unpack a chunk and run its rounds 0 .. rounds-2: the shared prefix
     of the fused chunk (device_chunk_packed) and its forward half
     (device_chunk_fwd), so the decoupled walk path runs exactly the fused
     path's round chain, adaptive exit included. ``adaptive``: after round
     0, run the middle rounds only while some window is neither converged
-    nor flagged.
+    nor flagged. ``on_round(r, cov)``, when given, is called after each
+    round's launches (the RACON_TPU_TIMING path).
 
     Returns ``(job, state, executed, scales)``: the round-invariant lane
     tensors (q, qw8, lq, w_read, win) and the chunk's membership, the
@@ -586,11 +604,13 @@ def _rounds_before_final(job_buf, win_buf, *, match, mismatch, gap,
 
     def run(r, sc, detect):
         nonlocal bb, bbw, alen, begin, end, ovf
-        bb, bbw, alen, begin, end, _cov, ovf, conv = _round_core(
+        bb, bbw, alen, begin, end, cov, ovf, conv = _round_core(
             bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, mem,
             match=match, mismatch=mismatch, gap=gap, ins_scale=sc, Lq=Lq,
             n_win=n_win, LA=LA, band_w=round_band_width(band_w, r),
             nxt_k=nxt_k, detect=detect)
+        if on_round is not None:
+            on_round(r, cov)
         return conv
 
     if not adaptive:
@@ -613,18 +633,19 @@ def _rounds_before_final(job_buf, win_buf, *, match, mismatch, gap,
 
 def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
                         ins_scale, Lq, n_win, LA, band_w, rounds,
-                        adaptive=False, nxt_k=2):
+                        adaptive=False, nxt_k=2, on_round=None):
     """One chunk end to end from its two byte buffers (on the device).
 
     ``ins_scale``: a float or a per-round tuple of length ``rounds``.
     ``adaptive``: the middle rounds' early exit (needs rounds >= 3 and
-    uniform non-final scales; the caller checks both). Returns the packed
+    uniform non-final scales; the caller checks both). ``on_round(r,
+    cov)``: called after each round's launches. Returns the packed
     output buffer (see _pack_body).
     """
     job, state, executed, scales = _rounds_before_final(
         job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
         ins_scale=ins_scale, Lq=Lq, n_win=n_win, LA=LA, band_w=band_w,
-        rounds=rounds, adaptive=adaptive, nxt_k=nxt_k)
+        rounds=rounds, adaptive=adaptive, nxt_k=nxt_k, on_round=on_round)
     q, qw8, lq, w_read, win, mem = job
     bb, bbw, alen, begin, end, ovf = state
     bb, _bbw, alen, _b, _e, cov, ovf, _conv = _round_core(
@@ -633,6 +654,8 @@ def device_chunk_packed(job_buf, win_buf, *, match, mismatch, gap,
         Lq=Lq, n_win=n_win, LA=LA,
         band_w=round_band_width(band_w, rounds - 1), nxt_k=nxt_k,
         detect=False)
+    if on_round is not None:
+        on_round(rounds - 1, cov)
     return _pack_body(bb[:-1], cov, alen[:-1], ovf, executed + 1, rounds)
 
 
@@ -704,7 +727,9 @@ _COPY_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 class ChunkBufs:
     """A chunk's two packed byte buffers on ``device``, maybe still in
     flight (put_chunk_bufs). ``tensors()`` makes the current stream wait
-    for the copy and returns ``(job_buf, win_buf)``."""
+    for the copy and returns ``(job_buf, win_buf)``; every call waits
+    again, so a retried dispatch orders after the copy as the first
+    attempt did."""
 
     __slots__ = ("job", "win", "event", "host")
 
@@ -720,7 +745,6 @@ class ChunkBufs:
             # stream is done with them.
             self.job.record_stream(cur)
             self.win.record_stream(cur)
-            self.event = None
             self.host = None
         return self.job, self.win
 
@@ -730,28 +754,51 @@ def put_chunk_bufs(plan: ChunkPlan, device) -> ChunkBufs:
     blocking: on a GPU, pinned host copies go up with ``non_blocking`` on
     a copy stream of their own, and an event marks their end, which the
     compute stream waits on before the unpack (ChunkBufs.tensors). On the
-    CPU the buffers are ready at once."""
+    CPU the buffers are ready at once. The copy runs under the
+    ``h2d/chunk`` retry site (a RetryExhausted here is the engine's
+    signal to degrade the chunk); each attempt re-pins and re-copies from
+    the plan's host buffers."""
     with host_part("plan"):
         job_h, win_h = plan.packed_bufs()
     dims = (plan.B, plan.Lq, plan.n_win, plan.LA)
     dev = torch.device(device)
+    nbytes = job_h.nbytes + win_h.nbytes
+
+    def _put() -> ChunkBufs:
+        t0 = time.perf_counter()
+        bufs = _copy_bufs(job_h, win_h, dims, dev)
+        record_h2d(nbytes, time.perf_counter() - t0, name="h2d/chunk")
+        return bufs
+
     with host_part("h2d"):
-        if dev.type != "cuda":
-            return ChunkBufs(*load_packed(job_h, win_h, dims, dev))
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        stream = _COPY_STREAMS.get(dev.index)
-        if stream is None:
-            stream = _COPY_STREAMS[dev.index] = torch.cuda.Stream(dev)
-        host = tuple(torch.from_numpy(a).pin_memory() for a in (job_h, win_h))
-        # No wait on the compute stream: the buffers come from the copy
-        # stream's own pool, whose blocks the allocator hands out again
-        # only after the streams recorded on them (tensors()) are done.
-        with torch.cuda.stream(stream):
-            job, win = (h.to(dev, non_blocking=True) for h in host)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return ChunkBufs(job, win, event, host)
+        return retry_call("h2d/chunk", _put,
+                          deadline_s=transfer_deadline_s(nbytes, "h2d"))
+
+
+def _copy_bufs(job_h, win_h, dims, dev) -> ChunkBufs:
+    if dev.type != "cuda":
+        return ChunkBufs(*load_packed(job_h, win_h, dims, dev))
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stream = _COPY_STREAMS.get(dev.index)
+    if stream is None:
+        stream = _COPY_STREAMS[dev.index] = torch.cuda.Stream(dev)
+    host = tuple(torch.from_numpy(a).pin_memory() for a in (job_h, win_h))
+    # No wait on the compute stream: the buffers come from the copy
+    # stream's own pool, whose blocks the allocator hands out again only
+    # after the streams recorded on them (tensors()) are done.
+    with torch.cuda.stream(stream):
+        job, win = (h.to(dev, non_blocking=True) for h in host)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return ChunkBufs(job, win, event, host)
+
+
+def _dispatch_cells(plan: ChunkPlan, band_w: int, rounds: int) -> int:
+    """The forward planes' cells of a chunk's rounds: the geometry term
+    of its ``dispatch/chunk`` deadline."""
+    return plan.B * plan.Lq * (band_w if band_w else plan.LA) * \
+        max(rounds, 1)
 
 
 def dispatch_chunk(plan: ChunkPlan, *, match: int, mismatch: int, gap: int,
@@ -759,25 +806,52 @@ def dispatch_chunk(plan: ChunkPlan, *, match: int, mismatch: int, gap: int,
                    stats: Optional[dict] = None,
                    bufs: Optional[ChunkBufs] = None):
     """Ship a chunk to ``device`` (or take ``bufs``, a put_chunk_bufs
-    result started earlier) and launch all its rounds; returns the packed
-    output buffer (still on the device: only the adaptive exit's test
-    waits on the card)."""
+    result started earlier) and launch all its rounds under the
+    ``dispatch/chunk`` retry site; returns the packed output buffer
+    (still on the device: only the adaptive exit's test waits on the
+    card). ``RACON_TPU_TIMING=1``: a sync and a stderr line after the
+    h2d and after each round, in the same envelope, with no adaptive
+    exit (its skipped rounds are exact replays, so the bytes do not
+    change)."""
     t0 = time.perf_counter()
     st = chunk_statics(plan, ins_scale=ins_scale, rounds=rounds)
     if bufs is None:
         bufs = put_chunk_bufs(plan, device)
-    with host_part("rounds"):
+    adaptive, on_round = st["adaptive"], None
+    if env.timing_enabled():
+        clock = [_timed_sync(bufs.tensors()[1], "h2d", t0)]
+        adaptive = False
+
+        def on_round(r, cov):
+            clock[0] = _timed_sync(cov, f"compute/round{r}", clock[0])
+
+    def _rounds():
         job_buf, win_buf = bufs.tensors()
-        packed = device_chunk_packed(
+        return device_chunk_packed(
             job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
-            ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win, LA=plan.LA,
-            band_w=st["band_w"], rounds=rounds, adaptive=st["adaptive"],
-            nxt_k=st["nxt_k"])
+            ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win,
+            LA=plan.LA, band_w=st["band_w"], rounds=rounds,
+            adaptive=adaptive, nxt_k=st["nxt_k"], on_round=on_round)
+
+    with host_part("rounds"):
+        packed = retry_call(
+            "dispatch/chunk", _rounds,
+            deadline_s=dispatch_deadline_s(
+                _dispatch_cells(plan, st["band_w"], rounds)))
     if stats is not None:
         stats["chunks"] = stats.get("chunks", 0) + 1
         stats["dispatch_s"] = stats.get("dispatch_s", 0.0) + \
             time.perf_counter() - t0
     return packed
+
+
+def _timed_sync(x: torch.Tensor, tag: str, t0: float) -> float:
+    """Wait for ``x`` (one element's pull), print the seconds since
+    ``t0`` on stderr, and return the new start."""
+    x.reshape(-1)[:1].cpu()
+    print(f"[racon_tpu_torch::run_chunk] {tag}: "
+          f"{time.perf_counter() - t0:.3f}s", file=sys.stderr, flush=True)
+    return time.perf_counter()
 
 
 def walk_plane_bytes_for(plan: ChunkPlan, *, ins_scale, rounds: int,
@@ -802,17 +876,26 @@ def dispatch_chunk_fwd(plan: ChunkPlan, *, match: int, mismatch: int,
     ship the buffers here). Returns ``(fwd_out, meta)``: the final round's
     planes and the carried state, still being computed, and ``meta`` =
     the chunk's statics plus its lane tensors (``job``), ``ins_scale`` and
-    ``rounds``, which dispatch_walk needs to finish the chunk."""
+    ``rounds``, which dispatch_walk needs to finish the chunk. The same
+    ``dispatch/chunk`` retry site and deadline as the fused chunk (it is
+    the chunk's dispatch); the walk has its own."""
     st = chunk_statics(plan, ins_scale=ins_scale, rounds=rounds)
     if bufs is None:
         bufs = put_chunk_bufs(plan, device)
-    with host_part("rounds"):
+
+    def _fwd():
         job_buf, win_buf = bufs.tensors()
-        fwd_out, job = device_chunk_fwd(
+        return device_chunk_fwd(
             job_buf, win_buf, match=match, mismatch=mismatch, gap=gap,
             ins_scale=ins_scale, Lq=plan.Lq, n_win=plan.n_win, LA=plan.LA,
             band_w=st["band_w"], rounds=rounds, adaptive=st["adaptive"],
             nxt_k=st["nxt_k"])
+
+    with host_part("rounds"):
+        fwd_out, job = retry_call(
+            "dispatch/chunk", _fwd,
+            deadline_s=dispatch_deadline_s(
+                _dispatch_cells(plan, st["band_w"], rounds)))
     meta = dict(st, job=job, ins_scale=ins_scale, rounds=rounds)
     return fwd_out, meta
 
@@ -820,29 +903,48 @@ def dispatch_chunk_fwd(plan: ChunkPlan, *, match: int, mismatch: int,
 def dispatch_walk(plan: ChunkPlan, fwd_out, meta):
     """Launch the walk half of a chunk whose forward half
     dispatch_chunk_fwd launched; returns the packed output buffer (still
-    being computed) for collect_chunk."""
+    being computed) for collect_chunk. Its own retry site,
+    ``dispatch/walk``, with a deadline over one round's cells at the final
+    band width (the reference's)."""
     rounds = meta["rounds"]
     sc = meta["ins_scale"]
     scales = sc if isinstance(sc, tuple) else (sc,) * rounds
+    W = round_band_width(meta["band_w"], rounds - 1)
     with host_part("walk"):
-        return walk_chunk_packed(
-            meta["job"], *fwd_out, ins_scale=scales[-1], n_win=plan.n_win,
-            LA=plan.LA, band_w=round_band_width(meta["band_w"], rounds - 1),
-            rounds=rounds)
+        return retry_call(
+            "dispatch/walk", walk_chunk_packed, meta["job"], *fwd_out,
+            ins_scale=scales[-1], n_win=plan.n_win, LA=plan.LA, band_w=W,
+            rounds=rounds,
+            deadline_s=dispatch_deadline_s(
+                plan.B * plan.Lq * (W if W else plan.LA)))
 
 
 def collect_chunk(plan: ChunkPlan, packed, stats: Optional[dict] = None
                   ) -> Tuple[List[Optional[bytes]],
                              List[Optional[np.ndarray]]]:
-    """Pull a chunk's packed output and unpack per window. A flagged
-    window (sticky ``ovf``) yields ``None`` in both lists."""
+    """Pull a chunk's packed output (the ``d2h/chunk`` retry site) and
+    unpack per window. A flagged window (sticky ``ovf``) yields ``None``
+    in both lists."""
     with host_part("collect"):
         return _collect(plan, packed, stats)
 
 
 def _collect(plan: ChunkPlan, packed, stats: Optional[dict]):
-    ph = packed.cpu().numpy()
     Nw, LA = plan.n_win, plan.LA
+
+    def _pull():
+        t0 = time.perf_counter()
+        ph = packed.cpu().numpy()
+        # The pull waits for the chunk's compute too: an upper bound on
+        # the copy's seconds.
+        record_d2h(ph.nbytes, time.perf_counter() - t0, name="d2h/chunk")
+        return ph
+
+    # The packed layout (_pack_body): Nw*LA codes + 2*Nw*LA coverage +
+    # 4*Nw lengths + Nw flags + 8 bytes of round counts.
+    out_bytes = 3 * Nw * LA + 5 * Nw + 8
+    ph = retry_call("d2h/chunk", _pull,
+                    deadline_s=transfer_deadline_s(out_bytes, "d2h"))
     codes_h = ph[:Nw * LA].reshape(Nw, LA)
     cov_h = ph[Nw * LA:3 * Nw * LA].view(np.int16).reshape(Nw, LA)
     alen_h = ph[3 * Nw * LA:3 * Nw * LA + 4 * Nw].view(np.int32)[:Nw]

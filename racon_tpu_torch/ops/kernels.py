@@ -127,6 +127,17 @@ def thread_launches() -> dict:
     return dict(getattr(_THREAD, "launches", {}))
 
 
+def credit_thread_launches(counts: dict) -> None:
+    """Add launches another thread made on this thread's behalf to this
+    thread's own counts (the watchdog's guard runs a body on a worker
+    thread; LAUNCHES already holds them)."""
+    own = getattr(_THREAD, "launches", None)
+    if own is None:
+        own = _THREAD.launches = {}
+    for name, n in counts.items():
+        own[name] = own.get(name, 0) + n
+
+
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:

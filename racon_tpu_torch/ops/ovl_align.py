@@ -36,11 +36,14 @@ back to the caller for the host aligner, as do jobs no route admits.
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import List
 
 import numpy as np
 import torch
 
+from racon_tpu_torch.obs.trace import get_tracer
 from racon_tpu_torch.ops import kernels
 from racon_tpu_torch.ops.band import (band_geometry, band_targets,
                                       row0_scores, uc_boundary)
@@ -441,7 +444,12 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     # Every chunk's inputs go to the device first, then every chunk (and
     # group) is dispatched before any is collected: the host's copies
     # never wait on the card, and a chunk's planes are freed as soon as
-    # its walk is queued.
+    # its walk is queued. RACON_TPU_TIMING=1 prints the dispatch's and
+    # the collect's seconds (the reference's lines); the overlap path
+    # stays outside the retry envelope, as in the reference.
+    verbose = env.timing_enabled()
+    tracer = get_tracer()
+    t_disp = time.perf_counter()
     sc = dict(match=match, mismatch=mismatch, gap=gap)
     untiled_calls, group_calls = [], []
     mem_cap = group_mem_cap(device)
@@ -491,9 +499,22 @@ def device_breaking_points(pending, sequences, window_length: int, *,
                                  groups=len(groups)))
     outs = []
     for subs, args, kw in untiled_calls:
-        outs.extend(zip(subs, _untiled_group_breaking_points(*args, **kw)))
+        with tracer.span("dispatch", "ovl_chunk", lanes=sum(kw["lanes"]),
+                         W=kw["W"], chunks=len(subs)):
+            outs.extend(zip(subs,
+                            _untiled_group_breaking_points(*args, **kw)))
     for subs, args, kw in group_calls:
-        outs.extend(zip(subs, _tiled_group_breaking_points(*args, **kw)))
+        with tracer.span("dispatch", "ovl_tiled_chunk",
+                         lanes=sum(kw["lanes"]), W=kw["W"],
+                         tiles=kw["Lq"] // kw["T"], chunks=len(subs)):
+            outs.extend(zip(subs,
+                            _tiled_group_breaking_points(*args, **kw)))
+    if verbose:
+        print(f"[racon_tpu_torch::ovl_align] dispatch {len(outs)} "
+              f"chunks ({len(buckets)} shape buckets, "
+              f"{len(tiled_buckets)} tiled tiers): "
+              f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
+        t_disp = time.perf_counter()
 
     for sub, out in outs:
         first_c, qi_f, last_c, qi_l, valid, fail = (
@@ -511,6 +532,9 @@ def device_breaking_points(pending, sequences, window_length: int, *,
                 o.t_begin + last_c[b][v].astype(np.int64) + 1,
                 q_start + qi_l[b][v].astype(np.int64) + 1,
             ], axis=1)
+    if verbose:
+        print(f"[racon_tpu_torch::ovl_align] collect: "
+              f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
     STATS["device_jobs"] += len(jobs) + len(tiled_jobs) - n_uncert
     STATS["native_jobs"] += len(fallback)
     STATS["tiles"] += n_tiles_exec

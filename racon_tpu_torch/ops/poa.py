@@ -20,12 +20,18 @@ Routes:
 routes) aligns a round's jobs with the batched aligner (ops/align.py) on
 ``device``: K4 and T1 on a GPU, their plain versions on the CPU.
 
-A device error raises: there is no quiet fallback onto the host path.
+A chunk whose retry budget runs out on an injected fault, or at its
+upload (resilience/retry.py, ``RetryExhausted.degradable``), polishes on
+the host path instead (PoaEngine._degrade), as the reference's does. A
+real deadline breach or out-of-memory where kernels run, and any other
+device error — a kernel's error above all — raises: there is no quiet
+fallback onto the host path.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -245,7 +251,8 @@ class PoaEngine:
                 gap=self.gap,
                 ins_scale=self._round_scales(self.refine_rounds + 1),
                 rounds=self.refine_rounds + 1, device=self.device,
-                jobs_cap=self.device_batch, stats=self.stats)
+                jobs_cap=self.device_batch, stats=self.stats,
+                on_exhausted=self._note_degraded)
             for w, c, cv in resolved:
                 w.apply_consensus(
                     decode_bases(np.frombuffer(c, dtype=np.uint8)), cv,
@@ -257,6 +264,29 @@ class PoaEngine:
                   "window(s) unresolved by the wide-band pass; "
                   "re-polishing on the host path", file=self.log)
             self._consensus_host_impl(remaining)
+
+    def _degrade(self, ws: List[Window], exc) -> None:
+        """Last-resort degradation: a transfer or dispatch exhausted its
+        retry budget (resilience/retry.py), so this chunk's windows polish
+        on the host path instead of ending the run. The host path gives
+        the device path's bytes, so the output does not change. A
+        RetryExhausted that is not ``degradable`` (a real breach or
+        out-of-memory where kernels run) is re-raised instead."""
+        self._note_degraded(ws, exc)
+        self._consensus_host(ws)
+
+    def _note_degraded(self, ws: List[Window], exc) -> None:
+        """The stderr line and ``res_degraded_*`` of a degradation, or the
+        re-raise of an exhaustion that must end the run."""
+        from racon_tpu_torch.pipeline.metrics import record_degraded
+        from racon_tpu_torch.resilience.retry import RetryExhausted
+        if isinstance(exc, RetryExhausted) and not exc.degradable:
+            raise exc
+        print(f"[racon_tpu_torch::PoaEngine] device path gave up at "
+              f"{getattr(exc, 'site', '?')} after retries ({exc}); "
+              f"polishing {len(ws)} window(s) on the host path",
+              file=self.log)
+        record_degraded(len(ws))
 
     def _make_scheduler(self):
         """A ConvergenceScheduler on this engine's device, wired to its
@@ -295,6 +325,9 @@ class PoaEngine:
             with host_part("apply"):
                 self._apply_group(ws, codes, covs, trunc)
 
+        from racon_tpu_torch.obs.trace import get_tracer
+        from racon_tpu_torch.resilience.retry import RetryExhausted
+        tracer = get_tracer()
         if env.sched_enabled():
             # The next chunk is planned and its h2d started before this
             # chunk's rounds run (the reference's order).
@@ -302,15 +335,28 @@ class PoaEngine:
 
             def prefetch(ws: List[Window]):
                 plan = self._make_chunk_plan(sp, ws)
-                return plan, sched.put_chunk(plan)
+                try:
+                    return plan, sched.put_chunk(plan)
+                except RetryExhausted as exc:
+                    self._degrade(ws, exc)
+                    return None
 
             nxt = prefetch(groups[0]) if groups else None
             for k, ws in enumerate(groups):
-                plan, bufs = nxt
+                cur = nxt
                 nxt = prefetch(groups[k + 1]) if k + 1 < len(groups) \
                     else None
-                codes, covs = sched.run_chunk(plan, bufs=bufs,
-                                              stats=self.stats)
+                if cur is None:
+                    continue            # degraded at its prefetch
+                plan, bufs = cur
+                try:
+                    with tracer.span("chunk", f"chunk{k}", windows=len(ws),
+                                     lanes=plan.B, jobs=plan.n_jobs):
+                        codes, covs = sched.run_chunk(plan, bufs=bufs,
+                                                      stats=self.stats)
+                except RetryExhausted as exc:
+                    self._degrade(ws, exc)
+                    continue
                 apply(ws, codes, covs)
         else:
             # Fixed rounds: chunk i+1's h2d and rounds go out while chunk
@@ -320,17 +366,33 @@ class PoaEngine:
             pending: list = []
 
             def finish(entry) -> None:
-                ws, plan, packed = entry
-                codes, covs = collect_chunk(plan, packed, stats=self.stats)
+                # Chunks overlap, so a chunk's span is emitted when it is
+                # collected, from its dispatch's start: siblings, not a
+                # false nesting.
+                ws, plan, packed, k, t_disp = entry
+                try:
+                    codes, covs = collect_chunk(plan, packed,
+                                                stats=self.stats)
+                except RetryExhausted as exc:
+                    self._degrade(ws, exc)
+                    return
+                tracer.emit("chunk", f"chunk{k}", t_disp,
+                            time.perf_counter() - t_disp, windows=len(ws),
+                            lanes=plan.B, jobs=plan.n_jobs)
                 apply(ws, codes, covs)
 
-            for ws in groups:
+            for k, ws in enumerate(groups):
+                t_disp = time.perf_counter()
                 plan = self._make_chunk_plan(sp, ws)
-                packed = dispatch_chunk(
-                    plan, match=self.match, mismatch=self.mismatch,
-                    gap=self.gap, ins_scale=self._round_scales(rounds),
-                    rounds=rounds, device=self.device, stats=self.stats)
-                pending.append((ws, plan, packed))
+                try:
+                    packed = dispatch_chunk(
+                        plan, match=self.match, mismatch=self.mismatch,
+                        gap=self.gap, ins_scale=self._round_scales(rounds),
+                        rounds=rounds, device=self.device, stats=self.stats)
+                except RetryExhausted as exc:
+                    self._degrade(ws, exc)
+                    continue
+                pending.append((ws, plan, packed, k, t_disp))
                 if len(pending) > depth:
                     finish(pending.pop(0))
             for entry in pending:

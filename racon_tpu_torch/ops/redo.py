@@ -13,13 +13,18 @@ budgets widened:
   the escape certificate.
 
 Windows still flagged after the wide pass (saturated up-runs, or growth
-past even the widened slack) go back to the caller for the host path.
+past even the widened slack), and the windows of a redo chunk whose
+transfer or dispatch exhausted its retries, go back to the caller for
+the host path; the latter are degraded windows, and ``on_exhausted``
+accounts them (PoaEngine._note_degraded: the stderr line and
+``res_degraded_windows``, or the re-raise of an exhaustion that must end
+the run).
 The reference's default (``RACON_TPU_REDO=1``) is the port's only mode.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,14 +39,18 @@ def _widen(plan) -> None:
 
 def device_redo(windows: List, *, match: int, mismatch: int, gap: int,
                 ins_scale, rounds: int, device, jobs_cap: int = 2048,
-                stats: Optional[dict] = None
+                stats: Optional[dict] = None,
+                on_exhausted: Optional[Callable] = None
                 ) -> Tuple[List[Tuple[object, bytes, np.ndarray]], List]:
     """Re-run flagged windows through a wide-band device pass. Returns
     ``(resolved, remaining)``: (window, codes bytes, coverage) triples to
     apply, and the windows that must take the host path."""
+    from racon_tpu_torch.obs.trace import get_tracer
     from racon_tpu_torch.ops.device_poa import (ChunkPlan, LA_GROW,
                                                 MAX_DIR_ELEMS, collect_chunk,
                                                 dispatch_chunk)
+    from racon_tpu_torch.resilience.retry import RetryExhausted
+    tracer = get_tracer()
     resolved: List[Tuple[object, bytes, np.ndarray]] = []
     remaining: List = []
     groups: List[List] = []
@@ -56,17 +65,26 @@ def device_redo(windows: List, *, match: int, mismatch: int, gap: int,
     if cur:
         groups.append(cur)
 
-    for ws in groups:
+    for k, ws in enumerate(groups):
         plan = ChunkPlan(ws, la_grow=4 * LA_GROW)
         _widen(plan)
         cols = plan.band_w if plan.band_w else plan.LA
         if plan.B * plan.Lq * cols > MAX_DIR_ELEMS:
             remaining.extend(ws)
             continue
-        packed = dispatch_chunk(plan, match=match, mismatch=mismatch,
-                                gap=gap, ins_scale=ins_scale, rounds=rounds,
-                                device=device, stats=stats)
-        codes, covs = collect_chunk(plan, packed, stats=stats)
+        try:
+            with tracer.span("chunk", f"redo{k}", windows=len(ws),
+                             lanes=plan.B, jobs=plan.n_jobs):
+                packed = dispatch_chunk(
+                    plan, match=match, mismatch=mismatch, gap=gap,
+                    ins_scale=ins_scale, rounds=rounds, device=device,
+                    stats=stats)
+                codes, covs = collect_chunk(plan, packed, stats=stats)
+        except RetryExhausted as exc:
+            if on_exhausted is not None:
+                on_exhausted(ws, exc)
+            remaining.extend(ws)
+            continue
         for w, c, cv in zip(ws, codes, covs):
             if c is None:
                 remaining.append(w)

@@ -24,14 +24,20 @@ Failure semantics:
   producer can hang on a full edge.
 - The stall detector (``RACON_TPU_STALL_S``, default 300 s, 0 turns it
   off) fails the pipeline with :class:`PipelineStalled` when no stage
-  made progress and the consumer drained nothing for a whole window.
-  Nothing falls back to the host: the failure reaches the caller.
+  made progress and the consumer drained nothing for a whole window
+  (and tells the watchdog's health view, watchdog.note_stall). The
+  streaming executor recovers from that one failure
+  (pipeline/streaming.py); every other failure reaches the caller.
+- Each stage consults the fault site ``pipe/<stage>`` once an item,
+  before its work function (or before the source's next item), so a
+  ``hang`` there models a wedged stage body.
 
 Accounting: every stage records busy seconds (time in its work
 function), stall seconds (blocked on its input or output queue) and an
 item count into the pipeline's counters (pipeline/metrics.py,
-``pipe_stage_*`` keys) when it exits; every queue records peak depth
-and blocked time (``pipe_queue_*`` keys) at shutdown.
+``pipe_stage_*`` keys) and a ``stage`` trace span when it exits; every
+queue records peak depth and blocked time (``pipe_queue_*`` keys) and a
+``queue`` trace span at shutdown.
 """
 
 from __future__ import annotations
@@ -42,9 +48,12 @@ import threading
 import time
 from typing import Callable, Iterable, List, Optional, Tuple
 
+from racon_tpu_torch.obs.trace import get_tracer
 from racon_tpu_torch.pipeline import metrics
 from racon_tpu_torch.pipeline.queues import (BoundedQueue, PipelineAborted,
                                              QueueClosed)
+from racon_tpu_torch.resilience import watchdog
+from racon_tpu_torch.resilience.faults import maybe_fault
 from racon_tpu_torch.utils import env
 
 #: Stall-detector window, seconds: no stage progressing AND no item
@@ -79,14 +88,18 @@ class PipelineStalled(RuntimeError):
     """The stall detector fired: every live stage sat silent for a full
     window while the consumer drained nothing — a deadlock or a wedged
     body that no per-call deadline covers. ``dump`` carries the
-    per-stage/per-queue diagnostic the detector printed to stderr."""
+    per-stage/per-queue diagnostic the detector printed to stderr;
+    ``running`` names the stages that were inside their body (state
+    ``run``) when it fired."""
 
-    def __init__(self, window_s: float, dump: str):
+    def __init__(self, window_s: float, dump: str,
+                 running: Tuple[str, ...] = ()):
         super().__init__(
             f"[racon_tpu_torch::pipeline] no stage progressed for "
             f"{window_s:g}s — pipeline stalled\n{dump}")
         self.window_s = window_s
         self.dump = dump
+        self.running = tuple(running)
 
 
 class _Stage(threading.Thread):
@@ -122,6 +135,7 @@ class _Stage(threading.Thread):
 
     def run(self) -> None:
         failed = False
+        t_start = time.perf_counter()
         try:
             with self.pipe.thread_context():
                 if self.source is not None:
@@ -139,6 +153,11 @@ class _Stage(threading.Thread):
             metrics.record_stage(self.stage_name, self.busy_s,
                                  self.stall_in_s, self.stall_out_s,
                                  self.items)
+            get_tracer().emit(
+                "stage", self.stage_name, t_start,
+                time.perf_counter() - t_start, items=self.items,
+                busy_s=round(self.busy_s, 6),
+                stall_s=round(self.stall_in_s + self.stall_out_s, 6))
 
     def _run_source(self) -> None:
         it = iter(self.source())
@@ -146,6 +165,7 @@ class _Stage(threading.Thread):
             self._beat("run")
             t0 = time.perf_counter()
             try:
+                maybe_fault(f"pipe/{self.stage_name}")
                 item = next(it)
             except StopIteration:
                 self.busy_s += time.perf_counter() - t0
@@ -165,6 +185,10 @@ class _Stage(threading.Thread):
             self.stall_in_s += time.perf_counter() - t0
             self._beat("run")
             t1 = time.perf_counter()
+            # Before the work function: a ``hang`` here is a wedged stage
+            # body with its item still unprocessed — the stall detector,
+            # not a call deadline, is the recovery under test.
+            maybe_fault(f"pipe/{self.stage_name}")
             out = self.fn(item)
             self.busy_s += time.perf_counter() - t1
             if self.outq is not None and out is not None:
@@ -260,10 +284,15 @@ class Pipeline:
             q.abort()
         for s in self._stages:
             s.join(timeout=timeout)
+        tracer = get_tracer()
         for q in self._queues:
             m = q.metrics()
             metrics.record_queue(q.name, m["peak"], float(m["put_wait_s"]),
                                  float(m["get_wait_s"]))
+            tracer.point("queue", q.name, peak=m["peak"],
+                         capacity=m["capacity"], items=m["items"],
+                         put_wait_s=m["put_wait_s"],
+                         get_wait_s=m["get_wait_s"])
 
     def __enter__(self) -> "Pipeline":
         return self.start()
@@ -325,9 +354,13 @@ class _StallDetector(threading.Thread):
             if now - newest < self.window_s:
                 continue
             dump = pipe._stall_dump()
+            running = tuple(s.stage_name for s in pipe._stages
+                            if s.is_alive() and s.state == "run")
             print(f"[racon_tpu_torch::pipeline] stall detected: no progress "
                   f"for {now - newest:.1f}s (window {self.window_s:g}s)"
                   f"\n{dump}", file=sys.stderr, flush=True)
-            metrics.record_stall()
-            pipe._fail("stall", PipelineStalled(self.window_s, dump))
+            metrics.record_stall(self.window_s, len(pipe._stages))
+            watchdog.note_stall(len(pipe._stages))
+            pipe._fail("stall", PipelineStalled(self.window_s, dump,
+                                                running))
             return

@@ -43,8 +43,25 @@ wait for a chunk's copy). The compute and walk stages launch on that same
 stream, so the planes handed from one to the other are ordered by launch
 order and need no event.
 
-A stage failure or a stall raises :class:`StageError` at the consumer.
-Nothing falls back to the host path.
+Faults (the reference's semantics):
+
+- a chunk whose transfer or dispatch exhausts its retries
+  (``RetryExhausted`` in the h2d, compute or walk stage) polishes on the
+  host path under the host lock (PoaEngine._degrade) and retires
+  normally: no slice is lost and the bytes do not change. Only a
+  ``degradable`` exhaustion does (an injected fault, or an upload); a
+  real breach or out-of-memory where kernels run fails its stage;
+- a stall (:class:`~racon_tpu_torch.pipeline.stages.PipelineStalled`)
+  tears the pipeline down; every window past the last retired slice is
+  then polished on the host path, with the same bytes, and the stream
+  goes on to its end — the reference's recovery, held to the fault
+  drill: it runs only while a fault plan is armed, never for a compute
+  or walk stage stalled on the card (a slow kernel), and only once
+  every stage thread has exited (a body still running would write its
+  windows beside the recovery's). Otherwise the stall raises;
+- any other stage failure — a kernel's error above all — raises
+  :class:`StageError` at the consumer. Nothing else falls back to the
+  host path.
 """
 
 from __future__ import annotations
@@ -54,11 +71,14 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from racon_tpu_torch.obs.trace import get_tracer
 from racon_tpu_torch.pipeline import (metrics, pipeline_depth,
                                       walk_async_enabled)
 from racon_tpu_torch.pipeline.queues import (BoundedQueue, PipelineAborted,
                                              QueueClosed)
-from racon_tpu_torch.pipeline.stages import Pipeline
+from racon_tpu_torch.pipeline.stages import (Pipeline, PipelineStalled,
+                                             StageError)
+from racon_tpu_torch.resilience.retry import RetryExhausted
 from racon_tpu_torch.utils import env
 
 
@@ -319,6 +339,22 @@ def _walk_budget(device) -> int:
     return walk_queue_bytes(device.type, total)
 
 
+def _stall_unrecoverable(stalled: PipelineStalled, pipe: Pipeline,
+                         device) -> str:
+    """Why a stall must end the run instead of being recovered on the
+    host path (module docstring); '' when the recovery may run."""
+    import torch
+    from racon_tpu_torch.resilience.faults import get_injector
+    if get_injector() is None:
+        return "no fault plan is armed"
+    on_card = {"compute", "walk"} & set(stalled.running)
+    if on_card and torch.device(device).type == "cuda":
+        return f"the {'/'.join(sorted(on_card))} stage stalled on the card"
+    if pipe.alive:
+        return "a stage thread is still running"
+    return ""
+
+
 def stream_consensus(engine, windows, chunk: int = 8192,
                      depth: Optional[int] = None,
                      tick=None) -> Iterator[Tuple[int, int]]:
@@ -331,7 +367,8 @@ def stream_consensus(engine, windows, chunk: int = 8192,
     --pipeline-depth); ``tick`` is called once per completed slice.
 
     Abandoning the generator early tears the pipeline down (queues abort,
-    stage threads join). A stage failure or a stall re-raises here as
+    stage threads join). A stall is recovered on the host path (module
+    docstring); any other stage failure re-raises here as
     :class:`~racon_tpu_torch.pipeline.stages.StageError`.
     """
     n = len(windows)
@@ -342,6 +379,7 @@ def stream_consensus(engine, windows, chunk: int = 8192,
     depth = max(1, int(depth))
     chunk = max(1, int(chunk))
 
+    tracer = get_tracer()
     host_lock = threading.Lock()
     sched = engine._make_scheduler() if env.sched_enabled() else None
     rounds = engine.refine_rounds + 1
@@ -415,12 +453,24 @@ def stream_consensus(engine, windows, chunk: int = 8192,
         item.plan = engine._make_chunk_plan(item.sp, item.windows)
         return item
 
-    def h2d(item: _Item) -> _Item:
+    def degrade(item: _Item, exc) -> None:
+        # A transfer or dispatch exhausted its retries: the chunk's
+        # windows polish on the host path and the item retires normally.
+        with host_lock:
+            engine._degrade(item.windows, exc)
+        item.plan = item.bufs = item.fwd = None
+
+    def h2d(item: _Item) -> Optional[_Item]:
         from racon_tpu_torch.ops.device_poa import put_chunk_bufs
         # Returns at once on a GPU: the copy overlaps the current chunk's
         # compute; q_run's capacity bounds the chunks on the card.
-        item.bufs = sched.put_chunk(item.plan) if sched is not None \
-            else put_chunk_bufs(item.plan, device)
+        try:
+            item.bufs = sched.put_chunk(item.plan) if sched is not None \
+                else put_chunk_bufs(item.plan, device)
+        except RetryExhausted as exc:
+            degrade(item, exc)
+            q_done.put(item)        # past compute and walk, retired
+            return None
         return item
 
     def admit_async(item: _Item) -> bool:
@@ -446,24 +496,39 @@ def stream_consensus(engine, windows, chunk: int = 8192,
         from racon_tpu_torch.ops.device_poa import (collect_chunk,
                                                     dispatch_chunk,
                                                     dispatch_chunk_fwd)
+        span = dict(windows=len(item.windows), lanes=item.plan.B,
+                    jobs=item.plan.n_jobs)
+        name = f"chunk{item.sid}.{item.gid}"
         if admit_async(item):
             # Launch the forward half only and hand its planes on: this
             # thread is free at once to launch the next chunk.
-            item.fwd = dispatch_chunk_fwd(
-                item.plan, match=engine.match, mismatch=engine.mismatch,
-                gap=engine.gap, ins_scale=scales, rounds=rounds,
-                device=device, bufs=item.bufs)
+            try:
+                with tracer.span("chunk", name, **span):
+                    item.fwd = dispatch_chunk_fwd(
+                        item.plan, match=engine.match,
+                        mismatch=engine.mismatch, gap=engine.gap,
+                        ins_scale=scales, rounds=rounds, device=device,
+                        bufs=item.bufs)
+            except RetryExhausted as exc:
+                degrade(item, exc)
+                return item
             item.bufs = None
             meter.fwd_dispatched((item.sid, item.gid))
             return item
-        if sched is not None:
-            codes, covs = sched.run_chunk(item.plan, bufs=item.bufs)
-        else:
-            packed = dispatch_chunk(
-                item.plan, match=engine.match, mismatch=engine.mismatch,
-                gap=engine.gap, ins_scale=scales, rounds=rounds,
-                device=device, bufs=item.bufs)
-            codes, covs = collect_chunk(item.plan, packed)
+        try:
+            with tracer.span("chunk", name, **span):
+                if sched is not None:
+                    codes, covs = sched.run_chunk(item.plan, bufs=item.bufs)
+                else:
+                    packed = dispatch_chunk(
+                        item.plan, match=engine.match,
+                        mismatch=engine.mismatch, gap=engine.gap,
+                        ins_scale=scales, rounds=rounds, device=device,
+                        bufs=item.bufs)
+                    codes, covs = collect_chunk(item.plan, packed)
+        except RetryExhausted as exc:
+            degrade(item, exc)
+            return item
         meter.note_fused()
         finish(item, codes, covs)
         return item
@@ -475,13 +540,20 @@ def stream_consensus(engine, windows, chunk: int = 8192,
         from racon_tpu_torch.ops.device_poa import (collect_chunk,
                                                     dispatch_walk)
         key = (item.sid, item.gid)
-        meter.walk_begin(key)
         try:
-            fwd_out, meta = item.fwd
-            packed = dispatch_walk(item.plan, fwd_out, meta)
-            codes, covs = collect_chunk(item.plan, packed)
-        finally:
-            meter.walk_end(key)
+            meter.walk_begin(key)
+            try:
+                with tracer.span("walk", f"walk{item.sid}.{item.gid}",
+                                 lanes=item.plan.B,
+                                 windows=len(item.windows)):
+                    fwd_out, meta = item.fwd
+                    packed = dispatch_walk(item.plan, fwd_out, meta)
+                    codes, covs = collect_chunk(item.plan, packed)
+            finally:
+                meter.walk_end(key)
+        except RetryExhausted as exc:
+            degrade(item, exc)
+            return item
         finish(item, codes, covs)
         return item
 
@@ -492,17 +564,49 @@ def stream_consensus(engine, windows, chunk: int = 8192,
     pipe.stage("walk", walk, q_walk, q_done)
 
     t0 = time.perf_counter()
+    last_end = 0
     try:
-        with pipe:
-            for item in pipe.drain(q_done):
-                for _sid, s, e in tracker.retire(item.sid):
+        with tracer.span("pipeline", "stream_consensus", windows=n,
+                         depth=depth, chunk=chunk):
+            try:
+                with pipe:
+                    for item in pipe.drain(q_done):
+                        for _sid, s, e in tracker.retire(item.sid):
+                            if tick is not None:
+                                tick()
+                            last_end = e
+                            yield (s, e)
+                    for _sid, s, e in tracker.flush():
+                        if tick is not None:
+                            tick()
+                        last_end = e
+                        yield (s, e)
+            except StageError as err:
+                if not isinstance(err.__cause__, PipelineStalled):
+                    raise
+                why = _stall_unrecoverable(err.__cause__, pipe, device)
+                if why:
+                    print(f"[racon_tpu_torch::pipeline] stall not "
+                          f"recovered: {why}", file=engine.log)
+                    raise
+                # Stall recovery: the abort cascade tore the pipeline
+                # down and every stage thread has exited, so in-flight
+                # items are lost and nothing else touches the windows;
+                # the host path gives the device path's bytes, so every
+                # window past the last retired slice is polished there.
+                active = []
+                for w in windows[last_end:]:
+                    if w.n_layers < 2:
+                        w.set_backbone_consensus()
+                    else:
+                        active.append(w)
+                if active:
+                    with host_lock:
+                        engine._degrade(active, err.__cause__)
+                if last_end < n:
                     if tick is not None:
                         tick()
-                    yield (s, e)
-            for _sid, s, e in tracker.flush():
-                if tick is not None:
-                    tick()
-                yield (s, e)
+                    yield (last_end, n)
     finally:
         metrics.record_pipeline_wall(time.perf_counter() - t0)
         metrics.record_walk(meter.walk_s, meter.overlap_s, meter.dispatches,

@@ -21,6 +21,15 @@ final-scale dual assembly of its detecting round's sums, which M2's sched
 mode writes into the chunk's accumulators (sched/rounds.py gives the
 argument). Flagged windows freeze at once: their sticky flag already
 sends them to the redo, so further rounds are wasted work.
+
+The reference's retry sites, and only those: ``h2d/chunk`` (put_chunk,
+through device_poa.put_chunk_bufs), ``sched/flags`` (the flag pull, which
+waits for the rounds launched before it), ``h2d/repack`` (the repack's
+index vectors) and ``d2h/chunk`` (collect_chunk). The round launches run
+on the caller's thread, outside any envelope: the scheduler's rounds
+write the chunk's accumulators, so they could not be retried whole, and
+the reference has no ``dispatch/chunk`` site here either. Each dispatch
+is traced as a ``round`` span, each repack as a ``dispatch`` span.
 """
 
 from __future__ import annotations
@@ -31,11 +40,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from racon_tpu_torch.ops.budget import round_up
+from racon_tpu_torch.obs.trace import get_tracer
+from racon_tpu_torch.ops.budget import round_up, transfer_deadline_s
 from racon_tpu_torch.ops.device_poa import (ChunkBufs, _bucket_b,
                                             chunk_statics, collect_chunk,
                                             host_part, put_chunk_bufs,
                                             round_band_width)
+from racon_tpu_torch.pipeline.metrics import record_flag_pull, record_h2d
+from racon_tpu_torch.resilience.retry import call as retry_call
 from racon_tpu_torch.sched.repack import RepackPlan
 from racon_tpu_torch.sched.rounds import (sched_pack, sched_repack,
                                           sched_rounds, sched_unpack)
@@ -91,6 +103,7 @@ class ConvergenceScheduler:
         R = self.rounds
         telem = self.telemetry
         dev = self.device
+        tracer = get_tracer()
         # The band width and walk depth of every dispatch of the chunk,
         # the depth picked once at the plan's B and round-0 band.
         st = chunk_statics(plan, ins_scale=self.scales, rounds=R)
@@ -119,7 +132,9 @@ class ConvergenceScheduler:
         pre = min(2, R)
         for r in range(pre):
             telem.record_round(r, n_real)
-        with host_part("rounds"):
+        with host_part("rounds"), tracer.span(
+                "round", f"rounds0-{pre - 1}", lanes=plan.B,
+                windows=n_real):
             (bb, bbw, alen, begin, end, ovf, conv, out, ran) = sched_rounds(
                 bb, bbw, alen, begin, end, q, qw8, lq, w_read, win, ovf, out,
                 orig_ids, pre == R, members, n_win=plan.n_win,
@@ -134,8 +149,14 @@ class ConvergenceScheduler:
         while executed < R and n_alive > 0:
             # The one d2h a step: the two flag vectors, for control flow
             # (and telemetry); it waits for the rounds launched so far.
-            with host_part("flags"):
+            def _pull_flags(conv=conv, ovf=ovf):
+                t_pull = time.perf_counter()
                 flags = torch.stack([conv, ovf]).cpu().numpy()
+                record_flag_pull(flags.nbytes, time.perf_counter() - t_pull)
+                return flags
+
+            with host_part("flags"):
+                flags = retry_call("sched/flags", _pull_flags)
             conv_h, ovf_h = flags[0], flags[1]
             frozen = real & (conv_h | ovf_h)
             telem.record_freeze(executed, int(frozen.sum()))
@@ -161,7 +182,9 @@ class ConvergenceScheduler:
                                 for r in range(executed, R))
                 adapt = (env.adaptive_enabled() and len(tail_ws) >= 2 and
                          len(set(tail_ws)) == 1)
-                with host_part("rounds"):
+                with host_part("rounds"), tracer.span(
+                        "round", f"rounds{executed}-{R - 1}", lanes=cur_B,
+                        windows=n_alive, fused_tail=1):
                     (bb, bbw, alen, begin, end, ovf, conv, out, ran) = \
                         sched_rounds(
                             bb, bbw, alen, begin, end, q, qw8, lq, w_read,
@@ -175,14 +198,27 @@ class ConvergenceScheduler:
             t0 = time.perf_counter()
             with host_part("repack"):
                 rp = RepackPlan(surv, cur_win_h, cur_orig, trash=trash)
-                lane_idx, new_win, win_map, win_real, orig_ids = (
-                    torch.from_numpy(a).to(dev) for a in (
-                        rp.lane_idx, rp.new_win, rp.win_map, rp.win_real,
-                        rp.orig_ids))
-                (bb, bbw, alen, begin, end, q, qw8, lq, w_read, ovf,
-                 members) = sched_repack(
-                    bb, bbw, alen, begin, end, q, qw8, lq, w_read, ovf,
-                    lane_idx, new_win, win_map, win_real)
+                host_idx = (rp.lane_idx, rp.new_win, rp.win_map,
+                            rp.win_real, rp.orig_ids)
+                nbytes = sum(a.nbytes for a in host_idx)
+
+                def _put_repack(host_idx=host_idx, nbytes=nbytes):
+                    t_put = time.perf_counter()
+                    out_d = tuple(torch.from_numpy(a).to(dev)
+                                  for a in host_idx)
+                    record_h2d(nbytes, time.perf_counter() - t_put,
+                               name="h2d/repack")
+                    return out_d
+
+                lane_idx, new_win, win_map, win_real, orig_ids = retry_call(
+                    "h2d/repack", _put_repack,
+                    deadline_s=transfer_deadline_s(nbytes, "h2d"))
+                with tracer.span("dispatch", "repack", lanes=rp.B,
+                                 windows=n_alive):
+                    (bb, bbw, alen, begin, end, q, qw8, lq, w_read, ovf,
+                     members) = sched_repack(
+                        bb, bbw, alen, begin, end, q, qw8, lq, w_read, ovf,
+                        lane_idx, new_win, win_map, win_real)
             win = new_win
             cur_win_h = rp.new_win
             cur_orig = rp.orig_ids
@@ -191,7 +227,9 @@ class ConvergenceScheduler:
             telem.record_repack(time.perf_counter() - t0)
 
             telem.record_round(executed, n_alive)
-            with host_part("rounds"):
+            with host_part("rounds"), tracer.span(
+                    "round", f"round{executed}", lanes=rp.B,
+                    windows=n_alive):
                 (bb, bbw, alen, begin, end, ovf, conv, out, ran) = \
                     sched_rounds(
                         bb, bbw, alen, begin, end, q, qw8, lq, w_read, win,

@@ -34,6 +34,28 @@ test steers the reference and the port alike:
   (io/ingest.py: prefetch threads, mmap readers, parallel inflate).
 - ``RACON_TPU_INGEST_WORKERS`` (default: cores, 2 to 8): the parallel
   inflate's threads (io/inflate.py).
+
+The fault plane's gates (resilience/, obs/trace.py, ops/budget.py), with
+the JAX package's defaults and error texts:
+
+- ``RACON_TPU_FAULTS`` (spec): the fault injector's plan
+  (resilience/faults.py); ``RACON_TPU_FAULT_STALL_S`` (default 1) and
+  ``RACON_TPU_FAULT_HANG_S`` (default 30): the sleeps of its ``stall``
+  and unguarded ``hang`` actions.
+- ``RACON_TPU_RETRY`` (``key=value,...``): the retry policy
+  (resilience/retry.py; default 4 attempts, 0.05 s base, x2, 2 s cap,
+  10% jitter).
+- ``RACON_TPU_DEADLINE_{H2D,D2H,DISPATCH}`` (defaults 60, 300, 300 s;
+  <= 0 turns a class off), ``RACON_TPU_DEADLINE_MBPS`` (0.25),
+  ``RACON_TPU_DEADLINE_CELLS_PER_S`` (2e6) and
+  ``RACON_TPU_DEADLINE_SCALE`` (1): the watchdog's deadlines
+  (ops/budget.py).
+- ``RACON_TPU_WATCHDOG_TERMINAL`` (default 0 = never): the breach count
+  at which a breach becomes terminal (resilience/watchdog.py).
+- ``RACON_TPU_TIMING`` (flag): the fixed engine's per-round timing path
+  and the overlap aligner's timing lines, on stderr.
+- ``RACON_TPU_TRACE`` (path): the JSONL tracer (obs/trace.py);
+  ``RACON_TPU_TRACE_XPROF`` (flag): each span also an NVTX range.
 """
 
 from __future__ import annotations
@@ -53,9 +75,26 @@ WALK_QUEUE = "RACON_TPU_WALK_QUEUE"
 STALL_S = "RACON_TPU_STALL_S"
 INGEST = "RACON_TPU_INGEST"
 INGEST_WORKERS = "RACON_TPU_INGEST_WORKERS"
+FAULTS = "RACON_TPU_FAULTS"
+FAULT_STALL_S = "RACON_TPU_FAULT_STALL_S"
+FAULT_HANG_S = "RACON_TPU_FAULT_HANG_S"
+RETRY = "RACON_TPU_RETRY"
+DEADLINE_H2D = "RACON_TPU_DEADLINE_H2D"
+DEADLINE_D2H = "RACON_TPU_DEADLINE_D2H"
+DEADLINE_DISPATCH = "RACON_TPU_DEADLINE_DISPATCH"
+DEADLINE_MBPS = "RACON_TPU_DEADLINE_MBPS"
+DEADLINE_CELLS_PER_S = "RACON_TPU_DEADLINE_CELLS_PER_S"
+DEADLINE_SCALE = "RACON_TPU_DEADLINE_SCALE"
+WATCHDOG_TERMINAL = "RACON_TPU_WATCHDOG_TERMINAL"
+TIMING = "RACON_TPU_TIMING"
+TRACE = "RACON_TPU_TRACE"
+TRACE_XPROF = "RACON_TPU_TRACE_XPROF"
 _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           PIPELINE_DEPTH, WALK_ASYNC, WALK_QUEUE, STALL_S, INGEST,
-          INGEST_WORKERS)
+          INGEST_WORKERS, FAULTS, FAULT_STALL_S, FAULT_HANG_S, RETRY,
+          DEADLINE_H2D, DEADLINE_D2H, DEADLINE_DISPATCH, DEADLINE_MBPS,
+          DEADLINE_CELLS_PER_S, DEADLINE_SCALE, WATCHDOG_TERMINAL, TIMING,
+          TRACE, TRACE_XPROF)
 
 
 def read(name: str) -> str:
@@ -84,3 +123,7 @@ def adaptive_enabled() -> bool:
 def redo_enabled() -> bool:
     return read(REDO) not in ("0", "false")
 
+
+def timing_enabled() -> bool:
+    """``RACON_TPU_TIMING``: per-round timing lines on stderr."""
+    return read(TIMING) not in ("", "0")

@@ -13,6 +13,8 @@ Two extensions over the reference:
   the bar — a redrawn bar in a log file is one garbled mega-line.
 - Output is serialized by a per-logger lock so threads can share one
   logger without interleaving mid-line.
+- Every completed phase is also a ``phase`` span of the JSONL tracer
+  (obs/trace.py), a no-op unless RACON_TPU_TRACE / --trace is set.
 """
 
 from __future__ import annotations
@@ -56,6 +58,8 @@ class Logger:
             self._bar = 0
             elapsed = time.perf_counter() - self._phase_t0
             print(f"{msg} {elapsed:.6f} s", file=self.stream)
+        from racon_tpu_torch.obs.trace import get_tracer
+        get_tracer().emit("phase", msg, self._phase_t0, elapsed)
 
     def tick(self, msg: str) -> None:
         """Advance a 20-step progress bar — ``(*logger)["msg"]``."""

@@ -8,7 +8,9 @@ sched mode: each against its plain version, and a chunk's rounds, under
 the fixed engine and the convergence scheduler, against the CPU run), and
 the streaming pipeline's new call paths (a chunk's decoupled walk on
 another thread against the fused chunk; stream_consensus against the
-serial engine).
+serial engine), and the fault plane on the card (a guarded dispatch on
+a caller's stream, an abandoned hang, every chunk degraded to the host
+path, which device errors are retried).
 
 Needs an NVIDIA GPU with nvcc (the kernels build on first use); on a host
 without one every test here skips. Run on the card with
@@ -1518,3 +1520,245 @@ def test_stream_consensus_on_the_card_matches_serial(cuda, monkeypatch,
     else:
         assert snap["walk_dispatches"] == 0
         assert n["merge_windows_sched"] > 0
+
+
+# ------------------------------------------------------- fault plane
+
+
+@pytest.fixture
+def fault_plane(monkeypatch):
+    """No fault plan, policy, watchdog state or counters from elsewhere;
+    the engines' cap histories start empty."""
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.pipeline import metrics
+    from racon_tpu_torch.resilience import faults, retry, watchdog
+    for name in ("RACON_TPU_FAULTS", "RACON_TPU_RETRY", "RACON_TPU_SCHED",
+                 "RACON_TPU_DEADLINE_DISPATCH", "RACON_TPU_TIMING",
+                 "RACON_TPU_DEADLINE_CELLS_PER_S"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(P, "_CAP_HISTORY", set())
+    monkeypatch.setattr(P, "_BAND_HISTORY", set())
+    for mod in (faults, retry):
+        mod.configure(None)
+    watchdog.reset()
+    metrics.reset()
+    yield
+    for mod in (faults, retry):
+        mod.configure(None)
+    watchdog.reset()
+    metrics.reset()
+
+
+def _engine_run(dev, monkeypatch, batch=4096, n=24, seed=42):
+    """Consensus of the pipeline tests' window set on ``dev``; returns
+    (consensus, launches made, res_* counters)."""
+    import io
+    from window_sets import port_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    from racon_tpu_torch.pipeline import metrics
+    monkeypatch.setattr(P, "_CAP_HISTORY", set())
+    monkeypatch.setattr(P, "_BAND_HISTORY", set())
+    metrics.reset()
+    ws = port_windows(n, seed, wlen=300)
+    n0 = dict(kernels.LAUNCHES)
+    PoaEngine(device=dev, device_batch=batch,
+              log=io.StringIO()).consensus_windows(ws)
+    torch.cuda.synchronize()
+    n1 = {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]}
+    return [w.consensus for w in ws], n1, metrics.resilience_extras()
+
+
+def test_guarded_dispatch_on_a_stream_matches_unguarded(cuda, monkeypatch,
+                                                        fault_plane):
+    """dispatch_chunk under the watchdog (its body on a guard thread)
+    inside stream_consensus's stage-thread context (its own stream): the
+    body launches on that stream and device, the packed bytes and the
+    stage clock's launches equal the unguarded dispatch's, and the
+    launches are charged to the caller's thread."""
+    import threading
+    from window_sets import port_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    eng = PoaEngine(device=cuda)
+    ws = [w for w in port_windows(8, 5, wlen=300) if w.n_layers >= 2]
+    dev, _host, lq_max, la_max = eng._partition_device(ws)
+    sp = eng._plan_device_slice(dev, lq_max, la_max)
+    plan = eng._make_chunk_plan(sp, sp.groups[0])
+    rounds = eng.refine_rounds + 1
+    kw = dict(match=5, mismatch=-4, gap=-8,
+              ins_scale=eng._round_scales(rounds), rounds=rounds)
+    real = P.device_chunk_packed
+    seen = []
+
+    def spy(*a, **k):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream().cuda_stream,
+                     torch.cuda.current_device()))
+        return real(*a, **k)
+
+    monkeypatch.setattr(P, "device_chunk_packed", spy)
+    from racon_tpu_torch.pipeline.streaming import _thread_context
+    ctx = _thread_context(torch.device("cuda", torch.cuda.current_device()))
+    out = {}
+    for guarded in (False, True):
+        monkeypatch.setenv("RACON_TPU_DEADLINE_DISPATCH",
+                           "" if guarded else "0")
+        clock = P.set_stage_clock(True)
+        before = kernels.thread_launches()
+        try:
+            with ctx():
+                here = (torch.cuda.current_stream().cuda_stream,
+                        torch.cuda.current_device())
+                packed = P.dispatch_chunk(plan, device=cuda, **kw)
+                got = packed.cpu().numpy().tobytes()
+        finally:
+            P.set_stage_clock(False)
+        after = kernels.thread_launches()
+        mine = {k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}
+        out[guarded] = (got, clock.launches(), mine, clock.ms())
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == out[False][1] and out[True][1]["forward"]
+    assert out[True][2] == out[False][2]
+    assert all(ms > 0 for ms in out[True][3].values())
+    assert seen[0][0] != "racon-watchdog" and seen[1][0] == "racon-watchdog"
+    assert seen[0][1:] == seen[1][1:] == here
+    assert here[0] != torch.cuda.default_stream().cuda_stream
+
+
+def test_hang_at_dispatch_launches_nothing_twice(cuda, monkeypatch,
+                                                 fault_plane):
+    """A hang at the second dispatch past a 0.5 s deadline: one breach,
+    the retry's attempt runs, and the abandoned attempt, when it wakes,
+    launches nothing — LAUNCHES equals a clean run's."""
+    import time
+    from racon_tpu_torch.resilience import faults
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    clean, n_clean, res_clean = _engine_run("cuda", monkeypatch, batch=60)
+    assert res_clean == {}
+    monkeypatch.setenv("RACON_TPU_DEADLINE_DISPATCH", "0.5")
+    monkeypatch.setenv("RACON_TPU_DEADLINE_CELLS_PER_S", "1e18")
+    faults.configure("dispatch/chunk:1!hang=2")
+    n0 = dict(kernels.LAUNCHES)
+    out, n_hang, res = _engine_run("cuda", monkeypatch, batch=60)
+    time.sleep(2.5)
+    n_after = {k: v - n0[k] for k, v in kernels.LAUNCHES.items()
+               if v != n0[k]}
+    assert out == clean
+    assert n_hang == n_after == n_clean
+    assert res["res_watchdog_breach_total"] == 1
+    assert res["res_retry_total"] == 1
+
+
+def test_degrade_everything_gives_the_host_bytes(cuda, monkeypatch,
+                                                 fault_plane):
+    """Every upload fails (h2d/chunk:p=1.0, 2 attempts): every window
+    polishes on the host path, with the device path's bytes, and no
+    consensus kernel launches."""
+    from racon_tpu_torch.resilience import faults
+    cpu, _n, _res = _engine_run("cpu", monkeypatch)
+    monkeypatch.setenv("RACON_TPU_RETRY", "attempts=2,base=0")
+    faults.configure("h2d/chunk:p=1.0")
+    out, n, res = _engine_run("cuda", monkeypatch)
+    assert out == cpu
+    assert n == {}
+    from window_sets import port_windows
+    assert res["res_degraded_windows"] == sum(
+        w.n_layers >= 2 for w in port_windows(24, 42, wlen=300))
+    assert res["res_retry_exhausted"] == res["res_degraded_chunks"]
+
+
+def test_timing_path_gives_the_same_bytes_and_launches(cuda, monkeypatch,
+                                                        fault_plane):
+    """RACON_TPU_TIMING=1 on the card: the fixed engine's rounds inside
+    the dispatch/chunk envelope with a sync and a stderr line after the
+    h2d and after each round; the same consensus, and the launches of a
+    run with no adaptive exit (every round runs)."""
+    import contextlib
+    import io
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    monkeypatch.setenv("RACON_TPU_ADAPTIVE", "0")
+    clean, n_clean, _ = _engine_run("cuda", monkeypatch, batch=60)
+    monkeypatch.delenv("RACON_TPU_ADAPTIVE")
+    monkeypatch.setenv("RACON_TPU_TIMING", "1")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out, n, res = _engine_run("cuda", monkeypatch, batch=60)
+    assert out == clean and n == n_clean and res == {}
+    lines = err.getvalue().splitlines()
+    h2d = [ln for ln in lines if "] h2d:" in ln]
+    rounds = [ln for ln in lines if "compute/round" in ln]
+    assert len(h2d) >= 2 and len(rounds) == 4 * len(h2d)
+
+
+def test_real_breach_at_d2h_ends_the_run(cuda, monkeypatch, fault_plane,
+                                         tmp_path):
+    """A real deadline breach at ``d2h/chunk``: each pull of the fixed
+    engine first queues about 0.1 s of device work on its stream, which
+    the pull waits on, so every attempt breaches a 1 us deadline (at this
+    size the chunk's own kernels can end before the caller wakes). The
+    exhausted site is not degraded: the CLI exits 1 with no FASTA and no
+    window on the host path, after 2 breaches and 1 retry."""
+    from test_torch_pipeline import _run_cli, _write_two_contig_inputs
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.pipeline import metrics
+    real_call = P.retry_call
+
+    def slow_pull(site, fn, *a, **k):
+        if site == "d2h/chunk":
+            pull = fn
+
+            def fn(*args, **kwargs):
+                torch.cuda._sleep(200_000_000)  # device cycles, ~0.1 s
+                return pull(*args, **kwargs)
+        return real_call(site, fn, *a, **k)
+
+    paths = _write_two_contig_inputs(tmp_path)
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    monkeypatch.setenv("RACON_TPU_RETRY", "attempts=2,base=0")
+    monkeypatch.setenv("RACON_TPU_DEADLINE_D2H", "1e-6")
+    monkeypatch.setenv("RACON_TPU_DEADLINE_MBPS", "1e9")
+    monkeypatch.setattr(P, "retry_call", slow_pull)
+    rc, out, err = _run_cli([*paths, "-w", "200"])
+    torch.cuda.synchronize()
+    assert rc == 1 and out == b"", err[-2000:]
+    assert "d2h/chunk failed after 2 attempt(s)" in err
+    res = metrics.resilience_extras()
+    assert res.get("res_degraded_windows", 0) == 0
+    assert res["res_retry_exhausted"] == 1
+    assert res["res_watchdog_breach_total"] == 2
+    assert res["res_watchdog_site_d2h_chunk"] == 2
+    assert res["res_retry_total"] == 1
+    assert res.get("res_fault_injected_total", 0) == 0
+
+
+def test_out_of_memory_is_retried_and_kernel_error_is_not(cuda, monkeypatch,
+                                                          fault_plane):
+    from racon_tpu_torch.ops import device_poa as P
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    clean, n_clean, _ = _engine_run("cuda", monkeypatch)
+    real = P.device_chunk_packed
+    calls = []
+
+    def oom_once(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.OutOfMemoryError("CUDA out of memory (injected)")
+        return real(*a, **k)
+
+    monkeypatch.setattr(P, "device_chunk_packed", oom_once)
+    out, n, res = _engine_run("cuda", monkeypatch)
+    assert out == clean and n == n_clean
+    assert res["res_retry_total"] == 1 and "res_degraded_windows" not in res
+
+    def broken(*a, **k):
+        calls.append(1)
+        raise kernels.KernelError("band_fwd launch failed (injected)")
+
+    monkeypatch.setattr(P, "device_chunk_packed", broken)
+    calls.clear()
+    with pytest.raises(kernels.KernelError):
+        _engine_run("cuda", monkeypatch)
+    assert len(calls) == 1

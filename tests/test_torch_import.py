@@ -54,6 +54,9 @@ def test_port_modules_found():
     assert "racon_tpu_torch.sched.scheduler" in mods
     assert "racon_tpu_torch.pipeline.streaming" in mods
     assert "racon_tpu_torch.io.ingest" in mods
+    for name in ("faults", "retry", "watchdog"):
+        assert f"racon_tpu_torch.resilience.{name}" in mods
+    assert "racon_tpu_torch.obs.trace" in mods
 
 
 def test_import_loads_no_jax_and_no_reference_module():

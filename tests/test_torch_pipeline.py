@@ -13,7 +13,7 @@ JAX package's (racon_tpu/pipeline/, run under JAX_PLATFORMS=cpu).
   stream_consensus;
 - the polisher (polish_stream == polish; polish under RACON_TPU_PIPELINE=1)
   and the CLI (--pipeline-depth 2 against the reference CLI's bytes; a
-  stage failure and a stall exit non-zero);
+  stage failure exits non-zero, a stall recovers with the clean bytes);
 - the counters with two launching threads: the launch counts and the
   stage clock's per-thread attribution stay exact.
 """
@@ -518,13 +518,22 @@ def test_cli_rejects_negative_pipeline_depth(tmp_path):
 
 
 def test_cli_exits_nonzero_on_stage_failure_and_stall(tmp_path, monkeypatch):
-    """A stage's exception, or a stage that stops making progress, ends
-    the CLI with exit code 1 and no FASTA; nothing falls back to the
-    host path."""
+    """A stage's exception ends the CLI with exit code 1 and no FASTA;
+    nothing falls back to the host path. A stage that stops making
+    progress trips the stall detector: with no fault plan armed the stall
+    ends the run the same way. Under the reference's stall drill (an
+    injected ``pipe/pack`` hang, tests/test_failslow.py) the stream
+    recovers as the reference's does: every window past the last retired
+    slice is polished on the host path, exit code 0, and the FASTA is the
+    clean run's, byte for byte."""
+    from racon_tpu_torch.resilience import faults
     from racon_tpu_torch.ops.poa import PoaEngine
     paths = _write_two_contig_inputs(tmp_path)
     argv = [*paths, "--device", "cpu", "-w", "200", "--pipeline-depth", "2"]
     make = PoaEngine._make_chunk_plan
+    rc, clean, err = _run_cli(argv)
+    assert rc == 0 and clean.count(b">") == 2, err
+    metrics.reset()
 
     def broken(self, sp, ws):
         raise RuntimeError("pack failed")
@@ -542,13 +551,29 @@ def test_cli_exits_nonzero_on_stage_failure_and_stall(tmp_path, monkeypatch):
 
     monkeypatch.setattr(PoaEngine, "_make_chunk_plan", wedged)
     monkeypatch.setenv(env.STALL_S, "0.5")
+    metrics.reset()
     try:
         rc, out, err = _run_cli(argv)
     finally:
         release.set()
     assert rc == 1 and out == b""
-    assert "stalled" in err
+    assert "stall detected" in err
+    assert "stall not recovered: no fault plan is armed" in err
     assert metrics.registry().get("pipe_stall_events") == 1
+    assert metrics.registry().get("res_degraded_windows", 0) == 0
+
+    monkeypatch.setattr(PoaEngine, "_make_chunk_plan", make)
+    metrics.reset()
+    faults.configure("pipe/pack:0!hang=2")
+    try:
+        rc, out, err = _run_cli(argv)
+    finally:
+        faults.configure(None)
+    assert rc == 0, err
+    assert out == clean
+    assert "stall detected" in err and "host path" in err
+    assert metrics.registry().get("pipe_stall_events") == 1
+    assert metrics.registry().get("res_degraded_windows", 0) > 0
 
 
 # ------------------------------------------- counters, two threads
