@@ -185,6 +185,30 @@ any failure exits non-zero and prints no result):
               (pipeline/metrics.resilience_extras), which must be empty:
               no retry, fault, breach, exhaustion or degraded window on a
               clean run.
+10. serve     the service core on the card (server/, cache/,
+              resilience/checkpoint.py), one JSON line a part: (1) an
+              in-process PolishServer with HTTP on an ephemeral port:
+              job A (phase 4's input, tenant acme) and jobs B and C
+              (phase 3's kC and partial-PAF cases, tenant umbrella)
+              submitted together; each stream byte for byte its phase's
+              CLI FASTA; the consensus K1, W1, M1 and M2 launches > 0
+              and equal to the sum over the batcher's dispatches, each
+              kernel's count = the dispatches' + the jobs' own threads'
+              (their overlap alignment); the res_* counters other than
+              the checkpoint's (res_ckpt_*) empty; then B and C on a
+              second server (cache off, a 3 s batch wait) one at a time
+              and together: the occupancy together strictly above one
+              at a time, a dispatch carrying both; then A resubmitted to
+              the first server: a Tier-1 cache hit, the same bytes and
+              no kernel launch; (2) a daemon subprocess (python -m
+              racon_tpu_torch.server) with serve/commit:1!kill on the
+              partial-PAF case exits 137; a standby restart adopts the
+              state dir, re-queues the job and streams the same bytes;
+              SIGTERM drains it with exit 0; (3) phase 4's input through
+              the CLI with --checkpoint-dir under ckpt/commit:5!kill
+              (exit 137), then --resume: phase 4's FASTA with fewer
+              consensus K1 launches than phase 4. The phase prints its
+              seconds.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -2406,6 +2430,306 @@ def phase_sched_merge(c, scale, scale_final=0.6):
     return rec
 
 
+def _http(url, body=None):
+    """GET (or POST ``body`` as JSON) on the daemon; returns (status,
+    headers, bytes)."""
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, dict(resp.headers), resp.read()
+
+
+def _submit(url, tenant, argv, device):
+    """POST one job of a CLI case's argv (three paths, then options)."""
+    status, _, body = _http(f"{url}/v1/jobs", {
+        "tenant": tenant, "sequences": argv[0], "overlaps": argv[1],
+        "targets": argv[2], "options": {"backend": device}})
+    if status != 202:
+        fail(f"serve: submit answered {status}: {body!r}")
+    return json.loads(body)["id"]
+
+
+def _wait_done(url, job_id, timeout_s=600.0):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        st = json.loads(_http(f"{url}/v1/jobs/{job_id}")[2])
+        if st["state"] in ("done", "failed", "cancelled"):
+            if st["state"] != "done":
+                fail(f"serve: job {job_id} ended {st['state']}: {st}")
+            return _http(f"{url}/v1/jobs/{job_id}/stream")[2]
+        time.sleep(0.05)
+    fail(f"serve: job {job_id} not done after {timeout_s} s")
+
+
+def _sum_launches(records):
+    out = {}
+    for r in records:
+        for k, n in r.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _serve_inproc(device, tmp, small, serial):
+    """Part 1 of phase 10: jobs A, B, C through an in-process daemon;
+    then A again (Tier 1); then B and C one at a time and together."""
+    from racon_tpu_torch.pipeline import metrics
+    from racon_tpu_torch.ops import kernels, ovl_align
+    from racon_tpu_torch.server.daemon import PolishServer, serve_http
+    t0 = time.perf_counter()
+    cases = [("A", "acme", serial["argv"], serial["out"]),
+             ("B", "umbrella", small["kC"]["argv"], small["kC"]["out"]),
+             ("C", "umbrella", small["partial PAF"]["argv"],
+              small["partial PAF"]["out"])]
+    server = PolishServer(os.path.join(tmp, "serve1"))
+    server.session.activate()
+    httpd = serve_http(server, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        metrics.reset()
+        ovl_align.reset_stats()
+        kernels.reset_launches()
+        ids = {name: _submit(url, tenant, argv, device)
+               for name, tenant, argv, _ in cases}
+        outs = {name: _wait_done(url, ids[name]) for name, *_ in cases}
+        launches = dict(kernels.LAUNCHES)
+        snap = metrics.registry().snapshot()
+        dispatches = [d for b in server.batchers() for d in b.dispatches]
+        by_batches = _sum_launches(d["launches"] for d in dispatches)
+        by_jobs = _sum_launches(server.get(ids[n]).launches
+                                for n, *_ in cases)
+        untiled = sum(g["groups"] for g in ovl_align.UNTILED_GROUPS)
+        res = {k: v for k, v in metrics.resilience_extras().items()
+               if not k.startswith("res_ckpt_")}
+        identical = {n: outs[n] == out for n, _, _, out in cases}
+        mixed = [d for d in dispatches if len(d["jobs"]) > 1]
+        # A again: a verified Tier-1 hit replays it with no launch.
+        kernels.reset_launches()
+        t_hit = time.perf_counter()
+        again = _wait_done(url, _submit(url, "acme", serial["argv"],
+                                        device))
+        hit_s = time.perf_counter() - t_hit
+        hit_launches = sum(kernels.LAUNCHES.values())
+        hits = metrics.registry().get("cache_hits_total", 0)
+        status = json.loads(_http(f"{url}/healthz")[2])
+        render = _http(f"{url}/metrics")[2].decode()
+    finally:
+        httpd.shutdown()
+        server.drain(30.0)
+    from racon_tpu_torch.obs.export import validate_openmetrics
+    rec = dict(part="inproc", seconds=time.perf_counter() - t0,
+               identical=identical, dispatches=len(dispatches),
+               mixed_dispatches=len(mixed),
+               windows=[d["windows"] for d in dispatches],
+               launches=launches, batch_launches=by_batches,
+               job_launches=by_jobs, untiled_groups=untiled,
+               occupancy=snap.get("serve_batch_occupancy"),
+               queue_wait=snap.get("serve_queue_wait_s"),
+               job_latency=snap.get("serve_job_latency_s"),
+               dispatch_round=snap.get("dispatch_round_s"),
+               resilience=res, cache_hit_s=hit_s,
+               cache_hit_identical=again == serial["out"],
+               cache_hit_launches=hit_launches, cache_hits=hits,
+               health=status.get("status"),
+               openmetrics_errors=validate_openmetrics(render))
+    for n, ok in identical.items():
+        if not ok:
+            fail(f"serve: job {n}'s stream differs from its CLI FASTA")
+    for k in ("band_fwd", "col_walk", "merge_votes"):
+        if by_batches.get(k, 0) <= 0:
+            fail(f"serve: the batches launched no {k} ({by_batches})")
+    if by_batches.get("merge_windows", 0) + \
+            by_batches.get("merge_windows_sched", 0) <= 0:
+        fail(f"serve: the batches launched no M2 ({by_batches})")
+    for k, n in launches.items():
+        if by_batches.get(k, 0) + by_jobs.get(k, 0) != n:
+            fail(f"serve: {k} launched {n} times, not the dispatches' "
+                 f"{by_batches.get(k, 0)} + the jobs' {by_jobs.get(k, 0)}")
+    if by_jobs.get("band_fwd", 0) != untiled or \
+            by_jobs.get("merge_votes", 0) or by_jobs.get("merge_windows", 0):
+        fail(f"serve: the jobs' own threads launched {by_jobs}, not only "
+             f"their overlap alignment ({untiled} untiled groups)")
+    if res:
+        fail(f"serve: res_* counters on a clean run: {res}")
+    if not rec["cache_hit_identical"] or hit_launches or hits < 1:
+        fail(f"serve: the resubmitted job was not a clean Tier-1 hit "
+             f"(identical {rec['cache_hit_identical']}, {hit_launches} "
+             f"launches, {hits} hits)")
+    if rec["openmetrics_errors"] or rec["health"] != "ok":
+        fail(f"serve: /metrics or /healthz broken: {rec}")
+
+    # B and C one at a time, then together (no cache, a 3 s batch wait
+    # so that the two co-ride whatever their alignment takes).
+    gates = {"RACON_TPU_CACHE": "0", "RACON_TPU_SERVE_BATCH_WAIT_S": "3"}
+    saved = {k: os.environ.get(k) for k in gates}
+    os.environ.update(gates)
+    occ = {}
+    try:
+        for mode in ("solo", "together"):
+            server = PolishServer(os.path.join(tmp, f"serve_{mode}"))
+            try:
+                metrics.reset()
+                ovl_align.reset_stats()
+                jobs = []
+                if mode == "solo":
+                    for _, tenant, argv, out in cases[1:]:
+                        job = server.submit(tenant, _spec(argv, device))
+                        job.finished.wait(600)
+                        jobs.append((job, out))
+                else:
+                    jobs = [(server.submit(tenant, _spec(argv, device)), out)
+                            for _, tenant, argv, out in cases[1:]]
+                    for job, _ in jobs:
+                        job.finished.wait(600)
+                for job, out in jobs:
+                    if job.state != "done" or job.result_bytes() != out:
+                        fail(f"serve ({mode}): job {job.id} {job.state} "
+                             f"{job.error} or its bytes differ")
+                ds = [d for b in server.batchers() for d in b.dispatches]
+                occ[mode] = dict(
+                    occupancy=metrics.registry().get(
+                        "serve_batch_occupancy"),
+                    windows=[d["windows"] for d in ds],
+                    jobs=[d["jobs"] for d in ds],
+                    aligned_jobs=dict(ovl_align.STATS))
+            finally:
+                server.drain(30.0)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec["seconds"] = time.perf_counter() - t0
+    rec["occupancy_solo"] = occ["solo"]
+    rec["occupancy_together"] = occ["together"]
+    emit("serve", **rec)
+    if not occ["together"]["occupancy"] > occ["solo"]["occupancy"]:
+        fail(f"serve: occupancy together {occ['together']} not above one "
+             f"at a time {occ['solo']}")
+    if not any(len(j) > 1 for j in occ["together"]["jobs"]):
+        fail("serve: B and C never shared a dispatch")
+
+
+def _spec(argv, device):
+    from racon_tpu_torch.server.engine import JobSpec
+    return JobSpec(argv[0], argv[1], argv[2], backend=device)
+
+
+def _serve_restart(device, tmp, small):
+    """Part 2 of phase 10: a daemon subprocess killed at its second
+    commit, a standby restart that adopts and finishes the job, then a
+    SIGTERM drain."""
+    import signal
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    state = os.path.join(tmp, "serve_kill")
+    port_file = os.path.join(state, "port")
+    case = small["partial PAF"]
+    env = dict(os.environ, RACON_TPU_GATE_LEASE_S="2",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("RACON_TPU_FAULTS", None)
+    cmd = [sys.executable, "-m", "racon_tpu_torch.server", "--state-dir",
+           state, "--port", "0"]
+    procs = []
+
+    def start(extra_env, args=()):
+        if os.path.exists(port_file):
+            os.remove(port_file)
+        p = subprocess.Popen(cmd + list(args), env=dict(env, **extra_env),
+                             cwd=root, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+        procs.append(p)
+        t = time.perf_counter()
+        while not os.path.exists(port_file):
+            if p.poll() is not None or time.perf_counter() - t > 180:
+                fail(f"serve restart: the daemon did not start "
+                     f"(rc {p.poll()}): {p.stderr.read().decode()[-2000:]}")
+            time.sleep(0.1)
+        with open(port_file) as fh:
+            return p, f"http://127.0.0.1:{int(fh.read())}"
+
+    try:
+        p1, url = start({"RACON_TPU_FAULTS": "serve/commit:1!kill"})
+        job_id = _submit(url, "umbrella", case["argv"], device)
+        rc1 = p1.wait(timeout=300)
+        err1 = p1.stderr.read().decode()
+        with open(os.path.join(state, "jobs", job_id, "ckpt",
+                               "manifest.jsonl")) as fh:
+            committed = sum(1 for ln in fh if '"contig"' in ln)
+        p2, url = start({}, ["--standby"])
+        out = _wait_done(url, job_id)
+        p2.send_signal(signal.SIGTERM)
+        rc2 = p2.wait(timeout=120)
+        err2 = p2.stderr.read().decode()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec = dict(part="restart", seconds=time.perf_counter() - t0,
+               killed_rc=rc1, committed_before_kill=committed,
+               identical=out == case["out"], drain_rc=rc2,
+               adopted="adopted state dir" in err2,
+               resumed="resumed 1 in-flight" in err2)
+    emit("serve", **rec)
+    if rc1 != 137 or committed != 1:
+        fail(f"serve restart: the kill gave rc {rc1} with {committed} "
+             f"commits: {err1[-2000:]}")
+    if not (rec["identical"] and rc2 == 0 and rec["resumed"]):
+        fail(f"serve restart: {rec}: {err2[-2000:]}")
+
+
+def _serve_resume(device, tmp, serial):
+    """Part 3 of phase 10: phase 4's input through the CLI with
+    --checkpoint-dir, killed at its sixth commit, then --resume."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    ck = os.path.join(tmp, "ckpt_main")
+    argv = serial["argv"] + ["--checkpoint-dir", ck]
+    env = dict(os.environ, RACON_TPU_FAULTS="ckpt/commit:5!kill",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    killed = subprocess.run([sys.executable, "-m", "racon_tpu_torch.cli",
+                             *argv], env=env, cwd=root,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, timeout=600)
+    r = main_run(device, argv + ["--resume"], True)
+    k1_main = serial["rec"]["chunk_rounds"]
+    rec = dict(part="resume", seconds=time.perf_counter() - t0,
+               killed_rc=killed.returncode,
+               identical=r["out"] == serial["out"],
+               k1_consensus=r["k1_consensus"], k1_consensus_phase4=k1_main,
+               resumed=re.findall(r"resuming: (\d+) contig", r["err"]),
+               launches=r["launches"], wall_s=r["wall"])
+    emit("serve", **rec)
+    if killed.returncode != 137:
+        fail(f"serve resume: the killed CLI exited {killed.returncode}: "
+             f"{killed.stderr.decode()[-2000:]}")
+    if not rec["identical"] or rec["resumed"] != ["5"]:
+        fail(f"serve resume: {rec}")
+    if not 0 < r["k1_consensus"] < k1_main:
+        fail(f"serve resume: {r['k1_consensus']} consensus K1 launches, "
+             f"not fewer than phase 4's {k1_main}")
+
+
+def phase_serve(device, tmp, small, serial):
+    """Phase 10 (module docstring): the daemon, the restart and the
+    resumable CLI on the card."""
+    from racon_tpu_torch.pipeline import configure as configure_pipeline
+    t0 = time.perf_counter()
+    configure_pipeline(0)
+    try:
+        _serve_inproc(device, tmp, small, serial)
+        _serve_restart(device, tmp, small)
+        _serve_resume(device, tmp, serial)
+    finally:
+        configure_pipeline(None)
+    emit("serve", part="total", seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     global CARD
     try:
@@ -2440,6 +2764,7 @@ def main() -> int:
         recs.update(phase_merge_kernels("cuda", main_paths))
         pipe_runs = phase_pipeline("cuda", serial)
         phase_faults("cuda", tmp, small, serial)
+        phase_serve("cuda", tmp, small, serial)
 
     rows = []
     for (name, k), r in recs.items():

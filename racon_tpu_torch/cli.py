@@ -12,8 +12,18 @@ on the CPU.
 ``--trace PATH`` (or ``RACON_TPU_TRACE``) writes the JSONL run trace
 (obs/trace.py), ending with a snapshot of the counters. A chunk whose
 transfer or dispatch exhausts its retries is polished on the host path;
-any other device error ends the run with exit code 1 and no FASTA, and a
-terminal watchdog breach with exit code 75.
+any other device error ends the run with exit code 1, and a terminal
+watchdog breach with exit code 75.
+
+The run goes through the service core's one polish loop
+(server/engine.py::polish_job). ``--checkpoint-dir DIR`` commits each
+polished contig durably into DIR (the JAX package's store format,
+resilience/checkpoint.py); ``--resume`` continues a killed run from DIR,
+re-emitting committed contigs byte for byte from the store and polishing
+only the rest — a store either package's CLI wrote resumes under the
+other's. ``--cache-dir DIR`` arms the job-level result cache (cache/): a
+run whose inputs and options fingerprint matches a stored entry
+re-emits it with no kernel launch.
 """
 
 from __future__ import annotations
@@ -80,6 +90,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="write a structured JSONL run trace to PATH "
                          "(same as RACON_TPU_TRACE=PATH)")
+    ap.add_argument("--checkpoint-dir", metavar="DIR", default=None,
+                    help="checkpoint each polished contig into DIR "
+                         "(FASTA shard + manifest, fsync'd per commit) "
+                         "so a killed run can continue with --resume")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from --checkpoint-dir: committed "
+                         "contigs re-emit byte-identically from the "
+                         "shard, only the rest recompute; refuses if "
+                         "inputs or output-affecting options changed")
+    ap.add_argument("--cache-dir", metavar="DIR", default=None,
+                    help="arm the content-addressed result cache in "
+                         "DIR: a run whose inputs + options fingerprint "
+                         "matches a stored entry re-emits it "
+                         "byte-identically with zero consensus "
+                         "dispatches (verify-on-hit; RACON_TPU_CACHE=0 "
+                         "disables)")
     ap.add_argument("--version", action="store_true",
                     help="prints the version number")
     ap.add_argument("-h", "--help", action="store_true",
@@ -104,14 +130,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from racon_tpu_torch.io.parsers import ParseError
     from racon_tpu_torch.models.overlap import PolisherError
-    from racon_tpu_torch.models.polisher import PolisherType, create_polisher
+    from racon_tpu_torch.obs.metrics import registry
     from racon_tpu_torch.obs.trace import configure as configure_trace
+    from racon_tpu_torch.ops.kernels import KernelError
     from racon_tpu_torch.pipeline import StageError
     from racon_tpu_torch.pipeline import configure as configure_pipeline
-    from racon_tpu_torch.ops.kernels import KernelError
-    from racon_tpu_torch.pipeline.metrics import registry
     from racon_tpu_torch.resilience.retry import RetryExhausted
     from racon_tpu_torch.resilience.watchdog import is_terminal
+    from racon_tpu_torch.server.engine import (JobHooks, JobSpec,
+                                               build_polisher, polish_job)
     from racon_tpu_torch.utils.device import DeviceError, resolve_device
     from racon_tpu_torch.utils.logger import Logger
 
@@ -125,22 +152,100 @@ def main(argv: Optional[List[str]] = None) -> int:
     tracer = configure_trace(args.trace)
     out = sys.stdout.buffer
     logger = Logger()
+    if args.resume and not args.checkpoint_dir:
+        print("[racon_tpu_torch::] error: --resume requires "
+              "--checkpoint-dir!", file=sys.stderr)
+        return 1
+    # Everything that changes emitted bytes goes into the run
+    # fingerprint: JobSpec.identity(), the JAX package's dict key for
+    # key. The device and threads are execution knobs, not identity.
+    spec = JobSpec(
+        args.paths[0], args.paths[1], args.paths[2],
+        include_unpolished=args.include_unpolished,
+        fragment_correction=args.fragment_correction,
+        window_length=args.window_length,
+        quality_threshold=args.quality_threshold,
+        error_threshold=args.error_threshold, match=args.match,
+        mismatch=args.mismatch, gap=args.gap, backend=args.device,
+        threads=args.threads)
+    store = None
+    if args.checkpoint_dir:
+        from racon_tpu_torch.ava import seg_targets_for
+        from racon_tpu_torch.resilience.checkpoint import (CheckpointError,
+                                                           CheckpointStore)
+        try:
+            fp = spec.fingerprint()
+            store = (CheckpointStore.resume(args.checkpoint_dir, fp)
+                     if args.resume else
+                     CheckpointStore.create(
+                         args.checkpoint_dir, fp,
+                         segment_targets=seg_targets_for(
+                             args.fragment_correction)))
+        except (CheckpointError, OSError) as exc:
+            print(str(exc), file=sys.stderr)
+            return 1
+        if args.resume and store.committed:
+            print(f"[racon_tpu_torch::] resuming: {len(store.committed)} "
+                  f"contig(s) already committed in {args.checkpoint_dir}",
+                  file=sys.stderr)
+
+    # The CLI's Tier-1 cache: armed only by --cache-dir (the daemon arms
+    # by default), turned off everywhere by RACON_TPU_CACHE=0.
+    result_cache = None
+    if args.cache_dir:
+        from racon_tpu_torch.cache import ResultCache, cache_enabled
+        if cache_enabled():
+            try:
+                result_cache = ResultCache(args.cache_dir)
+            except Exception as exc:
+                print(str(exc), file=sys.stderr)
+                if store is not None:
+                    store.close()
+                return 1
+
+    def make_polisher():
+        return build_polisher(spec, logger=logger)
+
+    def _resume_log(n_committed: int, n_skip: int) -> None:
+        if n_skip:
+            print("[racon_tpu_torch::] resume: skipping recompute of "
+                  f"{n_skip} window(s)", file=sys.stderr)
+
     try:
         with tracer.span("run", "racon_tpu_torch"):
-            device = resolve_device(args.device)
-            polisher = create_polisher(
-                args.paths[0], args.paths[1], args.paths[2],
-                PolisherType.kF if args.fragment_correction
-                else PolisherType.kC,
-                args.window_length, args.quality_threshold,
-                args.error_threshold, args.match, args.mismatch, args.gap,
-                device=device, logger=logger, threads=args.threads)
-            polisher.initialize()
-            for _tid, rec in polisher.polish_records(
-                    not args.include_unpolished):
-                if rec is not None:
-                    out.write(b">" + rec.name.encode() + b"\n" + rec.data +
-                              b"\n")
+            resolve_device(args.device)
+            # The cache applies only to runs starting from scratch: a
+            # resumed run's committed prefix owns the output order.
+            fresh = store is None or not store.committed
+            hit = None
+            if result_cache is not None and fresh:
+                hit = result_cache.load(spec.fingerprint())
+            if hit is not None:
+                from racon_tpu_torch.cache import replay_records
+                n = replay_records(hit, emit=out.write, store=store)
+                print(f"[racon_tpu_torch::] cache: re-emitted {n} "
+                      f"contig(s) from {args.cache_dir} (zero consensus "
+                      f"dispatches)", file=sys.stderr)
+            else:
+                captured = [] if (result_cache is not None and
+                                  fresh) else None
+
+                def _capture(tid, rec):
+                    if rec is None:
+                        captured.append((tid, None, b""))
+                    else:
+                        captured.append((tid, rec.name.encode(),
+                                         rec.data))
+
+                polish_job(
+                    make_polisher,
+                    drop_unpolished=not args.include_unpolished,
+                    store=store, emit=out.write,
+                    hooks=JobHooks(on_resume=_resume_log,
+                                   after_commit=_capture
+                                   if captured is not None else None))
+                if captured is not None:
+                    result_cache.store(spec.fingerprint(), captured)
     except (DeviceError, PolisherError, ParseError, StageError, KernelError,
             RetryExhausted, ValueError,
             getattr(torch, "AcceleratorError", ())) as exc:
@@ -157,6 +262,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if not is_terminal(exc):
             raise
         return _terminal(exc, tracer, out)
+    finally:
+        if store is not None:
+            store.close()
     out.flush()
     logger.total("[racon_tpu_torch::Polisher::] total =")
     tracer.finish(metrics=registry().snapshot())
@@ -167,7 +275,7 @@ def _terminal(exc, tracer, out) -> int:
     """A terminal watchdog breach: this host is wedged; flush what was
     written and exit with the distinct code, so a supervisor reschedules
     the run elsewhere instead of retrying here."""
-    from racon_tpu_torch.pipeline.metrics import registry
+    from racon_tpu_torch.obs.metrics import registry
     from racon_tpu_torch.resilience.watchdog import EXIT_SELF_EVICT
     out.flush()
     print(f"[racon_tpu_torch::] terminal watchdog breach — {exc}",

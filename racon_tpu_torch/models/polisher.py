@@ -367,6 +367,32 @@ class Polisher:
 
     # ----------------------------------------------------------------- polish
 
+    def skip_targets(self, committed) -> int:
+        """Drop every window of the given target ids before polishing —
+        the checkpoint-resume path (resilience/checkpoint.py): committed
+        contigs re-emit from the shard, so their windows must not
+        recompute. Pruning whole targets is safe for the assembler: each
+        contig's windows restart at rank 0, so the remaining boundary
+        structure is unchanged. Returns #windows dropped."""
+        committed = set(committed)
+        if not committed:
+            return 0
+        keep = [w for w in self.windows if w.id not in committed]
+        n = len(self.windows) - len(keep)
+        self.windows = keep
+        return n
+
+    def restrict_targets(self, keep) -> int:
+        """Drop every window NOT belonging to the given target ids — the
+        shard path of a distributed work ledger (a worker polishes only
+        its shard's contigs). Safe for the assembler by the same argument
+        as :meth:`skip_targets`. Returns #windows dropped."""
+        keep = set(keep)
+        kept = [w for w in self.windows if w.id in keep]
+        n = len(self.windows) - len(kept)
+        self.windows = kept
+        return n
+
     def polish_records(self, drop_unpolished_sequences: bool = True):
         """The polishing loop: yield ``(target_id, record-or-None)`` as
         each target's last window finalizes, in target input order

@@ -1,6 +1,10 @@
-"""Observability: the JSONL span tracer (:mod:`racon_tpu_torch.obs.trace`),
-port of the JAX package's ``obs/trace.py``. The counters live in
-:mod:`racon_tpu_torch.pipeline.metrics`, the port's one registry."""
+"""Observability (port of part of the JAX package's ``obs/``): the JSONL
+span tracer (:mod:`racon_tpu_torch.obs.trace`), the one metrics registry
+with its histograms and the service core's recorders
+(:mod:`racon_tpu_torch.obs.metrics`; the pipeline's and fault plane's
+recorders in :mod:`racon_tpu_torch.pipeline.metrics` write to it), the
+flight recorder (:mod:`racon_tpu_torch.obs.flightrec`) and the
+OpenMetrics render (:mod:`racon_tpu_torch.obs.export`)."""
 
 from racon_tpu_torch.obs.trace import (NullTracer, Tracer, configure,
                                        get_tracer)

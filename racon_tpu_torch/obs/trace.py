@@ -36,7 +36,6 @@ never sees a half-written trace.
 from __future__ import annotations
 
 import json
-import os
 from racon_tpu_torch.utils import env
 import threading
 import time
@@ -245,6 +244,9 @@ class Tracer:
 
     def _write(self, obj: dict) -> None:
         line = json.dumps(obj, separators=(",", ":"))
+        if obj.get("ev") == "span":
+            from racon_tpu_torch.obs import flightrec
+            flightrec.note_span(obj)
         with self._lock:
             if self._fh is None:
                 return
@@ -345,7 +347,8 @@ class Tracer:
                 return
             self._fh.close()
             self._fh = None
-        os.replace(self._part, self.path)
+        from racon_tpu_torch.utils.atomicio import atomic_finalize
+        atomic_finalize(self._part, self.path)
 
 
 _tracer: Optional[object] = None

@@ -37,6 +37,8 @@ back to the caller for the host aligner, as do jobs no route admits.
 from __future__ import annotations
 
 import sys
+import contextlib
+import threading
 import time
 from typing import List
 
@@ -67,13 +69,32 @@ STATS = {"device_jobs": 0, "native_jobs": 0, "tiles": 0}
 # route: its chunk geometry, chunks, chunks a group (G) and groups.
 TILED_GROUPS: List[dict] = []
 UNTILED_GROUPS: List[dict] = []
+# The three above are updated under this lock: the daemon aligns several
+# jobs' overlaps at once, one thread a job (server/daemon.py).
+_STATS_LOCK = threading.Lock()
+# One job's card section (its groups' planes, launches and collects) at a
+# time, a lock a device: each sizes its groups to GROUP_MEM_FRACTION of
+# the card, so concurrent jobs must not hold their planes together (an
+# out-of-memory where kernels run ends the run).
+_CARD_LOCKS = {}
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
-    TILED_GROUPS.clear()
-    UNTILED_GROUPS.clear()
+    with _STATS_LOCK:
+        for k in STATS:
+            STATS[k] = 0
+        TILED_GROUPS.clear()
+        UNTILED_GROUPS.clear()
+
+
+def _card_lock(device: torch.device):
+    """The card section's lock for ``device`` (no lock on the CPU)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    key = torch.device(device.type, device.index if device.index
+                       is not None else torch.cuda.current_device())
+    with _STATS_LOCK:
+        return _CARD_LOCKS.setdefault(key, threading.Lock())
 
 
 def band_width_for_read(lq: int, lt: int) -> int:
@@ -402,7 +423,8 @@ def device_breaking_points(pending, sequences, window_length: int, *,
             print(f"[racon_tpu_torch::Polisher::initialize] all "
                   f"{len(pending)} overlap alignments exceed the device "
                   "length budget; using the native path", file=log)
-        STATS["native_jobs"] += len(fallback)
+        with _STATS_LOCK:
+            STATS["native_jobs"] += len(fallback)
         return fallback
 
     # Shape buckets (the reference's): jobs sorted by length, buckets
@@ -441,103 +463,116 @@ def device_breaking_points(pending, sequences, window_length: int, *,
         LA_t = max(Lq_t, max(round_up(len(j[2]), 2048) for j in js))
         tiled_buckets.append((js, lanes, W_t, T_t, Lq_t, LA_t, k_t))
 
-    # Every chunk's inputs go to the device first, then every chunk (and
-    # group) is dispatched before any is collected: the host's copies
-    # never wait on the card, and a chunk's planes are freed as soon as
-    # its walk is queued. RACON_TPU_TIMING=1 prints the dispatch's and
-    # the collect's seconds (the reference's lines); the overlap path
-    # stays outside the retry envelope, as in the reference.
-    verbose = env.timing_enabled()
-    tracer = get_tracer()
-    t_disp = time.perf_counter()
-    sc = dict(match=match, mismatch=mismatch, gap=gap)
-    untiled_calls, group_calls = [], []
-    mem_cap = group_mem_cap(device)
-    for bucket, Lq, LA, W in buckets:
-        nxt_k = untiled_walk_k(Lq, W)
-        kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, nxt_k=nxt_k, **sc)
-        # K1's depth in _chunk_breaking_points, and its planes' bytes a
-        # cell (cells and nxt, and the u16 nxt2 at k = 4).
-        k = 4 if nxt_k >= 4 else 2
-        chunks = [(bucket[s:s + TB], TB) for s in range(0, len(bucket), TB)]
-        G = (group_size(TB, W, Lq, k, device, tiled=False) if group is None
-             else group)
-        groups = plan_groups([TB] * len(chunks), G, Lq * W * k, mem_cap)
-        for idx in groups:
-            part = [chunks[c] for c in idx]
-            untiled_calls.append(([sub for sub, _ in part],
-                                  _pack(part, Lq, LA, device),
-                                  dict(kw, lanes=[TB] * len(part))))
-        UNTILED_GROUPS.append(dict(lanes=TB, W=W, Lq=Lq, LA=LA, nxt_k=nxt_k,
-                                   chunks=len(chunks), G=G,
-                                   groups=len(groups)))
-    n_tiles_exec = 0
-    for bucket, lanes, W, T, Lq, LA, nxt_k in tiled_buckets:
-        kw = dict(W=W, w_len=window_length, NW=LA // window_length + 2,
-                  Lq=Lq, LA=LA, T=T, nxt_k=nxt_k, **sc)
-        chunks = []
-        for s in range(0, len(bucket), lanes):
-            sub = bucket[s:s + lanes]
-            # Lanes halve down to the job count (power of two, at least
-            # 8): a short tail chunk should not pay a full chunk's work.
-            B = lanes
-            while B // 2 >= max(8, len(sub)):
-                B //= 2
-            chunks.append((sub, B))
-        G = group_size(lanes, W, T, nxt_k, device) if group is None else group
-        groups = plan_groups([B for _, B in chunks], G,
-                             Lq * W * (4 if nxt_k >= 4 else 2), mem_cap)
-        for idx in groups:
-            part = [chunks[c] for c in idx]
-            group_calls.append(([sub for sub, _ in part],
-                                _pack(part, Lq, LA, device),
-                                dict(kw, lanes=[B for _, B in part])))
-        n_tiles_exec += len(groups) * (Lq // T)
-        TILED_GROUPS.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
-                                 chunks=len(chunks), G=G,
-                                 groups=len(groups)))
-    outs = []
-    for subs, args, kw in untiled_calls:
-        with tracer.span("dispatch", "ovl_chunk", lanes=sum(kw["lanes"]),
-                         W=kw["W"], chunks=len(subs)):
-            outs.extend(zip(subs,
-                            _untiled_group_breaking_points(*args, **kw)))
-    for subs, args, kw in group_calls:
-        with tracer.span("dispatch", "ovl_tiled_chunk",
-                         lanes=sum(kw["lanes"]), W=kw["W"],
-                         tiles=kw["Lq"] // kw["T"], chunks=len(subs)):
-            outs.extend(zip(subs,
-                            _tiled_group_breaking_points(*args, **kw)))
-    if verbose:
-        print(f"[racon_tpu_torch::ovl_align] dispatch {len(outs)} "
-              f"chunks ({len(buckets)} shape buckets, "
-              f"{len(tiled_buckets)} tiled tiers): "
-              f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
+    # One job's card section at a time on a device (_card_lock).
+    ugroups, tgroups = [], []
+    with _card_lock(device):
+        # Every chunk's inputs go to the device first, then every chunk
+        # (and group) is dispatched before any is collected: the host's
+        # copies never wait on the card, and a chunk's planes are freed
+        # as soon as its walk is queued. RACON_TPU_TIMING=1 prints the
+        # dispatch's and the collect's seconds (the reference's lines);
+        # the overlap path stays outside the retry envelope, as in the
+        # reference.
+        verbose = env.timing_enabled()
+        tracer = get_tracer()
         t_disp = time.perf_counter()
+        sc = dict(match=match, mismatch=mismatch, gap=gap)
+        untiled_calls, group_calls = [], []
+        mem_cap = group_mem_cap(device)
+        for bucket, Lq, LA, W in buckets:
+            nxt_k = untiled_walk_k(Lq, W)
+            kw = dict(W=W, w_len=window_length,
+                      NW=LA // window_length + 2, Lq=Lq, LA=LA,
+                      nxt_k=nxt_k, **sc)
+            # K1's depth in _chunk_breaking_points, and its planes' bytes
+            # a cell (cells and nxt, and the u16 nxt2 at k = 4).
+            k = 4 if nxt_k >= 4 else 2
+            chunks = [(bucket[s:s + TB], TB)
+                      for s in range(0, len(bucket), TB)]
+            G = (group_size(TB, W, Lq, k, device, tiled=False)
+                 if group is None else group)
+            groups = plan_groups([TB] * len(chunks), G, Lq * W * k, mem_cap)
+            for idx in groups:
+                part = [chunks[c] for c in idx]
+                untiled_calls.append(([sub for sub, _ in part],
+                                      _pack(part, Lq, LA, device),
+                                      dict(kw, lanes=[TB] * len(part))))
+            ugroups.append(dict(lanes=TB, W=W, Lq=Lq, LA=LA, nxt_k=nxt_k,
+                                chunks=len(chunks), G=G,
+                                groups=len(groups)))
+        n_tiles_exec = 0
+        for bucket, lanes, W, T, Lq, LA, nxt_k in tiled_buckets:
+            kw = dict(W=W, w_len=window_length,
+                      NW=LA // window_length + 2, Lq=Lq, LA=LA, T=T,
+                      nxt_k=nxt_k, **sc)
+            chunks = []
+            for s in range(0, len(bucket), lanes):
+                sub = bucket[s:s + lanes]
+                # Lanes halve down to the job count (power of two, at
+                # least 8): a short tail chunk should not pay a full
+                # chunk's work.
+                B = lanes
+                while B // 2 >= max(8, len(sub)):
+                    B //= 2
+                chunks.append((sub, B))
+            G = (group_size(lanes, W, T, nxt_k, device) if group is None
+                 else group)
+            groups = plan_groups([B for _, B in chunks], G,
+                                 Lq * W * (4 if nxt_k >= 4 else 2), mem_cap)
+            for idx in groups:
+                part = [chunks[c] for c in idx]
+                group_calls.append(([sub for sub, _ in part],
+                                    _pack(part, Lq, LA, device),
+                                    dict(kw, lanes=[B for _, B in part])))
+            n_tiles_exec += len(groups) * (Lq // T)
+            tgroups.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
+                                chunks=len(chunks), G=G,
+                                groups=len(groups)))
+        outs = []
+        for subs, args, kw in untiled_calls:
+            with tracer.span("dispatch", "ovl_chunk",
+                             lanes=sum(kw["lanes"]), W=kw["W"],
+                             chunks=len(subs)):
+                outs.extend(zip(subs,
+                                _untiled_group_breaking_points(*args, **kw)))
+        for subs, args, kw in group_calls:
+            with tracer.span("dispatch", "ovl_tiled_chunk",
+                             lanes=sum(kw["lanes"]), W=kw["W"],
+                             tiles=kw["Lq"] // kw["T"], chunks=len(subs)):
+                outs.extend(zip(subs,
+                                _tiled_group_breaking_points(*args, **kw)))
+        if verbose:
+            print(f"[racon_tpu_torch::ovl_align] dispatch {len(outs)} "
+                  f"chunks ({len(buckets)} shape buckets, "
+                  f"{len(tiled_buckets)} tiled tiers): "
+                  f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
+            t_disp = time.perf_counter()
 
-    for sub, out in outs:
-        first_c, qi_f, last_c, qi_l, valid, fail = (
-            a.cpu().numpy() for a in out[:6])
-        for b, job in enumerate(sub):
-            o, q_start = job[0], job[3]
-            if fail[b]:
-                fallback.append(o)
-                n_uncert += 1
-                continue
-            v = valid[b]
-            o.breaking_points = np.stack([
-                o.t_begin + first_c[b][v].astype(np.int64),
-                q_start + qi_f[b][v].astype(np.int64),
-                o.t_begin + last_c[b][v].astype(np.int64) + 1,
-                q_start + qi_l[b][v].astype(np.int64) + 1,
-            ], axis=1)
-    if verbose:
-        print(f"[racon_tpu_torch::ovl_align] collect: "
-              f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
-    STATS["device_jobs"] += len(jobs) + len(tiled_jobs) - n_uncert
-    STATS["native_jobs"] += len(fallback)
-    STATS["tiles"] += n_tiles_exec
+        for sub, out in outs:
+            first_c, qi_f, last_c, qi_l, valid, fail = (
+                a.cpu().numpy() for a in out[:6])
+            for b, job in enumerate(sub):
+                o, q_start = job[0], job[3]
+                if fail[b]:
+                    fallback.append(o)
+                    n_uncert += 1
+                    continue
+                v = valid[b]
+                o.breaking_points = np.stack([
+                    o.t_begin + first_c[b][v].astype(np.int64),
+                    q_start + qi_f[b][v].astype(np.int64),
+                    o.t_begin + last_c[b][v].astype(np.int64) + 1,
+                    q_start + qi_l[b][v].astype(np.int64) + 1,
+                ], axis=1)
+        if verbose:
+            print(f"[racon_tpu_torch::ovl_align] collect: "
+                  f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
+    with _STATS_LOCK:
+        STATS["device_jobs"] += len(jobs) + len(tiled_jobs) - n_uncert
+        STATS["native_jobs"] += len(fallback)
+        STATS["tiles"] += n_tiles_exec
+        UNTILED_GROUPS.extend(ugroups)
+        TILED_GROUPS.extend(tgroups)
     if log is not None and fallback:
         print(f"[racon_tpu_torch::Polisher::initialize] {len(fallback)} of "
               f"{len(pending)} overlap alignments fall back to the "

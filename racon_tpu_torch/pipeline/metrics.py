@@ -1,8 +1,9 @@
 """The port's counters: the streaming pipeline's, the ingest plane's,
 the transfers' and the fault plane's.
 
-A process-wide registry of named numbers under the JAX package's
-registry keys (its ``obs/metrics.py``): what its ``record_stage``,
+Recorders over the port's one registry (obs/metrics.py, whose
+:func:`registry` and :func:`reset` this module re-exports), under the
+JAX package's registry keys: what its ``record_stage``,
 ``record_queue``, ``record_pipeline_wall``, ``record_walk``,
 ``record_stall``, ``record_ingest_parse``, ``record_ingest_wait``,
 ``record_ingest_inflate``, ``record_h2d``, ``record_d2h``,
@@ -37,53 +38,13 @@ numbers).
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Optional
 
 from racon_tpu_torch.obs import trace as _trace
-
-
-class Registry:
-    """Named counters and gauges, safe to update from any thread."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._v: Dict[str, float] = {}
-
-    def inc(self, key: str, v=1) -> None:
-        with self._lock:
-            self._v[key] = self._v.get(key, 0) + v
-
-    def max(self, key: str, v) -> None:
-        with self._lock:
-            self._v[key] = max(self._v.get(key, v), v)
-
-    def set(self, key: str, v) -> None:
-        with self._lock:
-            self._v[key] = v
-
-    def get(self, key: str, default=None):
-        with self._lock:
-            return self._v.get(key, default)
-
-    def snapshot(self) -> Dict[str, float]:
-        with self._lock:
-            return dict(self._v)
-
-    def reset(self) -> None:
-        with self._lock:
-            self._v.clear()
-
-
-_REGISTRY = Registry()
-
-
-def registry() -> Registry:
-    return _REGISTRY
-
-
-def reset() -> None:
-    _REGISTRY.reset()
+# The one registry (obs/metrics.py): these recorders write to the same
+# object the service core's do.
+from racon_tpu_torch.obs.metrics import Registry, registry, reset
+from racon_tpu_torch.obs.metrics import _REGISTRY
 
 
 def record_stage(name: str, busy_s: float, stall_in_s: float,
@@ -257,6 +218,8 @@ def record_watchdog_breach(site: str, deadline_s: float, waited_s: float,
     reg.inc(f"res_watchdog_site_{_site_key(site)}")
     if terminal:
         reg.inc("res_watchdog_terminal_total")
+    from racon_tpu_torch.obs.flightrec import note_breach
+    note_breach(site, deadline_s, waited_s, terminal)
     _trace.get_tracer().point("watchdog", site, dur_s=float(waited_s),
                               deadline_s=float(deadline_s),
                               waited_s=round(float(waited_s), 6),

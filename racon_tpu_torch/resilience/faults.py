@@ -37,7 +37,12 @@ scheduler's ``sched/flags`` and ``h2d/repack``, the ingest plane's
 ``io/read`` (once a line on the streaming readers, once a record on the
 mmap readers) and ``io/inflate`` (once a gzip block or member handed to
 the inflate pool, or a feed of the stream inflate), and the pipeline
-stages' ``pipe/<stage>``. Arming any ``io/*`` site turns the ingest
+stages' ``pipe/<stage>``; the service core's ``ckpt/commit`` (before a
+checkpoint commit's shard append), ``ckpt/manifest`` (between the shard
+and manifest appends), ``cache/store``, ``cache/load``, ``serve/submit``,
+``serve/dispatch`` (before each cross-request batch), ``serve/commit``
+(before a daemon job commits a contig), ``gate/route``, ``gate/adopt``
+and ``obs/flight`` (the flight recorder's dump). Arming any ``io/*`` site turns the ingest
 prefetch threads off (io/ingest.prefetch_ok), so that explicit call
 indices stay deterministic. Call indices are 0-based and advance once an
 *attempt* at that site (each retry consults the injector again), so
@@ -45,8 +50,9 @@ indices stay deterministic. Call indices are 0-based and advance once an
 
 ``kill`` goes through :func:`hard_exit` (``os._exit``, no cleanup), so
 in-process tests can intercept the death; ``torn`` tears a write at a
-site that supports tearing (:func:`maybe_torn`) and degrades to ``raise``
-elsewhere (the port has no tear-capable site yet); ``skew=S`` is parsed
+site that supports tearing (:func:`maybe_torn`: ``ckpt/manifest``,
+``cache/load``, ``obs/flight``) and degrades to ``raise`` elsewhere;
+``skew=S`` is parsed
 and kept (:func:`clock_skew`) for the distributed ledger.
 
 Determinism: explicit-index decisions are pure functions of the per-site
@@ -77,11 +83,16 @@ _ACTIONS = ("raise", "kill", "term", "int", "torn", "hang", "stall")
 #: The sites this package consults (keep alphabetical); later slices add
 #: theirs.
 SITES = (
+    "cache/load", "cache/store",
+    "ckpt/commit", "ckpt/manifest",
     "d2h/chunk",
     "dispatch/chunk", "dispatch/walk",
+    "gate/adopt", "gate/route",
     "h2d/chunk", "h2d/repack",
     "io/inflate", "io/read",
+    "obs/flight",
     "sched/flags",
+    "serve/commit", "serve/dispatch", "serve/submit",
 )
 
 #: Dynamic site families: the concrete site is prefix + a runtime name

@@ -56,6 +56,34 @@ the JAX package's defaults and error texts:
   and the overlap aligner's timing lines, on stderr.
 - ``RACON_TPU_TRACE`` (path): the JSONL tracer (obs/trace.py);
   ``RACON_TPU_TRACE_XPROF`` (flag): each span also an NVTX range.
+
+The service core's gates (server/, cache/, ava/, gateway/, obs/), with
+the JAX package's defaults (:data:`_DEFAULTS`; :func:`read` returns the
+default when the variable is unset):
+
+- ``RACON_TPU_SERVE_BATCH`` (256): the cross-request batch's capacity in
+  windows a dispatch; ``RACON_TPU_SERVE_BATCH_WAIT_S`` (0.05): the
+  longest a partial batch waits for more work; ``RACON_TPU_SERVE_QUEUE``
+  (64): the admission queue's depth in work items;
+  ``RACON_TPU_SERVE_MAX_JOBS`` (4): jobs running at once;
+  ``RACON_TPU_SERVE_GRACE_S`` (30): the SIGTERM drain's grace seconds;
+  ``RACON_TPU_SERVE_SPOOL_MB`` (unset = 8 MiB, 0 = never): a job's
+  in-memory result bytes before its stream spills to a file.
+- ``RACON_TPU_CACHE`` ("0" or "false" turns both tiers off; the daemon
+  arms it by default, the CLI with ``--cache-dir``),
+  ``RACON_TPU_CACHE_DIR`` (the daemon's cache root, default
+  ``<state-dir>/cache``), ``RACON_TPU_CACHE_MAX_MB`` (256: the job CAS's
+  byte bound), ``RACON_TPU_CACHE_WINDOWS`` ("0" or "false" turns the
+  window memo off).
+- ``RACON_TPU_GATE_FLEET`` (0): the fleet route; the port has no fleet
+  yet, so the daemon refuses to start with it armed;
+  ``RACON_TPU_GATE_LEASE_S`` (10) and ``RACON_TPU_GATE_STANDBY_POLL_S``
+  (0.2): the state-dir lease's term and a standby's poll.
+- ``RACON_TPU_AVA_COMPACT`` (unset = every 64 sealed segments, 0 = never):
+  the v2 checkpoint manifest's compaction; ``RACON_TPU_AVA_SEG`` (unset:
+  256 targets a segment for ``-f`` runs, v1 manifests otherwise).
+- ``RACON_TPU_FLIGHT_EVENTS`` (unset = 256, 0 = off): the flight
+  recorder's ring; ``RACON_TPU_OBS_DIR`` (path): where it dumps.
 """
 
 from __future__ import annotations
@@ -89,19 +117,45 @@ WATCHDOG_TERMINAL = "RACON_TPU_WATCHDOG_TERMINAL"
 TIMING = "RACON_TPU_TIMING"
 TRACE = "RACON_TPU_TRACE"
 TRACE_XPROF = "RACON_TPU_TRACE_XPROF"
+SERVE_BATCH = "RACON_TPU_SERVE_BATCH"
+SERVE_BATCH_WAIT_S = "RACON_TPU_SERVE_BATCH_WAIT_S"
+SERVE_QUEUE = "RACON_TPU_SERVE_QUEUE"
+SERVE_MAX_JOBS = "RACON_TPU_SERVE_MAX_JOBS"
+SERVE_GRACE_S = "RACON_TPU_SERVE_GRACE_S"
+SERVE_SPOOL_MB = "RACON_TPU_SERVE_SPOOL_MB"
+CACHE = "RACON_TPU_CACHE"
+CACHE_DIR = "RACON_TPU_CACHE_DIR"
+CACHE_MAX_MB = "RACON_TPU_CACHE_MAX_MB"
+CACHE_WINDOWS = "RACON_TPU_CACHE_WINDOWS"
+GATE_FLEET = "RACON_TPU_GATE_FLEET"
+GATE_LEASE_S = "RACON_TPU_GATE_LEASE_S"
+GATE_STANDBY_POLL_S = "RACON_TPU_GATE_STANDBY_POLL_S"
+AVA_COMPACT = "RACON_TPU_AVA_COMPACT"
+AVA_SEG = "RACON_TPU_AVA_SEG"
+FLIGHT_EVENTS = "RACON_TPU_FLIGHT_EVENTS"
+OBS_DIR = "RACON_TPU_OBS_DIR"
+#: Gates whose unset value is not "" (the JAX package's defaults).
+_DEFAULTS = {SERVE_BATCH: "256", SERVE_BATCH_WAIT_S: "0.05",
+             SERVE_QUEUE: "64", SERVE_MAX_JOBS: "4", SERVE_GRACE_S: "30",
+             CACHE_MAX_MB: "256", GATE_FLEET: "0", GATE_LEASE_S: "10",
+             GATE_STANDBY_POLL_S: "0.2"}
 _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           PIPELINE_DEPTH, WALK_ASYNC, WALK_QUEUE, STALL_S, INGEST,
           INGEST_WORKERS, FAULTS, FAULT_STALL_S, FAULT_HANG_S, RETRY,
           DEADLINE_H2D, DEADLINE_D2H, DEADLINE_DISPATCH, DEADLINE_MBPS,
           DEADLINE_CELLS_PER_S, DEADLINE_SCALE, WATCHDOG_TERMINAL, TIMING,
-          TRACE, TRACE_XPROF)
+          TRACE, TRACE_XPROF, SERVE_BATCH, SERVE_BATCH_WAIT_S, SERVE_QUEUE,
+          SERVE_MAX_JOBS, SERVE_GRACE_S, SERVE_SPOOL_MB, CACHE, CACHE_DIR,
+          CACHE_MAX_MB, CACHE_WINDOWS, GATE_FLEET, GATE_LEASE_S,
+          GATE_STANDBY_POLL_S, AVA_COMPACT, AVA_SEG, FLIGHT_EVENTS, OBS_DIR)
 
 
 def read(name: str) -> str:
-    """Raw read of a declared gate ('' when unset)."""
+    """Raw read of a declared gate (its default when unset: '' for most,
+    :data:`_DEFAULTS` for the rest)."""
     if name not in _KNOWN:
         raise KeyError(f"[racon_tpu_torch::env] undeclared env gate {name!r}")
-    return os.environ.get(name, "")
+    return os.environ.get(name, _DEFAULTS.get(name, ""))
 
 
 def band_disabled() -> bool:

@@ -1762,3 +1762,132 @@ def test_out_of_memory_is_retried_and_kernel_error_is_not(cuda, monkeypatch,
     with pytest.raises(kernels.KernelError):
         _engine_run("cuda", monkeypatch)
     assert len(calls) == 1
+
+
+# ------------------------------------------------------------ service core
+
+def _serve_inputs(tmp_path, seed, n_contigs):
+    from racon_tpu_torch.utils.synth import write_dataset
+    p = write_dataset(str(tmp_path / f"in{seed}"), seed=seed,
+                      n_contigs=n_contigs, contig_len=6000, read_len=2500,
+                      coverage=30)["paths"]
+    return [p["reads"], p["overlaps"], p["draft"]]
+
+
+def _layers(polisher):
+    from racon_tpu_torch.cache.memo import window_digest
+    return [window_digest(b"", w) for w in polisher.windows]
+
+
+def test_two_jobs_align_at_once_on_the_card(cuda, tmp_path, fault_plane):
+    """Two jobs' Polisher.initialize on two threads at once, their
+    overlaps aligned on the card (K1, K3 routes, W1): each job's windows
+    are its solo run's, and the card aligned both."""
+    from racon_tpu_torch.server.engine import JobSpec, build_polisher
+    specs = [JobSpec(*_serve_inputs(tmp_path, seed, n), backend="cuda")
+             for seed, n in ((21, 2), (5, 1))]
+    solo = []
+    for spec in specs:
+        p = build_polisher(spec)
+        p.initialize()
+        solo.append(_layers(p))
+    ovl_align.reset_stats()
+    got, errors = [None, None], []
+    barrier = __import__("threading").Barrier(2)
+
+    def run(i):
+        try:
+            p = build_polisher(specs[i])
+            barrier.wait()
+            p.initialize()
+            got[i] = _layers(p)
+        except Exception as exc:  # collected for the assertion
+            errors.append(exc)
+
+    import threading
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == [] and got == solo
+    assert ovl_align.STATS["device_jobs"] > 0
+    assert len(ovl_align.UNTILED_GROUPS) + len(ovl_align.TILED_GROUPS) >= 2
+
+
+def test_nested_guards_credit_launches_to_the_dispatcher(cuda, monkeypatch,
+                                                         fault_plane):
+    """A batcher dispatch runs the engine under guard("serve/dispatch")
+    on a watchdog thread, and the engine's own chunk guards nest inside
+    it: every chunk body runs on a watchdog thread in the dispatcher's
+    stream and device, and the dispatch record's launches (the
+    dispatcher thread's counts) are exactly LAUNCHES' delta, with the
+    consensus the unbatched engine's."""
+    import threading
+    from window_sets import port_windows
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.ops.poa import PoaEngine
+    from racon_tpu_torch.server.batch import (BatchedEngineProxy,
+                                              CrossRequestBatcher)
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    clean, _, _ = _engine_run("cuda", monkeypatch)
+    real = P.device_chunk_packed
+    seen = []
+
+    def spy(*a, **k):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_stream().cuda_stream,
+                     torch.cuda.current_device()))
+        return real(*a, **k)
+
+    monkeypatch.setattr(P, "device_chunk_packed", spy)
+    monkeypatch.setattr(P, "_CAP_HISTORY", set())
+    monkeypatch.setattr(P, "_BAND_HISTORY", set())
+    import io
+    eng = PoaEngine(device=cuda, log=io.StringIO())
+    b = CrossRequestBatcher(eng, capacity=4096, wait_s=0.0,
+                            queue_cap=4).start()
+    ws = port_windows(24, 42, wlen=300)
+    n0 = dict(kernels.LAUNCHES)
+    try:
+        BatchedEngineProxy(b, "j1", "acme").consensus_windows(ws)
+    finally:
+        b.close()
+    torch.cuda.synchronize()
+    delta = {k: v - n0[k] for k, v in kernels.LAUNCHES.items() if v != n0[k]}
+    assert [w.consensus for w in ws] == clean
+    assert len(b.dispatches) == 1 and b.dispatches[0]["error"] is None
+    assert b.dispatches[0]["launches"] == delta and delta["band_fwd"] > 0
+    assert seen and all(name == "racon-watchdog" for name, *_ in seen)
+    assert all(s[1:] == (torch.cuda.default_stream().cuda_stream,
+                         torch.cuda.current_device()) for s in seen)
+
+
+def test_kernel_error_in_a_dispatch_stops_the_daemon(cuda, tmp_path,
+                                                     monkeypatch,
+                                                     fault_plane):
+    """A KernelError in a consensus dispatch on the card: the job fails,
+    the daemon marks the device lost (``stopped`` set, ``main`` exits 1)
+    and refuses new jobs; nothing is served on the CPU."""
+    from racon_tpu_torch.ops import device_poa as P
+    from racon_tpu_torch.server.daemon import PolishServer
+    from racon_tpu_torch.server.engine import JobSpec
+    monkeypatch.setenv("RACON_TPU_SCHED", "0")
+    monkeypatch.setenv("RACON_TPU_CACHE", "0")
+
+    def broken(*a, **k):
+        raise kernels.KernelError("band_fwd launch failed (injected)")
+
+    monkeypatch.setattr(P, "device_chunk_packed", broken)
+    server = PolishServer(str(tmp_path / "state"))
+    job = server.submit("acme", JobSpec(*_serve_inputs(tmp_path, 21, 2)))
+    assert job.finished.wait(300)
+    assert server.stopped.wait(5)
+    st = job.status()
+    assert st["state"] == "failed" and st["error_type"] == "ServeError"
+    assert "band_fwd launch failed" in st["error"]
+    assert isinstance(server.fatal, kernels.KernelError)
+    with pytest.raises(RuntimeError):
+        server.submit("acme", JobSpec(*_serve_inputs(tmp_path, 5, 1)))
+    assert server.describe()["device_lost"]
+    server.drain(10.0)

@@ -176,7 +176,11 @@ def test_sites_table_lists_the_ports_sites():
     assert F.SITES == tuple(sorted(F.SITES))
     assert set(F.SITES) == {"d2h/chunk", "dispatch/chunk", "dispatch/walk",
                             "h2d/chunk", "h2d/repack", "io/inflate",
-                            "io/read", "sched/flags"}
+                            "io/read", "sched/flags", "cache/load",
+                            "cache/store", "ckpt/commit", "ckpt/manifest",
+                            "gate/adopt", "gate/route", "obs/flight",
+                            "serve/commit", "serve/dispatch",
+                            "serve/submit"}
     assert F.SITE_PREFIXES == ("pipe/",)
 
 
