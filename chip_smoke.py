@@ -209,6 +209,35 @@ any failure exits non-zero and prints no result):
               (exit 137), then --resume: phase 4's FASTA with fewer
               consensus K1 launches than phase 4. The phase prints its
               seconds.
+11. fleet     the ledger fleet on the card (distributed/, obs/fleet.py),
+              one JSON line a part, the card's used memory (all
+              processes) sampled throughout: (1) phase 4's input on one
+              ledger (--workers 2 with RACON_TPU_DIST_SHARDS=2: 2 shards
+              of 10 contigs, a 12 s lease; the default 4 shards of 5
+              contigs cost more consensus K1 launches than a serial run,
+              as each shard plans its own chunks, so the K1 check below
+              does not hold there): worker A, a subprocess with
+              dist/contig:7!kill, claims a shard, then worker B runs in
+              this process, counts reset just before and read just
+              after; A exits 137 after 7 commits, B polishes the other
+              shard, steals A's after its lease expires, resumes A's 7
+              contigs and merges: phase 4's FASTA byte for byte, one
+              steal, dist_contigs_resumed = A's commits, each target once
+              across the shard manifests, phase 4's launch rules, res_*
+              empty, and B's consensus K1 launches and polished windows
+              above 0 and below phase 4's (a split may happen; no check
+              depends on it); (2) a 5-contig input polished
+              serially on the card, then ``--autoscale --workers 2`` as a
+              subprocess with spawn #0 killed at its second commit
+              (RACON_TPU_AUTOSCALE_FAULT_PLAN) and RACON_TPU_METRICS_PORT
+              set: the supervisor's stdout is the serial FASTA, its
+              heartbeat shows the eviction replaced (3 spawns or more),
+              /healthz answered 200 with the fleet's view while it ran,
+              the fleet model renders as valid OpenMetrics listing as0
+              and its replacement as2, and every worker that claimed a
+              shard published consensus K1 launches above 0 in its
+              metric shard. The kernels line adds each row's launches in
+              B's run.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -2730,6 +2759,320 @@ def phase_serve(device, tmp, small, serial):
     emit("serve", part="total", seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------ 11. fleet
+
+FLEET_LEASE_S = 12
+FLEET_SHARDS = 2
+FLEET_KILL_AT = 7
+
+
+class CardMemory:
+    """Samples the card's used memory (all processes: total less
+    ``torch.cuda.mem_get_info``'s free bytes) on a thread every 0.2 s; ``peak`` is the largest sample,
+    :meth:`take` the largest since the last take."""
+
+    def __init__(self):
+        import threading
+        import torch
+        self.total = torch.cuda.mem_get_info()[1]
+        self.peak = self._since = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        import torch
+        free, total = torch.cuda.mem_get_info()
+        self.peak = max(self.peak, total - free)
+        self._since = max(self._since, total - free)
+
+    def take(self) -> int:
+        """The peak since the last take."""
+        peak, self._since = self._since, 0
+        return peak
+
+    def _run(self):
+        while not self._stop.is_set():
+            self._sample()
+            self._stop.wait(0.2)
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def _events(ledger_dir):
+    path = os.path.join(ledger_dir, "events.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [json.loads(ln) for ln in fh if ln.endswith("\n")]
+
+
+def _manifest_tids(ledger_dir):
+    """Every committed contig's target id across the ledger's shard
+    stores (split children included)."""
+    from racon_tpu_torch.distributed import WorkLedger
+    led = WorkLedger.attach(ledger_dir)
+    tids = []
+    for info in led.all_shards():
+        man = os.path.join(led.shard_ckpt_dir(info), "manifest.jsonl")
+        if os.path.exists(man):
+            with open(man) as fh:
+                tids += [json.loads(ln)["tid"] for ln in fh
+                         if '"ev": "contig"' in ln]
+    return sorted(tids)
+
+
+def _subprocess_env(**extra):
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""), **extra)
+    for name in ("RACON_TPU_FAULTS", "RACON_TPU_SCHED",
+                 "RACON_TPU_METRICS_PORT"):
+        if name not in extra:
+            env.pop(name, None)
+    return root, env
+
+
+def _fleet_steal(device, tmp, serial):
+    """Part 1 of phase 11: workers A (a subprocess, killed at its
+    FLEET_KILL_AT + 1-th commit) and B (this process, counted) on one
+    ledger over phase 4's input; B steals A's shard after its lease
+    expires and merges."""
+    t0 = time.perf_counter()
+    ld = os.path.join(tmp, "fleet_steal")
+    # Two shards of 10 contigs (A publishes the ledger; B adopts it):
+    # each shard's polisher plans its own chunks, so B's consensus K1
+    # stays below phase 4's only when A's commits save B whole chunks.
+    # The partition --workers 2 gives by default (4 shards of 5 contigs)
+    # packs less full chunks and costs more consensus K1 launches than
+    # a serial run (a thief of 17 contigs launched 72 against phase 4's
+    # 64 on the card), so this part does not run it.
+    root, env = _subprocess_env(
+        RACON_TPU_FAULTS=f"dist/contig:{FLEET_KILL_AT}!kill",
+        RACON_TPU_OBS_FLUSH_S="0",
+        RACON_TPU_DIST_SHARDS=str(FLEET_SHARDS))
+    fleet_argv = ["--ledger-dir", ld, "--workers", "2", "--lease-s",
+                  str(FLEET_LEASE_S)]
+    log_a = open(os.path.join(tmp, "fleet_worker_A.log"), "wb")
+    proc = subprocess.Popen([sys.executable, "-m", "racon_tpu_torch.cli",
+                             *serial["argv"], *fleet_argv, "--worker-id",
+                             "A"], env=env, cwd=root,
+                            stdout=subprocess.DEVNULL, stderr=log_a)
+    try:
+        # B joins once A holds a shard, so A's shard is the one stolen.
+        t_wait = time.perf_counter()
+        while not any(e.get("ev") == "claim" and e.get("worker") == "A"
+                      for e in _events(ld)):
+            if proc.poll() is not None or \
+                    time.perf_counter() - t_wait > 180:
+                fail(f"fleet: worker A claimed no shard (rc {proc.poll()})")
+            time.sleep(0.1)
+        a_joined_s = time.perf_counter() - t0
+        r = main_run(device, serial["argv"] + fleet_argv +
+                     ["--worker-id", "B"], True)
+        rc_a = proc.wait(timeout=120)
+        from racon_tpu_torch.obs import fleet
+        fleet._WRITER = None   # B's writer; later runs here are serial
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log_a.close()
+    events = _events(ld)
+    steals = [e for e in events if e.get("ev") == "steal"]
+    stolen = {e["name"] for e in steals if e.get("victim") == "A"}
+    # A renews its lease once a commit (and dies at the next's fault).
+    a_renews = [e["name"] for e in events if e.get("ev") == "renew" and
+                e.get("worker") == "A"]
+    a_commits = sum(1 for name in a_renews if name in stolen)
+    n_contigs = len(serial["ds"]["drafts"])
+    counters = r["counters"]
+    n = r["launches"]
+    k1_main = serial["rec"]["chunk_rounds"]
+    rec = dict(part="steal", seconds=time.perf_counter() - t0,
+               a_joined_s=a_joined_s, a_rc=rc_a,
+               identical=r["out"] == serial["out"], steals=len(steals),
+               splits=sum(1 for e in events if e.get("ev") == "split"),
+               a_commits=len(a_renews), a_commits_on_stolen=a_commits,
+               dist={k: v for k, v in counters.items()
+                     if k.startswith("dist_")},
+               k1_consensus=r["k1_consensus"], k1_consensus_phase4=k1_main,
+               chunks=r["host_n"].get("h2d", 0),
+               windows=counters.get("poa_windows_total"),
+               windows_phase4=serial["n_windows"],
+               consensus_walks=r["walks"], launches=n, stage_ms=r["stages"],
+               ovl=r["ovl"], peak_b=r["peak"], wall_s=r["wall"],
+               resilience=r["resilience"])
+    emit("fleet", **rec)
+    if rc_a != 137:
+        fail(f"fleet: worker A exited {rc_a}, not 137")
+    if not rec["identical"]:
+        fail("fleet: worker B's merged FASTA differs from phase 4's")
+    if not stolen:
+        fail(f"fleet: no steal of A's shard in events.jsonl ({steals})")
+    if counters.get("dist_contigs_resumed") != a_commits or \
+            len(a_renews) != FLEET_KILL_AT:
+        fail(f"fleet: B resumed {counters.get('dist_contigs_resumed')} "
+             f"contig(s), A committed {a_commits} on the stolen shard and "
+             f"{len(a_renews)} in all (killed at its commit "
+             f"{FLEET_KILL_AT + 1})")
+    if _manifest_tids(ld) != list(range(n_contigs)):
+        fail(f"fleet: the shard manifests do not hold each target once: "
+             f"{_manifest_tids(ld)}")
+    check_launches("fleet worker B", r)
+    check_clean("fleet worker B", r)
+    m2 = n["merge_windows"] + n["merge_windows_sched"]
+    if not (r["k1_consensus"] > 0 and r["walks"] > 0 and
+            n["merge_votes"] > 0 and m2 > 0 and n["merge_windows_sched"]):
+        fail(f"fleet: worker B did not run the consensus kernels on the "
+             f"card ({n})")
+    if not r["k1_consensus"] < k1_main or \
+            not 0 < rec["windows"] < serial["n_windows"]:
+        fail(f"fleet: worker B launched {r['k1_consensus']} consensus K1 "
+             f"on {rec['windows']} windows, not fewer than phase 4's "
+             f"{k1_main} on {serial['n_windows']}")
+    return r
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fleet_autoscale(device, tmp):
+    """Part 2 of phase 11: ``--autoscale --workers 2`` as a subprocess on
+    a 5-contig input, spawn #0 killed at its second commit, /healthz
+    polled while the fleet runs."""
+    import urllib.error
+    import urllib.request
+    from racon_tpu_torch.obs import export, fleet
+    t0 = time.perf_counter()
+    ds = main_dataset(os.path.join(tmp, "fleet5"), n_contigs=5)
+    p = ds["paths"]
+    # Workers run on the card by default: --device is never added there.
+    argv = [p["reads"], p["overlaps"], p["draft"], "-t",
+            str(os.cpu_count() or 1)] + \
+        ([] if device == "cuda" else ["--device", device])
+    rc, base, err, serial_s = run_cli(argv + ["--device", device])
+    if rc != 0:
+        fail(f"fleet: the 5-contig serial run failed: {err[-2000:]}")
+    ld = os.path.join(tmp, "fleet_auto")
+    plan = os.path.join(tmp, "fleet_plan.json")
+    with open(plan, "w") as fh:
+        json.dump(["dist/contig:1!kill"], fh)
+    port = _free_port()
+    root, env = _subprocess_env(
+        RACON_TPU_AUTOSCALE_FAULT_PLAN=plan,
+        RACON_TPU_METRICS_PORT=str(port), RACON_TPU_OBS_FLUSH_S="0",
+        RACON_TPU_AUTOSCALE_INTERVAL_S="0.2",
+        RACON_TPU_AUTOSCALE_DEADLINE_S="240")
+    out_f = open(os.path.join(tmp, "fleet_sup.out"), "wb")
+    err_f = open(os.path.join(tmp, "fleet_sup.err"), "wb")
+    sup = subprocess.Popen([sys.executable, "-m", "racon_tpu_torch.cli",
+                            *argv, "--autoscale", "--workers", "2",
+                            "--lease-s", str(FLEET_LEASE_S), "--ledger-dir",
+                            ld], env=env, cwd=root, stdout=out_f,
+                           stderr=err_f)
+    health = []
+    try:
+        while sup.poll() is None and time.perf_counter() - t0 < 280:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz",
+                        timeout=5) as resp:
+                    health.append((resp.status, json.loads(resp.read())))
+            except urllib.error.HTTPError as exc:
+                health.append((exc.code, None))
+            except (urllib.error.URLError, OSError, ValueError):
+                pass
+            time.sleep(0.5)
+        rc = sup.wait(timeout=30)
+    finally:
+        if sup.poll() is None:
+            sup.kill()
+            sup.wait()
+        out_f.close()
+        err_f.close()
+    with open(os.path.join(tmp, "fleet_sup.out"), "rb") as fh:
+        out = fh.read()
+    with open(os.path.join(tmp, "fleet_sup.err"), "rb") as fh:
+        sup_err = fh.read().decode(errors="replace")
+    if rc != 0:
+        fail(f"fleet: the supervisor exited {rc}: {sup_err[-3000:]}")
+    hb = fleet.load_supervisor(ld) or {}
+    model = fleet.aggregate(ld)
+    text = export.render_fleet(model)
+    ok_views = [h for s, h in health if s == 200 and h and "fleet" in h]
+    events = _events(ld)
+    polishers = sorted({e["worker"] for e in events
+                        if e.get("ev") in ("claim", "steal") and
+                        str(e.get("name", "")).startswith("shard_")})
+    k1 = {w: model["workers"].get(w, {}).get("metrics", {}).get(
+        "kernel_launches_band_fwd_consensus", 0) for w in polishers}
+    rec = dict(part="autoscale", seconds=time.perf_counter() - t0,
+               serial_s=serial_s, identical=out == base, rc=rc,
+               spawned=hb.get("spawned_total"),
+               evicted=hb.get("evicted_total"), done=hb.get("done"),
+               healthz_polls=len(health), healthz_200=len(ok_views),
+               healthz_last=ok_views[-1]["fleet"] if ok_views else None,
+               steals=model["steals"], splits=model["splits"],
+               workers=sorted(model["workers"]),
+               final={w: v["final"] for w, v in model["workers"].items()},
+               k1_consensus_by_worker=k1,
+               fleet_dist={k: v for k, v in model["fleet"].items()
+                           if k.startswith(("dist_", "kernel_"))},
+               openmetrics_errors=export.validate_openmetrics(text))
+    emit("fleet", **rec)
+    if not rec["identical"]:
+        fail("fleet: the autoscaled fleet's FASTA differs from the serial "
+             "run's")
+    if not (hb.get("done") and (hb.get("spawned_total") or 0) >= 3 and
+            (hb.get("evicted_total") or 0) >= 1):
+        fail(f"fleet: the heartbeat shows no replaced eviction: {hb}")
+    if not ok_views:
+        fail(f"fleet: /healthz never answered 200 with the fleet's view "
+             f"({[s for s, _ in health]})")
+    if rec["openmetrics_errors"]:
+        fail(f"fleet: render_fleet is not valid OpenMetrics: "
+             f"{rec['openmetrics_errors'][:5]}")
+    for w in ("as0", "as2"):
+        if w not in model["workers"] or f'worker="{w}"' not in text:
+            fail(f"fleet: the fleet render lists no worker {w}")
+    if not polishers or any(k1[w] <= 0 for w in polishers):
+        fail(f"fleet: a polishing worker launched no consensus K1 on the "
+             f"card: {k1}")
+
+
+def phase_fleet(device, tmp, serial):
+    """Phase 11 (module docstring): the ledger fleet on the card."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    with CardMemory() as mem:
+        r = _fleet_steal(device, tmp, serial)
+        steal_peak = mem.take()
+        torch.cuda.empty_cache()
+        _fleet_autoscale(device, tmp)
+        autoscale_peak = mem.take()
+    emit("fleet", part="total", seconds=time.perf_counter() - t0,
+         card_memory_peak_b=mem.peak, card_memory_total_b=mem.total,
+         steal_peak_b=steal_peak, autoscale_peak_b=autoscale_peak,
+         smoke_reserved_at_start_b=reserved)
+    return r
+
+
 def main() -> int:
     global CARD
     try:
@@ -2765,6 +3108,7 @@ def main() -> int:
         pipe_runs = phase_pipeline("cuda", serial)
         phase_faults("cuda", tmp, small, serial)
         phase_serve("cuda", tmp, small, serial)
+        fleet_run = phase_fleet("cuda", tmp, serial)
 
     rows = []
     for (name, k), r in recs.items():
@@ -2792,7 +3136,8 @@ def main() -> int:
                  0: "tiled overlap group", "merge": "route merge shape",
                  "T1": "T1 op strings"}
         # The same row's launches in phase 8's streamed runs (scheduler,
-        # RACON_TPU_SCHED=0): by case where the row is a case, W1's flat
+        # RACON_TPU_SCHED=0) and phase 11's worker B: by case where the
+        # row is a case, W1's flat
         # layout as what is left of that run's col_walk count after its
         # other cases, else the kernel's whole count in that run (K5's
         # two shape rows share it: the counter does not split by shape).
@@ -2800,7 +3145,8 @@ def main() -> int:
                 counts[name] - sum(v for (n, _), v in by_case.items()
                                    if n == name) if k == "flat" else
                 counts[name]
-                for by_case, counts in pipe_runs]
+                for by_case, counts in pipe_runs +
+                [(launches_by_case(fleet_run), fleet_run["launches"])]]
         rows.append({
             "name": (f"{name} ({label[k]})"
                      if name in ("col_walk", "band_fwd", "monotone_count")
@@ -2809,6 +3155,7 @@ def main() -> int:
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches,
             "pipeline_launches": pipe[0], "pipeline_fixed_launches": pipe[1],
+            "fleet_launches": pipe[2],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

@@ -3,18 +3,18 @@ of part of the JAX package's ``ava/`` package).
 
 Racon's second mode (``-f``, fragment correction) makes every read a
 target: millions of short targets a run instead of the kC regime's tens
-of contigs. Two pieces of the reference's ava package serve the daemon
-and the checkpoint store here:
+of contigs. The JAX package's ava pieces, all ported:
 
+- :mod:`racon_tpu_torch.ava.partition` — length-weighted shard bounds
+  over the work ledger's published offsets;
+- :mod:`racon_tpu_torch.ava.planner` — run-level shape buckets against
+  ``RACON_TPU_AVA_COMPILE_BUDGET``, published by each ledger worker;
 - :mod:`racon_tpu_torch.ava.emit` — the streaming record spool a daemon
   job's result stream uses, so millions of emitted records never
   materialize as millions of live Python objects;
 - :func:`seg_targets_for` below — how many committed targets amortize
   into one run-length record of the v2 checkpoint manifest
   (resilience/checkpoint.py).
-
-The planner (shape buckets) and the length-weighted partition wait for
-the port's distributed slice.
 """
 
 from __future__ import annotations
@@ -46,6 +46,11 @@ def seg_targets_for(fragment_correction: bool) -> int:
 
 from racon_tpu_torch.ava.emit import (RecordSpool,  # noqa: E402
                                       iter_fasta_records)
+from racon_tpu_torch.ava.partition import (weighted_bounds,  # noqa: E402
+                                           weights_from_offsets)
+from racon_tpu_torch.ava.planner import (BucketPlan,  # noqa: E402
+                                         plan_buckets)
 
 __all__ = ["DEFAULT_SEG_TARGETS", "ENV_AVA_SEG", "seg_targets_for",
-           "RecordSpool", "iter_fasta_records"]
+           "RecordSpool", "iter_fasta_records", "weighted_bounds",
+           "weights_from_offsets", "BucketPlan", "plan_buckets"]

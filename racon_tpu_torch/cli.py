@@ -24,6 +24,21 @@ only the rest — a store either package's CLI wrote resumes under the
 other's. ``--cache-dir DIR`` arms the job-level result cache (cache/): a
 run whose inputs and options fingerprint matches a stored entry
 re-emits it with no kernel launch.
+
+``--ledger-dir DIR`` makes the process one worker of a ledger fleet
+(distributed/): it claims shards of the targets under leases, polishes
+them on its device into per-shard checkpoint stores, steals shards
+whose lease expired, and the worker that wins the merge writes the
+FASTA — the serial run's bytes. ``--autoscale`` instead supervises such
+a fleet (distributed/autoscaler.py): it spawns workers running this
+command, builds no polisher and never touches the GPU, and prints the
+merged FASTA. ``RACON_TPU_METRICS_PORT`` serves the registry as
+OpenMetrics and ``/healthz`` (a ledger member answers with the fleet's
+view); ``RACON_TPU_OBS_DIR`` gives a serial run a fleet metric shard.
+
+SIGINT and SIGTERM end a run in order: the store closes (its commits are
+durable), a ledger worker releases its lease, the final metric snapshot
+and the trace are written, and the exit code is 128 + the signal.
 """
 
 from __future__ import annotations
@@ -36,6 +51,17 @@ from racon_tpu_torch import __version__
 
 _USAGE = ("racon_tpu_torch [options ...] <sequences> <overlaps> "
           "<target sequences>")
+
+
+class _Interrupted(Exception):
+    """SIGINT or SIGTERM raised as an exception, so teardown runs in
+    order (the pipeline's generators close, the store closes, a ledger
+    worker releases its lease, the final snapshot and the trace are
+    written) and the exit code is 128 + the signal, not a traceback."""
+
+    def __init__(self, signum: int):
+        super().__init__(f"signal {signum}")
+        self.signum = signum
 
 _DESCRIPTION = """\
     <sequences>
@@ -106,6 +132,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "byte-identically with zero consensus "
                          "dispatches (verify-on-hit; RACON_TPU_CACHE=0 "
                          "disables)")
+    ap.add_argument("--ledger-dir", metavar="DIR", default=None,
+                    help="join (or start) the contig work ledger in "
+                         "DIR as one worker of a preemptible fleet: "
+                         "targets are sharded, leased, checkpointed "
+                         "per shard, and stolen from evicted workers; "
+                         "exactly one worker emits the merged FASTA")
+    ap.add_argument("--workers", type=int, default=1, metavar="N",
+                    help="default: 1; fleet size hint for the ledger's "
+                         "shard partition (~2 shards per worker); only "
+                         "the first worker to publish the ledger "
+                         "decides")
+    ap.add_argument("--worker-id", metavar="ID", default=None,
+                    help="default: <hostname>-<pid>; stable identity "
+                         "for lease ownership and the events audit "
+                         "log")
+    ap.add_argument("--lease-s", type=float, default=30.0, metavar="S",
+                    help="default: 30.0; shard lease duration — an "
+                         "evicted worker's shard becomes stealable S "
+                         "seconds after its last renewal (each "
+                         "committed contig renews)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="supervise an elastic fleet against "
+                         "--ledger-dir instead of polishing: spawn "
+                         "worker subprocesses (this same command minus "
+                         "--autoscale) up to --workers, replace sick "
+                         "ones, retire surplus, and emit the merged "
+                         "FASTA on stdout (RACON_TPU_AUTOSCALE_* "
+                         "tunes the policy)")
     ap.add_argument("--version", action="store_true",
                     help="prints the version number")
     ap.add_argument("-h", "--help", action="store_true",
@@ -114,6 +168,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    # The autoscaler re-executes this command line for each worker it
+    # spawns, so keep the unparsed form.
+    raw_argv = list(argv) if argv is not None else sys.argv[1:]
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.version:
@@ -130,6 +187,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from racon_tpu_torch.io.parsers import ParseError
     from racon_tpu_torch.models.overlap import PolisherError
+    from racon_tpu_torch.obs import fleet
     from racon_tpu_torch.obs.metrics import registry
     from racon_tpu_torch.obs.trace import configure as configure_trace
     from racon_tpu_torch.ops.kernels import KernelError
@@ -137,8 +195,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from racon_tpu_torch.pipeline import configure as configure_pipeline
     from racon_tpu_torch.resilience.retry import RetryExhausted
     from racon_tpu_torch.resilience.watchdog import is_terminal
-    from racon_tpu_torch.server.engine import (JobHooks, JobSpec,
-                                               build_polisher, polish_job)
+    from racon_tpu_torch.server.engine import JobSpec, build_polisher
+    from racon_tpu_torch.utils import env
     from racon_tpu_torch.utils.device import DeviceError, resolve_device
     from racon_tpu_torch.utils.logger import Logger
 
@@ -150,15 +208,79 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     import torch
     tracer = configure_trace(args.trace)
+    metrics_port = env.read(env.METRICS_PORT)
+    if metrics_port:
+        # The pull endpoint (a daemon thread, it dies with the process)
+        # serves this process's registry; a ledger member (the
+        # supervisor too) answers /healthz with the fleet's view, so a
+        # dead supervisor turns the probe 503.
+        from racon_tpu_torch.obs.export import (fleet_health,
+                                                render_registry,
+                                                serve_metrics)
+        from racon_tpu_torch.resilience.watchdog import health_snapshot
+        if args.ledger_dir:
+            _ld = args.ledger_dir
+            health = lambda: fleet_health(  # noqa: E731
+                _ld, base=health_snapshot)
+        else:
+            health = health_snapshot
+        try:
+            serve_metrics(int(metrics_port),
+                          lambda: render_registry(registry().snapshot()),
+                          health=health)
+        except (ValueError, OSError) as exc:
+            print(f"[racon_tpu_torch::] error: cannot serve metrics on "
+                  f"port {metrics_port!r}: {exc}", file=sys.stderr)
+            return 1
+
     out = sys.stdout.buffer
     logger = Logger()
     if args.resume and not args.checkpoint_dir:
         print("[racon_tpu_torch::] error: --resume requires "
               "--checkpoint-dir!", file=sys.stderr)
         return 1
+    if args.ledger_dir and (args.checkpoint_dir or args.resume):
+        print("[racon_tpu_torch::] error: --ledger-dir manages per-shard "
+              "checkpoints itself; drop --checkpoint-dir/--resume!",
+              file=sys.stderr)
+        return 1
+    if args.ledger_dir and args.cache_dir:
+        print("[racon_tpu_torch::] error: --cache-dir is a whole-run "
+              "store; it does not compose with --ledger-dir's per-shard "
+              "leases!", file=sys.stderr)
+        return 1
+    if args.ledger_dir and args.workers < 1:
+        print(f"[racon_tpu_torch::] error: invalid --workers "
+              f"{args.workers}!", file=sys.stderr)
+        return 1
+    if args.ledger_dir and args.lease_s <= 0:
+        print(f"[racon_tpu_torch::] error: invalid --lease-s "
+              f"{args.lease_s}!", file=sys.stderr)
+        return 1
+    if args.autoscale:
+        if not args.ledger_dir:
+            print("[racon_tpu_torch::] error: --autoscale requires "
+                  "--ledger-dir!", file=sys.stderr)
+            return 1
+        # Supervisor: no polisher, no device in this process — it spawns
+        # and shepherds workers (this command minus --autoscale) until
+        # the merged FASTA lands, then prints it. It branches off before
+        # the device is resolved, so it never holds a CUDA context.
+        from racon_tpu_torch.distributed.autoscaler import run_supervisor
+        from racon_tpu_torch.distributed.ledger import LedgerError
+        try:
+            return run_supervisor(ledger_dir=args.ledger_dir,
+                                  raw_argv=raw_argv,
+                                  default_max=args.workers, out=out)
+        except LedgerError as exc:
+            print(str(exc), file=sys.stderr)
+            return 1
+        finally:
+            tracer.finish()
     # Everything that changes emitted bytes goes into the run
-    # fingerprint: JobSpec.identity(), the JAX package's dict key for
-    # key. The device and threads are execution knobs, not identity.
+    # fingerprint (checkpoint store and ledger alike): JobSpec.identity(),
+    # the JAX package's dict key for key. The device and threads are
+    # execution knobs, not identity.
     spec = JobSpec(
         args.paths[0], args.paths[1], args.paths[2],
         include_unpolished=args.include_unpolished,
@@ -203,6 +325,31 @@ def main(argv: Optional[List[str]] = None) -> int:
                     store.close()
                 return 1
 
+    import os
+    import signal
+    import threading
+    old_handlers = {}
+    if threading.current_thread() is threading.main_thread():
+        def _on_signal(signum, frame):
+            raise _Interrupted(signum)
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            old_handlers[sig] = signal.signal(sig, _on_signal)
+
+    obs_dir = env.read(fleet.ENV_OBS_DIR)
+    if obs_dir and not args.ledger_dir:
+        # A serial run joins the fleet plane on request: the metric
+        # shard a ledger worker writes (workers install theirs under
+        # <ledger-dir>/obs at join time).
+        wid = args.worker_id or f"serial-{os.getpid()}"
+        fleet.install_writer(obs_dir, wid, spec.fingerprint())
+        tracer.set_context(worker_id=wid, run_fp=spec.fingerprint())
+    if not args.ledger_dir:
+        # A serial run spawned by another process adopts its trace
+        # context from RACON_TPU_TRACE_CTX; ledger workers adopt inside
+        # run_worker (the environment first, then the ledger's meta).
+        from racon_tpu_torch.obs.trace import adopt_trace_context
+        adopt_trace_context(tracer=tracer)
+
     def make_polisher():
         return build_polisher(spec, logger=logger)
 
@@ -211,41 +358,47 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("[racon_tpu_torch::] resume: skipping recompute of "
                   f"{n_skip} window(s)", file=sys.stderr)
 
+    rc = 0
     try:
         with tracer.span("run", "racon_tpu_torch"):
             resolve_device(args.device)
-            # The cache applies only to runs starting from scratch: a
-            # resumed run's committed prefix owns the output order.
-            fresh = store is None or not store.committed
-            hit = None
-            if result_cache is not None and fresh:
-                hit = result_cache.load(spec.fingerprint())
-            if hit is not None:
-                from racon_tpu_torch.cache import replay_records
-                n = replay_records(hit, emit=out.write, store=store)
-                print(f"[racon_tpu_torch::] cache: re-emitted {n} "
-                      f"contig(s) from {args.cache_dir} (zero consensus "
-                      f"dispatches)", file=sys.stderr)
-            else:
-                captured = [] if (result_cache is not None and
-                                  fresh) else None
-
-                def _capture(tid, rec):
-                    if rec is None:
-                        captured.append((tid, None, b""))
-                    else:
-                        captured.append((tid, rec.name.encode(),
-                                         rec.data))
-
-                polish_job(
-                    make_polisher,
+            if args.ledger_dir:
+                from racon_tpu_torch.distributed.worker import run_worker
+                from racon_tpu_torch.io.parsers import scan_sequence_index
+                # Only the worker that publishes the ledger scans the
+                # target file; later joiners adopt its count and offsets.
+                rc = run_worker(
+                    ledger_dir=args.ledger_dir,
+                    fingerprint=spec.fingerprint(),
+                    scan_targets=lambda: scan_sequence_index(args.paths[2]),
+                    worker_id=args.worker_id, workers=args.workers,
+                    lease_s=args.lease_s, make_polisher=make_polisher,
                     drop_unpolished=not args.include_unpolished,
-                    store=store, emit=out.write,
-                    hooks=JobHooks(on_resume=_resume_log,
-                                   after_commit=_capture
-                                   if captured is not None else None))
-                if captured is not None:
-                    result_cache.store(spec.fingerprint(), captured)
+                    fragment_correction=args.fragment_correction,
+                    window_length=args.window_length, out=out)
+            else:
+                _polish_serial(args, spec, store, result_cache, out,
+                               make_polisher, _resume_log)
+    except _Interrupted as exc:
+        out.flush()
+        if args.ledger_dir:
+            print(f"[racon_tpu_torch::] interrupted (signal {exc.signum}); "
+                  f"committed contigs are safe in {args.ledger_dir} — "
+                  "this worker's lease will expire and a survivor (or "
+                  "a rerun) will steal its shard", file=sys.stderr)
+        elif store is not None:
+            print(f"[racon_tpu_torch::] interrupted (signal {exc.signum}); "
+                  f"{len(store.committed)} contig(s) committed in "
+                  f"{args.checkpoint_dir} — rerun with --resume",
+                  file=sys.stderr)
+        else:
+            print(f"[racon_tpu_torch::] interrupted (signal {exc.signum})",
+                  file=sys.stderr)
+        # The eviction contract: a SIGTERM'd worker leaves a final metric
+        # snapshot (and a flight-recorder dump) before it dies.
+        fleet.flush_final(reason=f"signal-{exc.signum}")
+        tracer.finish(metrics=registry().snapshot())
+        return 128 + exc.signum
     except (DeviceError, PolisherError, ParseError, StageError, KernelError,
             RetryExhausted, ValueError,
             getattr(torch, "AcceleratorError", ())) as exc:
@@ -263,23 +416,65 @@ def main(argv: Optional[List[str]] = None) -> int:
             raise
         return _terminal(exc, tracer, out)
     finally:
+        for sig, handler in old_handlers.items():
+            signal.signal(sig, handler)
         if store is not None:
             store.close()
     out.flush()
     logger.total("[racon_tpu_torch::Polisher::] total =")
+    fleet.flush_final()
     tracer.finish(metrics=registry().snapshot())
-    return 0
+    return rc
+
+
+def _polish_serial(args, spec, store, result_cache, out, make_polisher,
+                   resume_log) -> None:
+    """The serial run: a cache hit re-emits the stored records; else the
+    service core's polish loop, committing into ``store`` and capturing
+    the records for the cache."""
+    from racon_tpu_torch.server.engine import JobHooks, polish_job
+    # The cache applies only to runs starting from scratch: a resumed
+    # run's committed prefix owns the output order.
+    fresh = store is None or not store.committed
+    hit = None
+    if result_cache is not None and fresh:
+        hit = result_cache.load(spec.fingerprint())
+    if hit is not None:
+        from racon_tpu_torch.cache import replay_records
+        n = replay_records(hit, emit=out.write, store=store)
+        print(f"[racon_tpu_torch::] cache: re-emitted {n} contig(s) from "
+              f"{args.cache_dir} (zero consensus dispatches)",
+              file=sys.stderr)
+        return
+    captured = [] if (result_cache is not None and fresh) else None
+
+    def _capture(tid, rec):
+        if rec is None:
+            captured.append((tid, None, b""))
+        else:
+            captured.append((tid, rec.name.encode(), rec.data))
+
+    polish_job(make_polisher, drop_unpolished=not args.include_unpolished,
+               store=store, emit=out.write,
+               hooks=JobHooks(on_resume=resume_log,
+                              after_commit=_capture
+                              if captured is not None else None))
+    if captured is not None:
+        result_cache.store(spec.fingerprint(), captured)
 
 
 def _terminal(exc, tracer, out) -> int:
     """A terminal watchdog breach: this host is wedged; flush what was
-    written and exit with the distinct code, so a supervisor reschedules
-    the run elsewhere instead of retrying here."""
+    written, leave the final metric snapshot and exit with the distinct
+    code, so a supervisor reschedules the run elsewhere instead of
+    retrying here."""
+    from racon_tpu_torch.obs import fleet
     from racon_tpu_torch.obs.metrics import registry
     from racon_tpu_torch.resilience.watchdog import EXIT_SELF_EVICT
     out.flush()
     print(f"[racon_tpu_torch::] terminal watchdog breach — {exc}",
           file=sys.stderr)
+    fleet.flush_final(reason="watchdog-terminal")
     tracer.finish(metrics=registry().snapshot())
     return EXIT_SELF_EVICT
 

@@ -8,7 +8,8 @@ package's ``gateway/``):
   in-process batcher).
 
 The fleet route, its routing policy and the service autoscaling policy
-wait for the port's distributed slice.
+are still to be ported; the ledger fleet they route to is
+(distributed/).
 """
 
 from racon_tpu_torch.gateway.dispatch import (FleetDispatchError,

@@ -6,10 +6,12 @@ Each job the daemon admits is routed, after the Tier-1 cache probe
 or to an autoscaled ledger fleet. ``RACON_TPU_GATE_FLEET`` arms the
 fleet route (default off); ``gate/route`` is the decision's fault site.
 
-The fleet itself (``run_fleet_job``: one WorkLedger a job fingerprint,
-autoscaled workers, the merged FASTA re-committed into the job's store)
-and the policy that picks it (the size and queue-pressure thresholds)
-wait for the port's distributed slice. Until then :func:`require_local`
+The ledger fleet exists in the port (distributed/: the work ledger,
+its workers and the autoscaler, driven by ``cli.py --ledger-dir``); the
+gateway's route to it (``run_fleet_job``: one WorkLedger a job
+fingerprint, autoscaled workers, the merged FASTA re-committed into the
+job's store) and the policy that picks it (the size and queue-pressure
+thresholds) are still to be ported. Until then :func:`require_local`
 refuses an armed fleet gate, the daemon exits 1 at start with its
 message, and every job it admits routes local, reason
 ``fleet-disabled``: it never serves locally a job the operator meant for
@@ -27,8 +29,8 @@ ENV_GATE_FLEET = env.GATE_FLEET
 
 
 class FleetDispatchError(RuntimeError):
-    """A job the fleet route should run cannot run: the port has no
-    fleet yet."""
+    """A job the fleet route should run cannot run: the port's gateway
+    has no route to the ledger fleet yet."""
 
 
 class RouteDecision(NamedTuple):
@@ -46,15 +48,16 @@ def fleet_enabled() -> bool:
 
 def require_local() -> None:
     """Raise :class:`FleetDispatchError` when the fleet gate is armed:
-    the fleet route (``run_fleet_job``) is part of the port's distributed
-    slice, which has not landed."""
+    the port's distributed slice (the ledger fleet) runs through the
+    CLI, but the gateway's route to it (``run_fleet_job``) is not ported
+    yet."""
     if fleet_enabled():
         raise FleetDispatchError(
             f"[racon_tpu_torch::gate] {ENV_GATE_FLEET} is armed, but the "
-            "fleet route (gateway/dispatch.run_fleet_job) belongs to the "
-            "port's distributed slice (distributed/: ledger, worker, "
-            "autoscaler), which has not landed; unset it to serve every "
-            "job in-process")
+            "fleet route (gateway/dispatch.run_fleet_job) is not ported "
+            "yet; the port's distributed slice (distributed/: ledger, "
+            "worker, autoscaler) runs only through the CLI's "
+            "--ledger-dir. Unset it to serve every job in-process")
 
 
 def decide_route(queue_depth: int = 0) -> RouteDecision:

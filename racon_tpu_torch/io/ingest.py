@@ -285,6 +285,68 @@ class IndexedFastqParser(Parser):
         return b""
 
 
+def scan_index_mmap(path: str) -> Tuple[int, List[int]]:
+    """The index-first ``parsers.scan_sequence_index``: the same counts,
+    offsets and errors as the streamed structural pass, from the numpy
+    line index."""
+    if path.endswith(_p._FASTA_EXTS):
+        idx = _LineIndex(path)
+        heads = [int(idx.starts[i]) for i in range(len(idx.starts))
+                 if idx.first_byte(i) == 0x3E]
+        return len(heads), heads
+    if path.endswith(_p._FASTQ_EXTS):
+        return _scan_fastq_mmap(path)
+    raise _p._unsupported_sequence_format(path)
+
+
+def _scan_fastq_mmap(path: str) -> Tuple[int, List[int]]:
+    idx = _LineIndex(path)
+    n_lines = len(idx.starts)
+    offsets: List[int] = []
+    i = 0
+
+    def truncated(rec_off: int) -> ParseError:
+        return ParseError(
+            f"[racon_tpu_torch::io] error: truncated FASTQ file {path} — "
+            f"EOF inside the record starting", offset=rec_off)
+
+    while i < n_lines:
+        s, e = idx.span(i)
+        if e <= s:
+            i += 1
+            continue
+        rec_off = s
+        if idx.first_byte(i) != 0x40:
+            raise ParseError(
+                f"[racon_tpu_torch::io] error: malformed FASTQ file "
+                f"{path}", offset=rec_off)
+        offsets.append(rec_off)
+        i += 1
+        dlen = 0
+        while True:
+            if i >= n_lines:
+                raise truncated(rec_off)
+            s, e = idx.span(i)
+            if idx.first_byte(i) == 0x2B:
+                i += 1
+                break
+            dlen += max(e - s, 0)
+            i += 1
+        qlen = 0
+        while qlen < dlen:
+            if i >= n_lines:
+                raise truncated(rec_off)
+            s, e = idx.span(i)
+            qlen += max(e - s, 0)
+            i += 1
+        if qlen != dlen:
+            raise ParseError(
+                f"[racon_tpu_torch::io] error: quality length mismatch in "
+                f"{path} (sequence {dlen}, quality {qlen})",
+                offset=rec_off)
+    return len(offsets), offsets
+
+
 def indexed_ok(path: str) -> bool:
     """Whether the mmap index-first plane applies: plain (uncompressed)
     file with the gate on."""

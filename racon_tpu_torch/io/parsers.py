@@ -355,6 +355,92 @@ class SamParser(Parser):
                 ), nb
 
 
+def scan_sequence_index(path: str) -> Tuple[int, List[int]]:
+    """(record count, per-record byte offsets) of a FASTA/FASTQ file
+    without materializing any sequence: one pass over the record
+    structure. Offsets are each record header's byte position in the
+    decompressed stream (the :class:`ParseError` convention).
+
+    The work ledger (distributed/ledger.py) publishes this index in its
+    meta.json once: only the worker that publishes the ledger pays the
+    pass; every later joiner adopts the published count."""
+    from racon_tpu_torch.io.ingest import indexed_ok, scan_index_mmap
+    if indexed_ok(path) and path.endswith(_FASTA_EXTS + _FASTQ_EXTS):
+        return scan_index_mmap(path)
+    offsets: List[int] = []
+    hw = [0]                 # high-water offset for stream-level errors
+
+    def _tracked(f) -> Iterator[Tuple[bytes, int, int]]:
+        for ln, nb, off in _block_lines(f):
+            hw[0] = off + nb
+            yield ln, nb, off
+
+    try:
+        return _scan_index(path, offsets, _tracked)
+    except (gzip.BadGzipFile, EOFError, OSError) as exc:
+        raise ParseError(
+            f"[racon_tpu_torch::io] error: corrupt or truncated sequence "
+            f"file {path} ({exc})", offset=hw[0]) from exc
+
+
+def _scan_index(path: str, offsets: List[int],
+                lines_of) -> Tuple[int, List[int]]:
+    if path.endswith(_FASTA_EXTS):
+        with _open_source(path) as f:
+            for line, _, off in lines_of(f):
+                if line.startswith(b">"):
+                    offsets.append(off)
+    elif path.endswith(_FASTQ_EXTS):
+        with _open_source(path) as f:
+            lines = lines_of(f)
+            while True:
+                header, _, rec_off = next(lines, (None, 0, 0))
+                if header is None:
+                    break
+                if not header:
+                    continue
+                if not header.startswith(b"@"):
+                    raise ParseError(
+                        f"[racon_tpu_torch::io] error: malformed FASTQ "
+                        f"file {path}", offset=rec_off)
+                offsets.append(rec_off)
+                dlen = 0
+                while True:
+                    line, _, _ = next(lines, (None, 0, 0))
+                    if line is None:
+                        raise ParseError(
+                            f"[racon_tpu_torch::io] error: truncated "
+                            f"FASTQ file {path} — EOF inside the record "
+                            f"starting", offset=rec_off)
+                    if line.startswith(b"+"):
+                        break
+                    dlen += len(line)
+                qlen = 0
+                while qlen < dlen:
+                    line, _, _ = next(lines, (None, 0, 0))
+                    if line is None:
+                        raise ParseError(
+                            f"[racon_tpu_torch::io] error: truncated "
+                            f"FASTQ file {path} — EOF inside the record "
+                            f"starting", offset=rec_off)
+                    qlen += len(line)
+                if qlen != dlen:
+                    raise ParseError(
+                        f"[racon_tpu_torch::io] error: quality length "
+                        f"mismatch in {path} (sequence {dlen}, quality "
+                        f"{qlen})", offset=rec_off)
+    else:
+        raise _unsupported_sequence_format(path)
+    return len(offsets), offsets
+
+
+def _unsupported_sequence_format(path: str) -> ParseError:
+    return ParseError(
+        f"[racon_tpu_torch::create_polisher] error: file {path} has "
+        "unsupported format extension (valid extensions: .fasta, "
+        ".fasta.gz, .fa, .fa.gz, .fastq, .fastq.gz, .fq, .fq.gz)!")
+
+
 def create_sequence_parser(path: str) -> Parser:
     """Extension-dispatched sequence parser (src/polisher.cpp:78-92).
 
@@ -371,11 +457,7 @@ def create_sequence_parser(path: str) -> Parser:
     if path.endswith(_FASTQ_EXTS):
         return IndexedFastqParser(path) if indexed_ok(path) \
             else FastqParser(path)
-    raise ParseError(
-        f"[racon_tpu_torch::create_polisher] error: file {path} has "
-        "unsupported format extension (valid extensions: .fasta, "
-        ".fasta.gz, .fa, .fa.gz, .fastq, .fastq.gz, .fq, .fq.gz)!"
-    )
+    raise _unsupported_sequence_format(path)
 
 
 def create_overlap_parser(path: str) -> Parser:

@@ -11,17 +11,24 @@ single-process half of the JAX package's ``obs/export.py``.
   path, no timestamps; it ends with ``# EOF``.
 
 Non-numeric registry values have no OpenMetrics form and are skipped.
-Entry points: :func:`render_registry` (the daemon's metrics endpoint)
-and :func:`validate_openmetrics` (the tests' structural check). The
-fleet render waits for the port's distributed slice.
+Entry points: :func:`render_registry` (one process's registry: the
+daemon's and the CLI's metrics endpoints), :func:`render_fleet` (the
+fleet model of obs/fleet.py::aggregate), :func:`fleet_health` (the
+``/healthz`` view of a ledger member), :func:`serve_metrics` (the CLI's
+``RACON_TPU_METRICS_PORT`` pull endpoint) and
+:func:`validate_openmetrics` (the tests' structural check).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 from racon_tpu_torch.obs.metrics import (HIST_BUCKETS, MERGE_HIST,
                                          MERGE_SUM, merge_kind)
+from racon_tpu_torch.utils import env
+
+ENV_METRICS_PORT = env.METRICS_PORT
 
 PREFIX = "racon_tpu_"
 CONTENT_TYPE = ("application/openmetrics-text; version=1.0.0; "
@@ -166,7 +173,125 @@ def render_registry(snapshot: Dict,
     return _render(list(fams.values()))
 
 
+def render_fleet(model: Dict) -> str:
+    """Render a fleet model (obs/fleet.py::aggregate): the fleet-wide
+    merged metrics unlabeled, each worker's rate, wall and final flag
+    labeled ``worker``, each shard's steals labeled ``shard``."""
+    fams: Dict[str, _Family] = {}
 
+    def fam(key_or_fam) -> _Family:
+        f = key_or_fam if isinstance(key_or_fam, _Family) \
+            else _family_for_key(key_or_fam)
+        return fams.setdefault(f.name, f)
+
+    for key in sorted(model.get("fleet", {})):
+        value = model["fleet"][key]
+        if key in HIST_BUCKETS and isinstance(value, dict):
+            fam(key).add_hist([], value, HIST_BUCKETS[key])
+        elif _numeric(value):
+            fam(key).add([], value)
+
+    n = _Family(PREFIX + "fleet_workers", "gauge",
+                "racon_tpu fleet: worker shard count")
+    fam(n).add([], model.get("n_workers", 0))
+    s = _Family(PREFIX + "fleet_steals", "counter",
+                "racon_tpu fleet: lease steals in events.jsonl")
+    fam(s).add([], model.get("steals", 0))
+    sp = _Family(PREFIX + "fleet_splits", "counter",
+                 "racon_tpu fleet: dynamic shard splits in "
+                 "events.jsonl")
+    fam(sp).add([], model.get("splits", 0))
+
+    per_worker = (
+        ("windows_per_sec", "gauge",
+         "racon_tpu worker: polished windows per wall second"),
+        ("wall_s", "gauge", "racon_tpu worker: wall seconds at last "
+                            "snapshot"),
+        ("final", "gauge", "racon_tpu worker: 1 when the last snapshot "
+                           "was a final (exit/SIGTERM) flush"),
+    )
+    for field, mtype, help_text in per_worker:
+        f = fam(_Family(PREFIX + "worker_" + field, mtype, help_text))
+        for wid in sorted(model.get("workers", {})):
+            f.add([("worker", wid)],
+                  model["workers"][wid].get(field, 0))
+
+    timeline = model.get("timeline", {})
+    if timeline:
+        f = fam(_Family(PREFIX + "shard_steals", "counter",
+                        "racon_tpu fleet: steals per ledger shard"))
+        for name in sorted(timeline):
+            f.add([("shard", name)],
+                  sum(1 for e in timeline[name] if e["ev"] == "steal"))
+    return _render(list(fams.values()))
+
+
+# ---------------------------------------------------------- fleet health
+
+#: A supervisor heartbeat older than this many of its own intervals
+#: reads as a dead autoscaler (503 on /healthz).
+SUPERVISOR_STALE_FACTOR = 5.0
+
+
+def fleet_health(ledger_dir: str, base: Optional[Callable] = None,
+                 stale_factor: float = SUPERVISOR_STALE_FACTOR) -> Dict:
+    """The ``/healthz`` view of a ledger member: the process's own
+    watchdog snapshot (``base``) with a ``"fleet"`` section — worker
+    counts (from the supervisor's heartbeat when there is one, else from
+    the metric shards' final flags), open shards and the heartbeat's
+    age. The status turns ``"supervisor-dead"`` (503) when a heartbeat
+    exists but is older than ``stale_factor`` of its own interval; a
+    fleet that never ran a supervisor is not penalized."""
+    import time as _time
+
+    from racon_tpu_torch.obs import fleet as _fleet
+
+    snap: Dict = dict(base()) if base is not None else {"status": "ok"}
+    view: Dict = {}
+    live = exited = 0
+    for sh in _fleet.load_worker_shards(_fleet.obs_dir_for(ledger_dir)):
+        if sh["records"][-1].get("final"):
+            exited += 1
+        else:
+            live += 1
+    view["workers_live"] = live
+    view["workers_exited"] = exited
+    try:
+        from racon_tpu_torch.distributed.ledger import (LedgerError,
+                                                        WorkLedger)
+        try:
+            led = WorkLedger.attach(ledger_dir)
+            view["open_shards"] = len(led.pending_shards())
+            view["merge_done"] = led.merge_done()
+        except LedgerError:
+            view["open_shards"] = None  # meta not yet published
+    except Exception:  # pragma: no cover — the probe must never raise
+        view["open_shards"] = None
+    hb = _fleet.load_supervisor(ledger_dir)
+    if hb is not None:
+        age = max(0.0, _time.time() - float(hb.get("unix_time", 0.0)))
+        interval = max(0.1, float(hb.get("interval_s", 1.0)))
+        view["autoscaler"] = {
+            "age_s": round(age, 3),
+            "interval_s": interval,
+            "target_workers": hb.get("target_workers"),
+            "live_workers": hb.get("live_workers"),
+            "done": bool(hb.get("done")),
+        }
+        for key in ("workers_live", "workers_evicted",
+                    "workers_retired", "workers_done"):
+            if key in hb:
+                view[key] = hb[key]
+        if age > stale_factor * interval and not hb.get("done") and \
+                snap.get("status") == "ok":
+            # Workers may still finish on their own, but nobody replaces
+            # evictions any more: a liveness failure.
+            snap["status"] = "supervisor-dead"
+    snap["fleet"] = view
+    return snap
+
+
+# ------------------------------------------------------------ validation
 
 def validate_openmetrics(text: str) -> List[str]:
     """Structural OpenMetrics check (the smoke/test gate — promtool is
@@ -255,3 +380,87 @@ def validate_openmetrics(text: str) -> List[str]:
                 fam in seen_families:
             errors.append(f"family {fam!r} is interleaved")
     return errors
+
+
+# ---------------------------------------------------------- pull endpoint
+
+def serve_metrics(port: int, render: Callable[[], str],
+                  host: str = "127.0.0.1", health=None, routes=None,
+                  name: str = "racon-tpu-metrics"):
+    """Start an OpenMetrics pull endpoint on ``host:port`` on a daemon
+    thread (named ``name``), serving ``render()`` at every GET path;
+    returns the server (``server_address`` holds the bound port;
+    ``port=0`` picks one). An error in ``render`` is a 500, never the
+    run's end.
+
+    ``health``: a callable returning a dict with a ``"status"`` key; with
+    it, ``GET /healthz`` serves the dict as JSON, 200 while the status
+    is ``"ok"`` and 503 otherwise, so a plain HTTP probe can evict a
+    wedged worker or a fleet whose supervisor died.
+
+    ``routes``: a callable ``(method, path, body)`` answering the paths
+    it serves with ``(code, body bytes, content type, headers)`` and
+    the rest with None (a GET then gets the health or the metrics, a
+    POST a 404); an exception it raises is a 500. The daemon's job API
+    rides on it (server/daemon.serve_http)."""
+    import json
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    def _json(code: int, obj) -> tuple:
+        return (code, (json.dumps(obj, sort_keys=True) + "\n").encode(),
+                "application/json", ())
+
+    def _health() -> tuple:
+        try:
+            snap = health()
+            return _json(200 if snap.get("status") == "ok" else 503, snap)
+        except Exception as exc:  # the probe must not end the run
+            return (500, f'{{"status": "error: {exc}"}}\n'.encode(),
+                    "application/json", ())
+
+    def _metrics() -> tuple:
+        try:
+            return 200, render().encode(), CONTENT_TYPE, ()
+        except Exception as exc:  # a scrape must not end the run
+            return (500, f"render error: {exc}\n".encode(), CONTENT_TYPE,
+                    ())
+
+    class Handler(BaseHTTPRequestHandler):
+        def _route(self, method: str, body: bytes):
+            if routes is None:
+                return None
+            try:
+                return routes(method, self.path.rstrip("/"), body)
+            except Exception as exc:  # a handler must not end the run
+                return _json(500, {"error": str(exc)})
+
+        def _send(self, reply: tuple) -> None:
+            code, body, ctype, headers = reply
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in headers:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (stdlib naming)
+            reply = self._route("GET", b"")
+            if reply is None:
+                reply = _health() if self.path.rstrip("/") == \
+                    "/healthz" and health is not None else _metrics()
+            self._send(reply)
+
+        def do_POST(self):  # noqa: N802 (stdlib naming)
+            length = int(self.headers.get("Content-Length", "0"))
+            reply = self._route("POST", self.rfile.read(length))
+            self._send(reply or _json(404, {"error": "unknown endpoint"}))
+
+        def log_message(self, *args):  # no per-request stderr
+            pass
+
+    server = ThreadingHTTPServer((host, int(port)), Handler)
+    thread = threading.Thread(target=server.serve_forever, name=name,
+                              daemon=True)
+    thread.start()
+    return server

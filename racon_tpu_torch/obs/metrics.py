@@ -7,17 +7,21 @@ streaming pipeline's, ingest plane's, transfers' and fault plane's
 recorders (pipeline/metrics.py, which re-exports :func:`registry` and
 :func:`reset` from this module, so both names reach the same object)
 and the service core's below — the checkpoint store (``res_ckpt_*``),
-the result cache (``cache_*``), the daemon and its batcher (``serve_*``)
-and the gateway's routing (``gate_*``). Every update takes the
+the result cache (``cache_*``), the daemon and its batcher (``serve_*``),
+the gateway's routing (``gate_*``), the ledger fleet (``dist_*``), the
+ava planner (``ava_*``), and the polish loop's window and phase totals
+(``poa_windows_total``, ``phase_seconds_*``) that the fleet aggregator
+(obs/fleet.py) divides into per-worker rates. Every update takes the
 registry's lock; a multi-key read-modify-write goes through
 :meth:`Registry.apply`, under the lock once. Keys starting with ``_``
 are internal and left out of snapshots. Mutations of the process
 registry also land in the flight recorder's ring (obs/flightrec.py).
 
 Fixed-bucket histograms (:data:`HIST_BUCKETS`, :func:`record_hist`,
-:func:`hist_quantile`) and the fleet merge kinds (:func:`merge_kind`)
-are the JAX package's, so the OpenMetrics render (obs/export.py) types
-each key as the reference does.
+:func:`hist_quantile`) and the fleet merge kinds (:func:`merge_kind`,
+:func:`merge_values`) are the JAX package's, so the OpenMetrics render
+(obs/export.py) types each key, and the fleet model folds it, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -310,6 +314,81 @@ def record_cache(tier: str, outcome: str, n: int = 1, nbytes: int = 0,
                               bytes=int(nbytes))
 
 
+# ------------------------------------------------------- distributed work
+
+def record_dist(event: str, shard, worker, value: float = 1,
+                reg: Optional[Registry] = None, **attrs) -> None:
+    """One work-ledger event (distributed/): the counter ``dist_<event>``
+    (``claims``, ``shards_stolen``, ``leases_expired``,
+    ``lease_renewals``, ``leases_lost``, ``contigs_polished``,
+    ``contigs_repolished``, ``contigs_resumed``, ``shards_completed``,
+    ``steal_latency_s``, ``recovery_wall_s``, ``merges``, ...) grows by
+    ``value`` under the registry's lock, and a ``dist`` span carries the
+    shard (-1 for run-level events) and the worker."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.inc(f"dist_{event}", value)
+    _trace.get_tracer().point("dist", event, shard=int(shard),
+                              worker=str(worker), **attrs)
+
+
+def set_dist(key: str, value: object,
+             reg: Optional[Registry] = None) -> None:
+    """A fleet-shape gauge: ``dist_workers``, ``dist_shards``,
+    ``dist_n_targets``."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.set(f"dist_{key}", value)
+
+
+# -------------------------------------------------------------- ava plane
+
+def record_ava_plan(plan, reg: Optional[Registry] = None) -> None:
+    """The ava shape-bucket plan (ava/planner.py) as gauges: targets,
+    buckets, the quantum the budget loop settled on, the budget and the
+    padding it cost. Every worker computes the same plan from the
+    ledger's published offsets, so the fleet merge takes the last."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.set("ava_targets", int(plan.n_targets))
+    reg.set("ava_buckets", int(plan.n_buckets))
+    reg.set("ava_quantum", int(plan.quantum))
+    reg.set("ava_compile_budget", int(plan.budget))
+    reg.set("ava_pad_frac", round(float(plan.pad_frac), 4))
+
+
+# -------------------------------------------------- phases and windows
+
+def _phase_slug(msg: str) -> str:
+    """Registry-key slug of a logger phase message:
+    ``"[racon_tpu_torch::Polisher::initialize] loaded sequences"`` ->
+    ``"initialize_loaded_sequences"``."""
+    msg = msg.strip()
+    if msg.startswith("[") and "]" in msg:
+        head, _, rest = msg.partition("]")
+        msg = head[1:].rsplit("::", 1)[-1] + " " + rest
+    out = []
+    for ch in msg.lower():
+        out.append(ch if ch.isalnum() else "_")
+    slug = "_".join(filter(None, "".join(out).split("_")))
+    return slug[:64] or "unnamed"
+
+
+def record_phase_seconds(msg: str, seconds: float,
+                         reg: Optional[Registry] = None) -> None:
+    """One finished logger phase (utils/logger.py) as
+    ``phase_seconds_<slug>`` plus the ``phase_seconds_total`` roll-up:
+    the per-worker phase split of the fleet model."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.inc(f"phase_seconds_{_phase_slug(msg)}", float(seconds))
+    reg.inc("phase_seconds_total", float(seconds))
+
+
+def record_windows(n: int, reg: Optional[Registry] = None) -> None:
+    """``n`` polished windows (ops/poa.py, the streaming pipeline):
+    ``poa_windows_total``, cumulative across chunks, contigs and shards,
+    which the fleet model divides by a worker's wall seconds."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.inc("poa_windows_total", int(n))
+
+
 # ------------------------------------------------------------ merge kinds
 
 MERGE_SUM = "sum"
@@ -354,3 +433,33 @@ def merge_kind(key: str) -> str:
     if key.endswith("_peak"):
         return MERGE_MAX
     return MERGE_SUM
+
+
+def merge_values(key: str, values) -> object:
+    """Fold per-worker values of ``key`` by its merge kind (the fleet
+    model, obs/fleet.py). Histogram dicts fold bucket by bucket; other
+    non-numeric values (the scheduler's round histogram) take the last;
+    None values are skipped, and all-None folds to None."""
+    vals = [v for v in values if v is not None]
+    if not vals:
+        return None
+    kind = merge_kind(key)
+    if kind == MERGE_HIST:
+        n = len(HIST_BUCKETS[key]) + 1
+        out = {"buckets": [0] * n, "sum": 0.0, "count": 0}
+        for v in vals:
+            if not isinstance(v, dict):
+                continue
+            for i, c in enumerate(v.get("buckets", ())[:n]):
+                out["buckets"][i] += int(c)
+            out["sum"] = round(out["sum"] + float(v.get("sum", 0.0)), 6)
+            out["count"] += int(v.get("count", 0))
+        return out
+    numeric = all(isinstance(v, (int, float)) and
+                  not isinstance(v, bool) for v in vals)
+    if not numeric or kind == MERGE_LAST:
+        return vals[-1]
+    if kind == MERGE_MAX:
+        return max(vals)
+    total = sum(vals)
+    return round(total, 6) if isinstance(total, float) else total

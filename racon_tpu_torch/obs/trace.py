@@ -26,7 +26,9 @@ reference's ``jax.profiler.TraceAnnotation``.
 
 Spans nest per thread (a thread-local stack supplies ``parent``); the
 watchdog's guard threads adopt a copy of their caller's stack
-(:meth:`Tracer.snapshot_stack` / :meth:`Tracer.install_stack`). File
+(:meth:`Tracer.snapshot_stack` / :meth:`Tracer.install_stack`).
+``RACON_TPU_TRACE_CTX`` hands a trace context to a child process
+(:func:`env_trace_ctx`, :func:`adopt_trace_context`). File
 writes are serialized by a lock. A span costs two ``perf_counter`` calls
 and one dict build; spans stream to a ``.part`` file that
 :meth:`Tracer.finish` renames onto the path, so a reader of the path
@@ -45,6 +47,7 @@ SCHEMA_VERSION = 1
 
 ENV_TRACE = env.TRACE
 ENV_XPROF = env.TRACE_XPROF
+ENV_TRACE_CTX = env.TRACE_CTX
 
 # How many hex chars of the JobSpec fingerprint become the trace id.
 TRACE_ID_LEN = 16
@@ -98,11 +101,21 @@ def parse_trace_ctx(text) -> Optional[TraceContext]:
     return TraceContext(head, parent)
 
 
-def adopt_trace_context(encoded, tracer=None) -> Optional[TraceContext]:
+def env_trace_ctx() -> str:
+    """The validated encoded context of ``RACON_TPU_TRACE_CTX``, or "":
+    the ledger stores it verbatim in its meta.json, and the autoscaler
+    hands it to every worker it spawns."""
+    ctx = parse_trace_ctx(env.read(ENV_TRACE_CTX))
+    return ctx.encode() if ctx is not None else ""
+
+
+def adopt_trace_context(encoded=None, tracer=None) -> Optional[TraceContext]:
     """Adopt a handed-off trace context (``"<trace_id>:<parent_id>"``)
-    into the process tracer's span context. Malformed or absent input is
-    not an error: the process keeps a fresh root trace (returns None,
-    sets nothing)."""
+    into the process tracer's span context; ``encoded=None`` reads
+    ``RACON_TPU_TRACE_CTX``. Malformed or absent input is not an error:
+    the process keeps a fresh root trace (returns None, sets nothing)."""
+    if encoded is None:
+        encoded = env.read(ENV_TRACE_CTX)
     ctx = parse_trace_ctx(encoded)
     if ctx is None:
         return None

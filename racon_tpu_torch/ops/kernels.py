@@ -138,6 +138,12 @@ def credit_thread_launches(counts: dict) -> None:
         own[name] = own.get(name, 0) + n
 
 
+def launches() -> dict:
+    """A copy of LAUNCHES taken under its lock."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:

@@ -87,6 +87,13 @@ def reset_stats() -> None:
         UNTILED_GROUPS.clear()
 
 
+def untiled_groups() -> int:
+    """Launch groups of the untiled route since the last reset_stats():
+    one band forward (K1) each."""
+    with _STATS_LOCK:
+        return sum(g["groups"] for g in UNTILED_GROUPS)
+
+
 def _card_lock(device: torch.device):
     """The card section's lock for ``device`` (no lock on the CPU)."""
     if device.type != "cuda":

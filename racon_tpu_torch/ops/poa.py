@@ -128,12 +128,14 @@ class PoaEngine:
                 active.append(w)
         if not active:
             return 0
+        from racon_tpu_torch.obs.metrics import record_windows
         dev, host, lq_max, la_max = self._partition_device(active)
         n = 0
         if dev:
             n += self._consensus_device(dev, lq_max, la_max)
         if host:
             n += self._consensus_host(host)
+        record_windows(n)
         return n
 
     def _count(self, key: str, n: int) -> None:

@@ -71,6 +71,7 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from racon_tpu_torch.obs.metrics import record_windows
 from racon_tpu_torch.obs.trace import get_tracer
 from racon_tpu_torch.pipeline import (metrics, pipeline_depth,
                                       walk_async_enabled)
@@ -571,6 +572,9 @@ def stream_consensus(engine, windows, chunk: int = 8192,
             try:
                 with pipe:
                     for item in pipe.drain(q_done):
+                        # The serial path's counter (consensus_windows):
+                        # active windows, counted once applied.
+                        record_windows(len(item.windows))
                         for _sid, s, e in tracker.retire(item.sid):
                             if tick is not None:
                                 tick()
@@ -603,6 +607,7 @@ def stream_consensus(engine, windows, chunk: int = 8192,
                 if active:
                     with host_lock:
                         engine._degrade(active, err.__cause__)
+                    record_windows(len(active))
                 if last_end < n:
                     if tick is not None:
                         tick()

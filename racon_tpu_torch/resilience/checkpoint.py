@@ -138,6 +138,18 @@ def run_fingerprint(config: Dict, paths: Iterable[str]) -> str:
     return hashlib.sha256(blob.encode()).hexdigest()
 
 
+def shard_fingerprint(run_fp: str, shard) -> str:
+    """Fingerprint of one work-ledger shard (distributed/ledger.py): the
+    run identity plus the shard key, so per-shard stores cannot be
+    spliced into another shard or run. Base shards key by partition
+    index (int), split children by their lineage suffix (str, e.g.
+    "1s1_1"). The JAX package's hash, so either package's ledger
+    worker resumes the other's shard stores."""
+    key = int(shard) if not isinstance(shard, str) else shard
+    return hashlib.sha256(f"{run_fp}:shard:{key}"
+                          .encode()).hexdigest()
+
+
 class CheckpointStore:
     """Append-only contig store bound to one run fingerprint.
 

@@ -41,8 +41,13 @@ stages' ``pipe/<stage>``; the service core's ``ckpt/commit`` (before a
 checkpoint commit's shard append), ``ckpt/manifest`` (between the shard
 and manifest appends), ``cache/store``, ``cache/load``, ``serve/submit``,
 ``serve/dispatch`` (before each cross-request batch), ``serve/commit``
-(before a daemon job commits a contig), ``gate/route``, ``gate/adopt``
-and ``obs/flight`` (the flight recorder's dump). Arming any ``io/*`` site turns the ingest
+(before a daemon job commits a contig), ``gate/route``, ``gate/adopt``,
+``obs/flight`` (the flight recorder's dump) and ``obs/snapshot`` (a fleet
+metric shard's flush); the ledger fleet's ``dist/claim`` (each claim
+attempt), ``dist/shard`` (each claimed shard), ``dist/contig`` (before a
+worker commits a contig), ``dist/split`` (the split's publish),
+``dist/merge`` (before the merge) and ``dist/merge_write`` (each merged
+contig). Arming any ``io/*`` site turns the ingest
 prefetch threads off (io/ingest.prefetch_ok), so that explicit call
 indices stay deterministic. Call indices are 0-based and advance once an
 *attempt* at that site (each retry consults the injector again), so
@@ -87,10 +92,12 @@ SITES = (
     "ckpt/commit", "ckpt/manifest",
     "d2h/chunk",
     "dispatch/chunk", "dispatch/walk",
+    "dist/claim", "dist/contig", "dist/merge", "dist/merge_write",
+    "dist/shard", "dist/split",
     "gate/adopt", "gate/route",
     "h2d/chunk", "h2d/repack",
     "io/inflate", "io/read",
-    "obs/flight",
+    "obs/flight", "obs/snapshot",
     "sched/flags",
     "serve/commit", "serve/dispatch", "serve/submit",
 )

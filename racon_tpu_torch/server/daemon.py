@@ -51,7 +51,8 @@ injected fault caused (the dispatch runs on, abandoned), fails its jobs,
 every later job fails without running, the daemon stops admitting and
 ``main`` exits 1. An ``InjectedFault``, an injected breach or another
 ``TimeoutError`` at ``serve/dispatch`` fails that batch's jobs only. ``RACON_TPU_GATE_FLEET`` armed makes ``main`` exit 1:
-the fleet route belongs to the port's distributed slice.
+the gateway's route to the ledger fleet (distributed/) is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -431,98 +432,61 @@ class PolishServer:
 # --------------------------------------------------------------- HTTP
 
 def serve_http(server: PolishServer, host: str, port: int):
-    """Bind the daemon's HTTP front end (daemon thread). Returns the
-    stdlib server; its ``server_address`` carries the bound port."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    from racon_tpu_torch.obs.export import CONTENT_TYPE, render_registry
+    """Bind the daemon's HTTP front end (daemon thread): the job API as
+    routes of obs/export.serve_metrics, which serves ``/healthz`` (the
+    watchdog's health with the daemon's jobs) and the metrics at every
+    other GET path. Returns the stdlib server; its ``server_address``
+    carries the bound port."""
+    from racon_tpu_torch.obs.export import render_registry, serve_metrics
     from racon_tpu_torch.obs.metrics import registry
     from racon_tpu_torch.resilience.watchdog import health_snapshot
 
-    class Handler(BaseHTTPRequestHandler):
-        def _reply(self, code: int, body: bytes,
-                   ctype: str = "application/json",
-                   headers: Optional[List[Tuple[str, str]]] = None
-                   ) -> None:
-            self.send_response(code)
-            self.send_header("Content-Type", ctype)
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in headers or []:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+    def _json(code: int, obj) -> tuple:
+        return (code, (json.dumps(obj, sort_keys=True) + "\n").encode(),
+                "application/json", ())
 
-        def _json(self, code: int, obj) -> None:
-            self._reply(code, (json.dumps(obj, sort_keys=True) +
-                               "\n").encode())
+    def _health() -> dict:
+        snap = dict(health_snapshot())
+        snap["serve"] = server.describe()
+        if server.fatal is not None and snap.get("status") == "ok":
+            snap["status"] = "device-lost"
+        return snap
 
-        def do_GET(self):  # noqa: N802 (stdlib naming)
-            try:
-                self._get()
-            except KeyError:
-                self._json(404, {"error": "no such job"})
-            except Exception as exc:  # handler must not kill the daemon
-                self._json(500, {"error": str(exc)})
+    def _get(path: str):
+        if path == "/v1/jobs":
+            return _json(200, server.describe())
+        if path.startswith("/v1/jobs/") and path.endswith("/stream"):
+            job = server.get(path.split("/")[3])
+            return (200, job.result_bytes(), "application/octet-stream",
+                    [("X-Racon-State", job.state)])
+        if path.startswith("/v1/jobs/"):
+            return _json(200, server.get(path.split("/")[3]).status())
+        return None
 
-        def _get(self) -> None:
-            path = self.path.rstrip("/")
-            if path == "/healthz":
-                snap = dict(health_snapshot())
-                snap["serve"] = server.describe()
-                if server.fatal is not None and snap.get("status") == "ok":
-                    snap["status"] = "device-lost"
-                self._json(200 if snap.get("status") == "ok" else 503,
-                           snap)
-            elif path == "/v1/jobs":
-                self._json(200, server.describe())
-            elif path.startswith("/v1/jobs/") and \
-                    path.endswith("/stream"):
-                job = server.get(path.split("/")[3])
-                self._reply(200, job.result_bytes(),
-                            ctype="application/octet-stream",
-                            headers=[("X-Racon-State", job.state)])
-            elif path.startswith("/v1/jobs/"):
-                self._json(200, server.get(path.split("/")[3]).status())
-            else:
-                self._reply(200, render_registry(
-                    registry().snapshot()).encode(), ctype=CONTENT_TYPE)
+    def _post(path: str, body: bytes):
+        if path == "/v1/jobs":
+            req = json.loads(body or b"{}")
+            spec = JobSpec(str(req["sequences"]), str(req["overlaps"]),
+                           str(req["targets"]), **req.get("options", {}))
+            job = server.submit(req.get("tenant", "default"), spec)
+            return _json(202, {"id": job.id, "state": job.state})
+        if path.startswith("/v1/jobs/") and path.endswith("/cancel"):
+            return _json(200, server.cancel(path.split("/")[3]).status())
+        return None
 
-        def do_POST(self):  # noqa: N802 (stdlib naming)
-            try:
-                self._post()
-            except KeyError:
-                self._json(404, {"error": "no such job"})
-            except (ValueError, RuntimeError, TypeError) as exc:
-                self._json(400, {"error": str(exc)})
-            except Exception as exc:  # handler must not kill the daemon
-                self._json(500, {"error": str(exc)})
+    def routes(method: str, path: str, body: bytes):
+        try:
+            return _get(path) if method == "GET" else _post(path, body)
+        except KeyError:
+            return _json(404, {"error": "no such job"})
+        except (ValueError, RuntimeError, TypeError) as exc:
+            if method == "GET":
+                raise
+            return _json(400, {"error": str(exc)})
 
-        def _post(self) -> None:
-            path = self.path.rstrip("/")
-            if path == "/v1/jobs":
-                length = int(self.headers.get("Content-Length", "0"))
-                req = json.loads(self.rfile.read(length) or b"{}")
-                spec = JobSpec(str(req["sequences"]),
-                               str(req["overlaps"]),
-                               str(req["targets"]),
-                               **req.get("options", {}))
-                job = server.submit(req.get("tenant", "default"), spec)
-                self._json(202, {"id": job.id, "state": job.state})
-            elif path.startswith("/v1/jobs/") and \
-                    path.endswith("/cancel"):
-                job = server.cancel(path.split("/")[3])
-                self._json(200, job.status())
-            else:
-                self._json(404, {"error": "unknown endpoint"})
-
-        def log_message(self, *args):  # silence per-request stderr
-            pass
-
-    httpd = ThreadingHTTPServer((host, int(port)), Handler)
-    thread = threading.Thread(target=httpd.serve_forever,
-                              name="serve-http", daemon=True)
-    thread.start()
-    return httpd
+    return serve_metrics(port, lambda: render_registry(
+        registry().snapshot()), host=host, health=_health, routes=routes,
+        name="serve-http")
 
 
 # --------------------------------------------------------------- entry

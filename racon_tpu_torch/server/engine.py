@@ -1,8 +1,8 @@
 """The embeddable polishing engine: one library, thin frontends (port of
 the JAX package's ``server/engine.py``).
 
-The serial CLI (cli.py) and the resident daemon (server/daemon.py) run
-the same sequence — build a Polisher from option values, initialize,
+The serial CLI (cli.py), the ledger worker (distributed/worker.py) and
+the resident daemon (server/daemon.py) run the same sequence — build a Polisher from option values, initialize,
 skip committed targets, drive ``Polisher.polish_records``, interleave
 checkpoint re-emission with fresh records, commit each record durably.
 :func:`polish_job` is the one implementation; frontends differ only in
@@ -19,7 +19,7 @@ resumes under the other's.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from racon_tpu_torch import __version__
 
@@ -133,46 +133,73 @@ def build_polisher(spec: JobSpec, logger=None, engine=None):
 
 class JobHooks:
     """Per-record side-effect hooks threaded through :func:`polish_job`
-    (no-op defaults):
+    (no-op defaults). The CLI and the daemon use the middle three; the
+    ledger worker (distributed/worker.py) installs lease renewal, its
+    fault drills and the shard-split protocol through all six:
 
+    - ``range_end(default)`` — the loop's current exclusive end; the
+      worker returns its claim's end, which shrinks when a split donates
+      the tail mid-run;
+    - ``before_build(first_tid)`` — with the first uncommitted tid, just
+      before the Polisher is built (the worker's claim-time split, before
+      any window exists);
     - ``on_resume(n_committed, n_windows_skipped)`` — after committed
       targets were pruned (the CLI's resume stderr line);
     - ``before_commit(tid, rec)`` — before the record is emitted and
-      committed (daemon: cancellation check + ``serve/commit`` site);
-    - ``after_commit(tid, rec)`` — after the durable commit.
+      committed (worker: ``dist/contig``, lease renewal, metric flush;
+      daemon: cancellation check + ``serve/commit`` site);
+    - ``after_commit(tid, rec)`` — after the durable commit (worker:
+      dist accounting, the post-commit split);
+    - ``before_fill(tid)`` — before each zero-window drop commit
+      (worker: lease renewal).
     """
 
-    def __init__(self, *, on_resume: Optional[Callable] = None,
+    def __init__(self, *, range_end: Optional[Callable] = None,
+                 before_build: Optional[Callable] = None,
+                 on_resume: Optional[Callable] = None,
                  before_commit: Optional[Callable] = None,
-                 after_commit: Optional[Callable] = None):
+                 after_commit: Optional[Callable] = None,
+                 before_fill: Optional[Callable] = None):
+        self.range_end = range_end or (lambda default: default)
+        self.before_build = before_build or (lambda first_tid: None)
         self.on_resume = on_resume or (lambda n_committed, n_skip: None)
         self.before_commit = before_commit or (lambda tid, rec: None)
         self.after_commit = after_commit or (lambda tid, rec: None)
+        self.before_fill = before_fill or (lambda tid: None)
 
 
 def polish_job(make_polisher: Callable, *, drop_unpolished: bool = True,
-               store=None, emit: Optional[Callable[[bytes], None]] = None,
+               store=None, tid_range: Optional[Tuple[int, int]] = None,
+               emit: Optional[Callable[[bytes], None]] = None,
                fill_drops: bool = False,
                hooks: Optional[JobHooks] = None) -> int:
-    """The one polish/commit/emit loop. Returns the job's number of
-    targets.
+    """The one polish/commit/emit loop. Returns the number of targets in
+    the job's final range.
 
     - ``store``: optional CheckpointStore; committed targets are
       pruned from compute and (when ``emit`` is set) re-emitted
       byte-identically from the shard, interleaved in input order with
       freshly polished records.
+    - ``tid_range``: only the targets ``[start, end)`` (a ledger shard);
+      None polishes them all. When every target of the range is
+      committed, no Polisher is built.
     - ``emit``: byte sink for the FASTA stream (stdout for the CLI, the
-      job's result spool for the daemon).
+      job's result spool for the daemon; the ledger worker passes None,
+      its merge emits).
     - ``fill_drops``: commit targets that never reach the assembler
       (zero windows) as drops, so "every tid committed" is the
-      completion invariant (the daemon's contract; the CLI keeps the
-      JAX package CLI's manifests, which omit them).
+      completion invariant (the worker's and daemon's contract; the CLI
+      keeps the JAX package CLI's manifests, which omit them).
     """
     from racon_tpu_torch.obs.metrics import record_ckpt
 
     hooks = hooks if hooks is not None else JobHooks()
     committed = store.committed if store is not None else {}
-    next_tid = 0
+    if tid_range is not None:
+        start, end = int(tid_range[0]), int(tid_range[1])
+    else:
+        start, end = 0, None
+    next_tid = start
 
     def emit_stored(limit: int) -> None:
         # Re-emit committed contigs (exact shard bytes) for every target
@@ -189,34 +216,50 @@ def polish_job(make_polisher: Callable, *, drop_unpolished: bool = True,
                             len(blob) if blob else 0)
             next_tid += 1
 
-    polisher = make_polisher()
-    polisher.initialize()
-    end = polisher._targets_size
-    n_skip = polisher.skip_targets(committed) if committed else 0
-    hooks.on_resume(len(committed), n_skip)
-    # Each contig is handled the moment its last window retires, then
-    # durably committed before the next one.
-    for tid, rec in polisher.polish_records(drop_unpolished):
-        hooks.before_commit(tid, rec)
-        emit_stored(tid)
-        if emit is not None and rec is not None:
-            emit(b">" + rec.name.encode() + b"\n" + rec.data + b"\n")
-        if store is not None:
-            if rec is not None:
-                store.commit(tid, rec.name.encode(), rec.data)
-            else:
-                store.commit_dropped(tid)
-        hooks.after_commit(tid, rec)
-        next_tid = tid + 1
+    if end is None or any(tid not in committed
+                          for tid in range(start, end)):
+        first = start
+        while first in committed:
+            first += 1
+        hooks.before_build(first)
+        polisher = make_polisher()
+        polisher.initialize()
+        if end is None:
+            end = polisher._targets_size
+        if tid_range is not None:
+            polisher.restrict_targets(range(start, end))
+        n_skip = polisher.skip_targets(committed) if committed else 0
+        hooks.on_resume(len(committed), n_skip)
+        # Each contig is handled the moment its last window retires,
+        # then durably committed before the next one.
+        for tid, rec in polisher.polish_records(drop_unpolished):
+            if tid >= hooks.range_end(end):
+                break  # the range shrank under us (a split's donation)
+            hooks.before_commit(tid, rec)
+            emit_stored(tid)
+            if emit is not None and rec is not None:
+                emit(b">" + rec.name.encode() + b"\n" + rec.data + b"\n")
+            if store is not None:
+                if rec is not None:
+                    store.commit(tid, rec.name.encode(), rec.data)
+                else:
+                    store.commit_dropped(tid)
+            hooks.after_commit(tid, rec)
+            next_tid = tid + 1
+    else:
+        hooks.on_resume(len(committed), 0)
 
+    end = hooks.range_end(end)
     if fill_drops and store is not None:
         # Targets with zero windows never reach the assembler, so they
-        # yield nothing above — commit them as drops explicitly.
-        for tid in range(end):
+        # yield nothing above — commit them as drops explicitly, so a
+        # done marker means every tid of the range is accounted for.
+        for tid in range(start, end):
             if tid not in committed:
+                hooks.before_fill(tid)
                 store.commit_dropped(tid)
     emit_stored(end)
-    return end
+    return end - start
 
 
 class EngineSession:

@@ -66,6 +66,44 @@ def atomic_write_text(path: str, text: str,
     atomic_write_bytes(path, text.encode(encoding))
 
 
+class atomic_writer:
+    """Context manager for a streaming atomic write: yields a binary
+    handle on ``<path>.tmp.<pid>``; a clean exit fsyncs it and renames
+    it onto ``path``, an exception removes it and re-raises, so readers
+    of ``path`` see old or new, never a partial file, even when the
+    writer dies mid-stream. For payloads too large to buffer (the work
+    ledger's merged FASTA); :func:`atomic_write_bytes` is the one-shot
+    form."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.tmp = f"{path}.tmp.{os.getpid()}"
+        self._fh = None
+
+    def __enter__(self):
+        self._fh = open(self.tmp, "wb")
+        return self._fh
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        fh = self._fh
+        self._fh = None
+        if exc_type is not None:
+            try:
+                fh.close()
+            finally:
+                try:
+                    os.remove(self.tmp)
+                except OSError:
+                    pass
+            return False
+        fh.flush()
+        os.fsync(fh.fileno())
+        fh.close()
+        os.replace(self.tmp, self.path)
+        fsync_dir(os.path.dirname(os.path.abspath(self.path)))
+        return False
+
+
 def atomic_finalize(tmp_path: str, final_path: str) -> None:
     """Promote an already-written (and closed) tmp file to its final
     name atomically. The caller is responsible for having fsync'd the

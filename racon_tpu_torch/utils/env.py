@@ -75,15 +75,55 @@ default when the variable is unset):
   ``<state-dir>/cache``), ``RACON_TPU_CACHE_MAX_MB`` (256: the job CAS's
   byte bound), ``RACON_TPU_CACHE_WINDOWS`` ("0" or "false" turns the
   window memo off).
-- ``RACON_TPU_GATE_FLEET`` (0): the fleet route; the port has no fleet
-  yet, so the daemon refuses to start with it armed;
+- ``RACON_TPU_GATE_FLEET`` (0): the gateway's fleet route; the port has
+  the ledger fleet (distributed/) but not yet the gateway's route to it,
+  so the daemon refuses to start with it armed;
   ``RACON_TPU_GATE_LEASE_S`` (10) and ``RACON_TPU_GATE_STANDBY_POLL_S``
   (0.2): the state-dir lease's term and a standby's poll.
 - ``RACON_TPU_AVA_COMPACT`` (unset = every 64 sealed segments, 0 = never):
   the v2 checkpoint manifest's compaction; ``RACON_TPU_AVA_SEG`` (unset:
   256 targets a segment for ``-f`` runs, v1 manifests otherwise).
 - ``RACON_TPU_FLIGHT_EVENTS`` (unset = 256, 0 = off): the flight
-  recorder's ring; ``RACON_TPU_OBS_DIR`` (path): where it dumps.
+  recorder's ring; ``RACON_TPU_OBS_DIR`` (path): where it dumps, and
+  the serial CLI's opt-in to a fleet metric shard (obs/fleet.py) in
+  that directory — the JAX package's two uses.
+
+The ledger fleet's gates (distributed/, obs/fleet.py, ava/, cli.py),
+with the JAX package's defaults:
+
+- ``RACON_TPU_DIST_SHARDS`` (unset = 2 x ``--workers``): the shard count
+  the first worker publishes; ``RACON_TPU_DIST_POLL`` (unset = lease/10
+  within [0.05, 1] s): a worker's claim poll; ``RACON_TPU_DIST_AVOID``
+  (comma list): shard names a worker claims last (the autoscaler seeds
+  it when it replaces a self-evicted worker).
+- ``RACON_TPU_SPLIT`` (1; "0", "false", "no" or "off" turns it off):
+  dynamic shard splitting; ``RACON_TPU_SPLIT_AFTER_S`` (unset = max(5,
+  lease) s): how long a shard is held before it may split;
+  ``RACON_TPU_SPLIT_DEPTH`` (unset = 1): split generations allowed.
+- ``RACON_TPU_AUTOSCALE_MIN`` (1), ``_MAX`` (``--workers``),
+  ``_INTERVAL_S`` (0.5, floor 0.05), ``_MAX_SPAWNS`` (max(8, 4 x MAX)),
+  ``_DEADLINE_S`` (0 = none) and ``_FAULT_PLAN`` (a JSON list of
+  ``RACON_TPU_FAULTS`` specs, one a spawn ordinal): the supervisor's
+  policy (distributed/autoscaler.py).
+- ``RACON_TPU_OBS_FLUSH_S`` (unset = 5; 0 = every call): a worker's
+  metric-shard cadence; ``RACON_TPU_STRAGGLER_FRAC`` (unset = 0.5, in
+  (0, 1]): the fraction of the fleet's median windows a second below
+  which a worker is flagged a straggler.
+- ``RACON_TPU_TRACE_CTX`` (``<trace_id>:<parent_id>``): a trace context
+  handed to this process (obs/trace.py::adopt_trace_context).
+- ``RACON_TPU_METRICS_PORT`` (port): the CLI's OpenMetrics pull endpoint
+  with ``/healthz``; a ledger member answers ``/healthz`` with the
+  fleet's view (obs/export.py::fleet_health).
+- ``RACON_TPU_AVA_WEIGHTED`` (1; "0", "false", "no" or "off" turns it
+  off): length-weighted shard bounds for ``-f`` ledgers
+  (ava/partition.py).
+- ``RACON_TPU_AVA_COMPILE_BUDGET`` (unset = 8; a positive int): the most
+  shape buckets the ava planner may plan (ava/planner.py). In the JAX
+  package each bucket is an XLA compile. On CUDA nothing compiles per
+  shape — the kernels are built once, with nvcc — so here the budget
+  bounds the number of distinct overlap geometries a run presents to
+  the kernels (the plan's ``compile_keys``), not a compile count; the
+  plan and its ``ava_*`` gauges are the JAX package's numbers.
 """
 
 from __future__ import annotations
@@ -134,11 +174,29 @@ AVA_COMPACT = "RACON_TPU_AVA_COMPACT"
 AVA_SEG = "RACON_TPU_AVA_SEG"
 FLIGHT_EVENTS = "RACON_TPU_FLIGHT_EVENTS"
 OBS_DIR = "RACON_TPU_OBS_DIR"
+DIST_SHARDS = "RACON_TPU_DIST_SHARDS"
+DIST_POLL = "RACON_TPU_DIST_POLL"
+DIST_AVOID = "RACON_TPU_DIST_AVOID"
+SPLIT = "RACON_TPU_SPLIT"
+SPLIT_AFTER_S = "RACON_TPU_SPLIT_AFTER_S"
+SPLIT_DEPTH = "RACON_TPU_SPLIT_DEPTH"
+AUTOSCALE_MIN = "RACON_TPU_AUTOSCALE_MIN"
+AUTOSCALE_MAX = "RACON_TPU_AUTOSCALE_MAX"
+AUTOSCALE_INTERVAL_S = "RACON_TPU_AUTOSCALE_INTERVAL_S"
+AUTOSCALE_MAX_SPAWNS = "RACON_TPU_AUTOSCALE_MAX_SPAWNS"
+AUTOSCALE_DEADLINE_S = "RACON_TPU_AUTOSCALE_DEADLINE_S"
+AUTOSCALE_FAULT_PLAN = "RACON_TPU_AUTOSCALE_FAULT_PLAN"
+OBS_FLUSH_S = "RACON_TPU_OBS_FLUSH_S"
+STRAGGLER_FRAC = "RACON_TPU_STRAGGLER_FRAC"
+TRACE_CTX = "RACON_TPU_TRACE_CTX"
+METRICS_PORT = "RACON_TPU_METRICS_PORT"
+AVA_WEIGHTED = "RACON_TPU_AVA_WEIGHTED"
+AVA_COMPILE_BUDGET = "RACON_TPU_AVA_COMPILE_BUDGET"
 #: Gates whose unset value is not "" (the JAX package's defaults).
 _DEFAULTS = {SERVE_BATCH: "256", SERVE_BATCH_WAIT_S: "0.05",
              SERVE_QUEUE: "64", SERVE_MAX_JOBS: "4", SERVE_GRACE_S: "30",
              CACHE_MAX_MB: "256", GATE_FLEET: "0", GATE_LEASE_S: "10",
-             GATE_STANDBY_POLL_S: "0.2"}
+             GATE_STANDBY_POLL_S: "0.2", SPLIT: "1", AVA_WEIGHTED: "1"}
 _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           PIPELINE_DEPTH, WALK_ASYNC, WALK_QUEUE, STALL_S, INGEST,
           INGEST_WORKERS, FAULTS, FAULT_STALL_S, FAULT_HANG_S, RETRY,
@@ -147,7 +205,12 @@ _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           TRACE, TRACE_XPROF, SERVE_BATCH, SERVE_BATCH_WAIT_S, SERVE_QUEUE,
           SERVE_MAX_JOBS, SERVE_GRACE_S, SERVE_SPOOL_MB, CACHE, CACHE_DIR,
           CACHE_MAX_MB, CACHE_WINDOWS, GATE_FLEET, GATE_LEASE_S,
-          GATE_STANDBY_POLL_S, AVA_COMPACT, AVA_SEG, FLIGHT_EVENTS, OBS_DIR)
+          GATE_STANDBY_POLL_S, AVA_COMPACT, AVA_SEG, FLIGHT_EVENTS, OBS_DIR,
+          DIST_SHARDS, DIST_POLL, DIST_AVOID, SPLIT, SPLIT_AFTER_S,
+          SPLIT_DEPTH, AUTOSCALE_MIN, AUTOSCALE_MAX, AUTOSCALE_INTERVAL_S,
+          AUTOSCALE_MAX_SPAWNS, AUTOSCALE_DEADLINE_S, AUTOSCALE_FAULT_PLAN,
+          OBS_FLUSH_S, STRAGGLER_FRAC, TRACE_CTX, METRICS_PORT,
+          AVA_WEIGHTED, AVA_COMPILE_BUDGET)
 
 
 def read(name: str) -> str:

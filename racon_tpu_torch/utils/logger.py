@@ -58,8 +58,12 @@ class Logger:
             self._bar = 0
             elapsed = time.perf_counter() - self._phase_t0
             print(f"{msg} {elapsed:.6f} s", file=self.stream)
+        from racon_tpu_torch.obs.metrics import record_phase_seconds
         from racon_tpu_torch.obs.trace import get_tracer
         get_tracer().emit("phase", msg, self._phase_t0, elapsed)
+        # The always-on counterpart of the span: per-phase seconds feed
+        # the fleet model (obs/fleet.py) with tracing off.
+        record_phase_seconds(msg, elapsed)
 
     def tick(self, msg: str) -> None:
         """Advance a 20-step progress bar — ``(*logger)["msg"]``."""

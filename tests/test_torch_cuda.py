@@ -1891,3 +1891,103 @@ def test_kernel_error_in_a_dispatch_stops_the_daemon(cuda, tmp_path,
         server.submit("acme", JobSpec(*_serve_inputs(tmp_path, 5, 1)))
     assert server.describe()["device_lost"]
     server.drain(10.0)
+
+
+# --------------------------------------------------------- ledger fleet
+
+def _ledger_cli(argv):
+    from test_torch_pipeline import _run_cli
+    return _run_cli(argv)
+
+
+def test_ledger_worker_on_the_card_matches_serial(cuda, tmp_path,
+                                                  monkeypatch,
+                                                  fault_plane):
+    """One ledger worker on the card (two shards, each its own polisher)
+    gives the serial cuda run's bytes, launching the consensus kernels
+    (K1, W1, M1, M2) on the card and publishing them in its metric shard;
+    then an eviction at the second contig of a one-shard ledger and a
+    thief with a skewed lease clock: the same bytes, and the thief
+    polishes fewer windows than the whole run (it resumes the victim's
+    commit) on the card's kernels."""
+    from racon_tpu_torch.obs import fleet, metrics
+    from racon_tpu_torch.resilience import faults
+    paths = _serve_inputs(tmp_path, 21, 3)
+    kernels.reset_launches()
+    rc, base, err = _ledger_cli([*paths, "--device", "cuda"])
+    assert rc == 0, err[-2000:]
+    serial = dict(kernels.LAUNCHES)
+    serial_windows = metrics.registry().get("poa_windows_total")
+    assert serial["merge_votes"] > 0 and base.count(b">") == 3
+    monkeypatch.setattr(fleet, "_WRITER", None)
+    kernels.reset_launches()
+    ovl_align.reset_stats()
+    ld = str(tmp_path / "ledger")
+    rc, out, err = _ledger_cli([*paths, "--device", "cuda", "--ledger-dir",
+                                ld, "--worker-id", "w0"])
+    assert rc == 0, err[-2000:]
+    assert out == base
+    n = dict(kernels.LAUNCHES)
+    for name in ("band_fwd", "col_walk", "merge_votes"):
+        assert n[name] > 0, name
+    assert n["merge_windows"] + n["merge_windows_sched"] == \
+        n["merge_votes"]
+    last = fleet.load_worker_shards(fleet.obs_dir_for(ld))[0]["records"][-1]
+    m = last["metrics"]
+    assert last["final"]
+    assert m["kernel_launches_merge_votes"] == n["merge_votes"]
+    assert 0 < m["kernel_launches_band_fwd_consensus"] <= n["band_fwd"]
+    # Eviction and steal, one shard.
+    monkeypatch.setenv("RACON_TPU_DIST_SHARDS", "1")
+    monkeypatch.setattr(fleet, "_WRITER", None)
+    ld2 = str(tmp_path / "ledger2")
+    faults.configure("dist/contig:1")
+    with pytest.raises(faults.InjectedFault):
+        _ledger_cli([*paths, "--device", "cuda", "--ledger-dir", ld2,
+                     "--worker-id", "victim"])
+    faults.configure("skew=1e9")
+    monkeypatch.setattr(fleet, "_WRITER", None)
+    kernels.reset_launches()
+    metrics.reset()
+    rc, out, err = _ledger_cli([*paths, "--device", "cuda", "--ledger-dir",
+                                ld2, "--worker-id", "thief"])
+    assert rc == 0, err[-2000:]
+    assert out == base
+    assert kernels.LAUNCHES["merge_votes"] > 0
+    assert 0 < metrics.registry().get("poa_windows_total") < serial_windows
+    assert "resumes 1/3 committed contig(s)" in err
+
+
+def test_sigterm_teardown_on_the_card(cuda, tmp_path, fault_plane):
+    """The signal path on the card: SIGTERM at the second checkpoint
+    commit ends the CLI with 143, the first contig on stdout and in the
+    store, as on the CPU; a --resume on the card gives the whole serial
+    bytes."""
+    import os
+    import subprocess
+    import sys
+    paths = _serve_inputs(tmp_path, 21, 3)
+    rc, base, err = _ledger_cli([*paths, "--device", "cuda"])
+    assert rc == 0, err[-2000:]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, RACON_TPU_FAULTS="ckpt/commit:1!term",
+               PYTHONPATH=root)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = subprocess.run(
+            [sys.executable, "-m", "racon_tpu_torch.cli", "--device", dev,
+             *paths, "--checkpoint-dir", str(tmp_path / dev)],
+            capture_output=True, env=env, cwd=root, timeout=600)
+        assert runs[dev].returncode == 143, runs[dev].stderr[-2000:]
+    assert runs["cuda"].stdout == runs["cpu"].stdout
+    assert base.startswith(runs["cuda"].stdout) and runs["cuda"].stdout
+    assert b"interrupted (signal 15); 1 contig(s) committed" in \
+        runs["cuda"].stderr
+    for f in ("manifest.jsonl", "contigs.fasta"):
+        assert (tmp_path / "cuda" / f).read_bytes() == \
+            (tmp_path / "cpu" / f).read_bytes()
+    rc, out, err = _ledger_cli([*paths, "--device", "cuda",
+                                "--checkpoint-dir", str(tmp_path / "cuda"),
+                                "--resume"])
+    assert rc == 0, err[-2000:]
+    assert out == base

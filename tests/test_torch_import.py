@@ -3,7 +3,9 @@
 A fresh interpreter imports ``racon_tpu_torch`` and every module of the
 package, then reports which modules are loaded; a static scan checks
 that no source file of the port, nor its scripts at the repository root,
-names ``jax`` or ``racon_tpu.`` in an import statement.
+names ``jax`` or ``racon_tpu.`` in an import statement, nor names the
+reference's CLI module (``racon_tpu.cli``) anywhere — the autoscaler's
+workers run the port's CLI.
 """
 
 import ast
@@ -57,6 +59,10 @@ def test_port_modules_found():
     for name in ("faults", "retry", "watchdog"):
         assert f"racon_tpu_torch.resilience.{name}" in mods
     assert "racon_tpu_torch.obs.trace" in mods
+    for name in ("distributed.ledger", "distributed.worker",
+                 "distributed.autoscaler", "obs.fleet", "ava.partition",
+                 "ava.planner"):
+        assert f"racon_tpu_torch.{name}" in mods
 
 
 def test_import_loads_no_jax_and_no_reference_module():
@@ -87,3 +93,11 @@ def test_source_imports_nothing_forbidden(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.append(node.module)
     assert [n for n in names if _forbidden(n)] == []
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_never_runs_the_reference_cli(path):
+    """No spawned argv (nor anything else) names ``racon_tpu.cli``."""
+    with open(path) as fh:
+        assert "racon_tpu.cli" not in fh.read()

@@ -180,7 +180,9 @@ def test_sites_table_lists_the_ports_sites():
                             "cache/store", "ckpt/commit", "ckpt/manifest",
                             "gate/adopt", "gate/route", "obs/flight",
                             "serve/commit", "serve/dispatch",
-                            "serve/submit"}
+                            "serve/submit", "dist/claim", "dist/contig",
+                            "dist/merge", "dist/merge_write",
+                            "dist/shard", "dist/split", "obs/snapshot"}
     assert F.SITE_PREFIXES == ("pipe/",)
 
 
