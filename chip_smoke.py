@@ -238,6 +238,31 @@ any failure exits non-zero and prints no result):
               shard published consensus K1 launches above 0 in its
               metric shard. The kernels line adds each row's launches in
               B's run.
+12. gateway   the gateway's fleet route and the wrapper tools on the card
+              (gateway/, tools/), on phase 11's 5-contig cut and its
+              serial bytes, one JSON line a part: (a) an in-process
+              PolishServer with RACON_TPU_GATE_FLEET=1, _MIN_TARGETS=2,
+              RACON_TPU_GATE_WORKERS=2 and its cache off routes the job
+              to the fleet: a supervisor in the job's runner thread
+              spawns two worker processes of the CLI on the card; the
+              stream is the serial bytes, gate_routed_fleet and
+              gate_fleet_runs are 1, the workers' metric shards show
+              consensus K1, K3, W1, M1 and M2 launches above 0 (counted
+              from 0 in each new worker process; W1's cases add up to its
+              count, one consensus walk a consensus K1), this process launched
+              nothing (counts reset just before), and the card's used
+              memory (all processes) stays under 80 GB; (b) the same
+              fingerprint again replays the finished ledger: the same
+              bytes, no spawn, no launch; (c) with _MIN_TARGETS=99 the
+              job routes local through this process's batcher, the same
+              bytes; (d) python -m racon_tpu_torch.tools.wrapper --split
+              120000 (3 chunks) as a subprocess: the serial bytes; then
+              chunk_1.fasta deleted and --resume: the same bytes, only
+              that chunk rewritten; each run's metric shard (under
+              RACON_TPU_OBS_DIR) shows consensus K1 and K3 launches above
+              0, the resumed run fewer consensus K1. The kernels line
+              adds each row's launches in (a)'s workers, K1 and W1 by
+              case.
 
 The line before the last holds the kernel records, the line before it
 the card's name and power limit, the last line the ok record.
@@ -1667,24 +1692,39 @@ def phase_pipeline(device, serial):
 
 
 @contextlib.contextmanager
-def fault_plan(spec, **gates):
-    """Run the block under the fault plan ``spec`` and the env ``gates``
-    (the retry policy re-read from them), then clear both."""
-    from racon_tpu_torch.resilience import faults, retry, watchdog
-    saved = {k: os.environ.get(k) for k in gates}
-    os.environ.update(gates)
-    retry.configure(None)
-    watchdog.reset()
-    faults.configure(spec)
+def _environ(**kw):
+    """Set (a str) or unset (None) environment variables for the block."""
+    saved = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
-        faults.configure(None)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def fault_plan(spec, **gates):
+    """Run the block under the fault plan ``spec`` and the env ``gates``
+    (the retry policy re-read from them), then clear both."""
+    from racon_tpu_torch.resilience import faults, retry, watchdog
+    try:
+        with _environ(**gates):
+            retry.configure(None)
+            watchdog.reset()
+            faults.configure(spec)
+            try:
+                yield
+            finally:
+                faults.configure(None)
+    finally:
         retry.configure(None)
 
 
@@ -2590,11 +2630,8 @@ def _serve_inproc(device, tmp, small, serial):
 
     # B and C one at a time, then together (no cache, a 3 s batch wait
     # so that the two co-ride whatever their alignment takes).
-    gates = {"RACON_TPU_CACHE": "0", "RACON_TPU_SERVE_BATCH_WAIT_S": "3"}
-    saved = {k: os.environ.get(k) for k in gates}
-    os.environ.update(gates)
     occ = {}
-    try:
+    with _environ(RACON_TPU_CACHE="0", RACON_TPU_SERVE_BATCH_WAIT_S="3"):
         for mode in ("solo", "together"):
             server = PolishServer(os.path.join(tmp, f"serve_{mode}"))
             try:
@@ -2624,12 +2661,6 @@ def _serve_inproc(device, tmp, small, serial):
                     aligned_jobs=dict(ovl_align.STATS))
             finally:
                 server.drain(30.0)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     rec["seconds"] = time.perf_counter() - t0
     rec["occupancy_solo"] = occ["solo"]
     rec["occupancy_together"] = occ["together"]
@@ -3051,6 +3082,7 @@ def _fleet_autoscale(device, tmp):
     if not polishers or any(k1[w] <= 0 for w in polishers):
         fail(f"fleet: a polishing worker launched no consensus K1 on the "
              f"card: {k1}")
+    return {"paths": p, "argv": argv, "out": base, "serial_s": serial_s}
 
 
 def phase_fleet(device, tmp, serial):
@@ -3064,13 +3096,254 @@ def phase_fleet(device, tmp, serial):
         r = _fleet_steal(device, tmp, serial)
         steal_peak = mem.take()
         torch.cuda.empty_cache()
-        _fleet_autoscale(device, tmp)
+        cut = _fleet_autoscale(device, tmp)
         autoscale_peak = mem.take()
     emit("fleet", part="total", seconds=time.perf_counter() - t0,
          card_memory_peak_b=mem.peak, card_memory_total_b=mem.total,
          steal_peak_b=steal_peak, autoscale_peak_b=autoscale_peak,
          smoke_reserved_at_start_b=reserved)
-    return r
+    return r, cut
+
+
+# ---------------------------------------------------------- 12. gateway
+
+#: The wrapper's chunk size in bases: two of the cut's 50 kb contigs a
+#: chunk, so its 5 contigs make 3 chunks.
+WRAPPER_SPLIT = 120000
+#: The card's memory that the fleet job, with the smoke's own process,
+#: must stay under (bytes).
+GATEWAY_MEMORY_LIMIT = 80e9
+
+
+def _worker_launches(ledger_dir):
+    """Each fleet worker's kernel launches from its metric shard."""
+    from racon_tpu_torch.obs import fleet
+    model = fleet.aggregate(ledger_dir)
+    return {w: {k[len("kernel_launches_"):]: n
+                for k, n in v.get("metrics", {}).items()
+                if k.startswith("kernel_launches_")}
+            for w, v in model["workers"].items()}
+
+
+def _gateway_server(device, tmp, cut):
+    """Parts (a)-(c) of phase 12: one in-process PolishServer with the
+    fleet gate armed."""
+    from racon_tpu_torch.gateway.dispatch import fleet_paths
+    from racon_tpu_torch.obs import metrics
+    from racon_tpu_torch.ops import kernels
+    from racon_tpu_torch.server.daemon import PolishServer
+    import torch
+    server = PolishServer(os.path.join(tmp, "gateway"))
+    server.session.activate()
+    spec = _spec(cut["argv"], device)
+    ld = fleet_paths(server.state_dir, spec.fingerprint()).ledger_dir
+    recs = []
+    try:
+        with CardMemory() as mem:
+            # (a) routed to the fleet: two worker processes on the card.
+            t0 = time.perf_counter()
+            metrics.reset()
+            kernels.reset_launches()
+            job = server.submit("acme", spec)
+            job.finished.wait(300)
+            own = {k: n for k, n in kernels.launches().items() if n}
+            snap = metrics.registry().snapshot()
+            workers = _worker_launches(ld)
+            total = _sum_launches(workers.values())
+            spawns = [e for e in _events(ld) if e.get("ev") == "spawn"]
+            recs.append(dict(
+                part="fleet", seconds=time.perf_counter() - t0,
+                state=job.state, error=job.error,
+                identical=job.result_bytes() == cut["out"],
+                routed_fleet=snap.get("gate_routed_fleet"),
+                routed_local=snap.get("gate_routed_local"),
+                fleet_runs=snap.get("gate_fleet_runs"),
+                fleet_wall_s=snap.get("gate_fleet_wall_s"),
+                fleet_target=snap.get("gate_fleet_target"),
+                spawns=len(spawns), worker_launches=workers,
+                launches=total, daemon_launches=own,
+                job_launches=job.launches,
+                card_memory_peak_b=mem.take(),
+                card_memory_total_b=mem.total))
+            # (b) the same fingerprint again: the finished ledger replays
+            # out.fasta; no spawn, no launch.
+            t0 = time.perf_counter()
+            kernels.reset_launches()
+            again = server.submit("acme", spec)
+            again.finished.wait(300)
+            recs.append(dict(
+                part="resubmit", seconds=time.perf_counter() - t0,
+                state=again.state,
+                identical=again.result_bytes() == cut["out"],
+                spawns=sum(1 for e in _events(ld)
+                           if e.get("ev") == "spawn"),
+                launches={k: n for k, n in kernels.launches().items()
+                          if n},
+                fleet_runs=metrics.registry().get("gate_fleet_runs")))
+            # (c) the size threshold raised: the same job routes local,
+            # through this process's batcher.
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            kernels.reset_launches()
+            with _environ(RACON_TPU_GATE_FLEET_MIN_TARGETS="99"):
+                local = server.submit("umbrella", spec)
+                local.finished.wait(300)
+            recs.append(dict(
+                part="local", seconds=time.perf_counter() - t0,
+                state=local.state, error=local.error,
+                identical=local.result_bytes() == cut["out"],
+                routed_local=metrics.registry().get("gate_routed_local"),
+                dispatches=sum(len(b.dispatches)
+                               for b in server.batchers()),
+                launches={k: n for k, n in kernels.launches().items()
+                          if n},
+                card_memory_peak_b=mem.take()))
+    finally:
+        server.drain(30.0)
+    return recs, total
+
+
+def _run_wrapper(argv, tmp, name):
+    """One wrapper subprocess: its stdout, seconds and kernel launches
+    (from its metric shard under RACON_TPU_OBS_DIR)."""
+    from racon_tpu_torch.obs import fleet
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_path, err_path, obs = (os.path.join(tmp, f"{name}{ext}")
+                               for ext in (".out", ".err", "_obs"))
+    t0 = time.perf_counter()
+    with open(out_path, "wb") as out, open(err_path, "wb") as err:
+        rc = subprocess.run(
+            [sys.executable, "-m", "racon_tpu_torch.tools.wrapper", *argv],
+            cwd=root, stdout=out, stderr=err, timeout=300,
+            env=dict(os.environ, RACON_TPU_OBS_DIR=obs)).returncode
+    seconds = time.perf_counter() - t0
+    with open(out_path, "rb") as fh:
+        blob = fh.read()
+    if rc != 0:
+        with open(err_path, "rb") as fh:
+            fail(f"gateway: the wrapper exited {rc}: "
+                 f"{fh.read().decode(errors='replace')[-2000:]}")
+    shards = fleet.load_worker_shards(obs)
+    if len(shards) != 1 or not shards[0]["records"][-1]["final"]:
+        fail(f"gateway: the wrapper left {len(shards)} metric shards, or "
+             f"no final snapshot, under {obs}")
+    launches = {k[len("kernel_launches_"):]: n for k, n in
+                shards[0]["records"][-1]["metrics"].items()
+                if k.startswith("kernel_launches_")}
+    return blob, seconds, launches
+
+
+def _gateway_wrapper(device, tmp, cut):
+    """Part (d) of phase 12: the wrapper as a subprocess on the card,
+    then one chunk deleted and --resume."""
+    p = cut["paths"]
+    work = os.path.join(tmp, "wrapper_work")
+    argv = [p["reads"], p["overlaps"], p["draft"], "--split",
+            str(WRAPPER_SPLIT), "--work-directory", work, "--resume",
+            "--device", device]
+    out, first_s, first_launches = _run_wrapper(argv, tmp, "wrapper")
+    chunks = sorted(n for n in os.listdir(work) if n.startswith("chunk_"))
+    before = {n: os.stat(os.path.join(work, n)).st_ino for n in chunks}
+    os.unlink(os.path.join(work, "chunk_1.fasta"))
+    again, resume_s, resume_launches = _run_wrapper(argv, tmp, "wrapper2")
+    after = {n: os.stat(os.path.join(work, n)).st_ino for n in chunks
+             if os.path.exists(os.path.join(work, n))}
+    rewritten = sorted(n for n in chunks if after.get(n) != before[n])
+    return dict(part="wrapper", seconds=first_s + resume_s,
+                first_s=first_s, resume_s=resume_s, chunks=chunks,
+                identical=out == cut["out"],
+                resume_identical=again == cut["out"],
+                rewritten=rewritten, launches=first_launches,
+                resume_launches=resume_launches)
+
+
+def phase_gateway(device, tmp, cut):
+    """Phase 12 (module docstring): the gateway's fleet route and the
+    wrapper tools on the card, on phase 11's 5-contig cut."""
+    import torch
+    from racon_tpu_torch.pipeline import configure as configure_pipeline
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    configure_pipeline(0)
+    try:
+        with _environ(RACON_TPU_GATE_FLEET="1",
+                      RACON_TPU_GATE_FLEET_MIN_TARGETS="2",
+                      RACON_TPU_GATE_WORKERS="2", RACON_TPU_CACHE="0",
+                      RACON_TPU_AUTOSCALE_INTERVAL_S="0.2",
+                      RACON_TPU_OBS_FLUSH_S="0", RACON_TPU_FAULTS=None,
+                      RACON_TPU_METRICS_PORT=None, RACON_TPU_SCHED=None,
+                      PYTHONPATH=root + os.pathsep +
+                      os.environ.get("PYTHONPATH", "")):
+            recs, fleet_launches = _gateway_server(device, tmp, cut)
+    finally:
+        configure_pipeline(None)
+    torch.cuda.empty_cache()
+    recs.append(_gateway_wrapper(device, tmp, cut))
+    for rec in recs:
+        emit("gateway", **rec)
+    fleet, resub, local, wrap = recs
+    if fleet["state"] != "done" or not fleet["identical"]:
+        fail(f"gateway: the fleet job ended {fleet['state']} "
+             f"({fleet['error']}) or its stream differs from the serial "
+             f"bytes")
+    if (fleet["routed_fleet"], fleet["fleet_runs"], fleet["routed_local"]) \
+            != (1, 1, None):
+        fail(f"gateway: the fleet job was not routed to the fleet once: "
+             f"{fleet}")
+    m2 = fleet_launches.get("merge_windows", 0) + \
+        fleet_launches.get("merge_windows_sched", 0)
+    for k in ("band_fwd_consensus", "band_tile_fwd", "col_walk",
+              "merge_votes"):
+        if fleet_launches.get(k, 0) <= 0:
+            fail(f"gateway: the fleet's workers launched no {k}: "
+                 f"{fleet['worker_launches']}")
+    if m2 <= 0:
+        fail(f"gateway: the fleet's workers launched no M2: "
+             f"{fleet['worker_launches']}")
+    # W1 once a consensus round, as in phase 4: the shards' W1 cases
+    # add up to W1's count and the consensus walks to K1's.
+    walks = {c: fleet_launches.get(f"col_walk_{c}", 0)
+             for c in ("tiled", "untiled", "flat", "consensus")}
+    if sum(walks.values()) != fleet_launches.get("col_walk", 0) or \
+            walks["consensus"] != fleet_launches.get("band_fwd_consensus",
+                                                     0):
+        fail(f"gateway: the workers' W1 cases {walks} do not add up to "
+             f"W1's launches with one walk a consensus K1: "
+             f"{fleet['worker_launches']}")
+    if fleet["daemon_launches"] or fleet["job_launches"]:
+        fail(f"gateway: the daemon's own process launched "
+             f"{fleet['daemon_launches']} for the fleet job")
+    if not fleet["card_memory_peak_b"] < GATEWAY_MEMORY_LIMIT:
+        fail(f"gateway: the card's memory peaked at "
+             f"{fleet['card_memory_peak_b']} B")
+    if resub["state"] != "done" or not resub["identical"] or \
+            resub["spawns"] != fleet["spawns"] or resub["launches"] or \
+            resub["fleet_runs"] != 2:
+        fail(f"gateway: the resubmitted fingerprint spawned or launched: "
+             f"{resub}")
+    if local["state"] != "done" or not local["identical"] or \
+            local["routed_local"] != 1 or not local["dispatches"] or \
+            local["launches"].get("band_fwd", 0) <= 0:
+        fail(f"gateway: the local route failed or differs: {local}")
+    if not wrap["identical"] or not wrap["resume_identical"] or \
+            len(wrap["chunks"]) < 3 or \
+            wrap["rewritten"] != ["chunk_1.fasta"]:
+        fail(f"gateway: the wrapper's FASTA differs from the serial bytes "
+             f"or --resume repolished more than the missing chunk: {wrap}")
+    # Each wrapper run polished on the card: K1 and K3 launched in its
+    # process, the resumed run's one chunk fewer consensus rounds.
+    k1 = [r.get("band_fwd_consensus", 0)
+          for r in (wrap["launches"], wrap["resume_launches"])]
+    if min(k1) <= 0 or not k1[1] < k1[0] or \
+            min(r.get("band_tile_fwd", 0) for r in
+                (wrap["launches"], wrap["resume_launches"])) <= 0:
+        fail(f"gateway: a wrapper run launched no consensus K1 or no K3 "
+             f"on the card, or --resume as many as the first run: "
+             f"{wrap['launches']} then {wrap['resume_launches']}")
+    emit("gateway", part="total", seconds=time.perf_counter() - t0)
+    return fleet_launches
 
 
 def main() -> int:
@@ -3108,7 +3381,8 @@ def main() -> int:
         pipe_runs = phase_pipeline("cuda", serial)
         phase_faults("cuda", tmp, small, serial)
         phase_serve("cuda", tmp, small, serial)
-        fleet_run = phase_fleet("cuda", tmp, serial)
+        fleet_run, cut = phase_fleet("cuda", tmp, serial)
+        gateway_launches = phase_gateway("cuda", tmp, cut)
 
     rows = []
     for (name, k), r in recs.items():
@@ -3147,6 +3421,18 @@ def main() -> int:
                 counts[name]
                 for by_case, counts in pipe_runs +
                 [(launches_by_case(fleet_run), fleet_run["launches"])]]
+        # Phase 12's fleet workers, from their metric shards, which
+        # split K1 into consensus and overlap launches and W1 into its
+        # four cases; K5's T1 row is 0, as in the main path's column.
+        cons = gateway_launches.get("band_fwd_consensus", 0)
+        gateway = (cons if (name, k) == ("band_fwd", 4) else
+                   gateway_launches.get(name, 0) - cons
+                   if name == "band_fwd" else
+                   gateway_launches.get(
+                       f"col_walk_{'tiled' if k == 0 else k}", 0)
+                   if name == "col_walk" else
+                   0 if (name, k) == ("monotone_count", "T1") else
+                   gateway_launches.get(name, 0))
         rows.append({
             "name": (f"{name} ({label[k]})"
                      if name in ("col_walk", "band_fwd", "monotone_count")
@@ -3155,7 +3441,7 @@ def main() -> int:
             "source": f"racon_tpu_torch/csrc/{SOURCE[name]}",
             "replaces": REPLACES[name], "launches": launches,
             "pipeline_launches": pipe[0], "pipeline_fixed_launches": pipe[1],
-            "fleet_launches": pipe[2],
+            "fleet_launches": pipe[2], "gateway_launches": gateway,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),

@@ -51,8 +51,8 @@ from typing import Dict, List, Optional
 from racon_tpu_torch.distributed import ledger as dledger
 from racon_tpu_torch.distributed.ledger import LedgerError, WorkLedger
 from racon_tpu_torch.obs import fleet
-from racon_tpu_torch.obs.trace import (ENV_TRACE_CTX, env_trace_ctx,
-                                       parse_trace_ctx)
+from racon_tpu_torch.obs.trace import (ENV_TRACE, ENV_TRACE_CTX,
+                                       env_trace_ctx, parse_trace_ctx)
 from racon_tpu_torch.resilience.faults import ENV_FAULTS
 from racon_tpu_torch.resilience.watchdog import EXIT_SELF_EVICT
 from racon_tpu_torch.utils import env
@@ -178,12 +178,27 @@ def _load_fault_plan(log) -> List[str]:
 class Autoscaler:
     def __init__(self, ledger_dir: str, raw_argv: List[str], *,
                  policy: Optional[AutoscalePolicy] = None,
-                 default_max: int = 1, out=None, log=None):
+                 default_max: int = 1, out=None, log=None,
+                 extra_env: Optional[Dict[str, str]] = None,
+                 target_fn=None, trace_dir: Optional[str] = None):
         self.ledger_dir = ledger_dir
         self.policy = policy or AutoscalePolicy.from_env(default_max)
         self.out = out if out is not None else sys.stdout.buffer
         self.log = log if log is not None else sys.stderr
         self.argv = worker_argv(raw_argv)
+        # The gateway's hooks: extra_env is applied to every spawn's
+        # environment last (it wins over the fault-plan, avoid and trace
+        # handling: the caller owns those keys when it sets them), except
+        # RACON_TPU_METRICS_PORT, which no worker may inherit (_spawn);
+        # target_fn, when given, replaces decide() as the sizing policy
+        # of a tick (the same (open_work, policy) -> int contract);
+        # trace_dir gives every spawn its own trace file, so a fleet
+        # run's workers land as separate span streams beside the
+        # ledger's metric shards.
+        self.extra_env = {k: v for k, v in (extra_env or {}).items()
+                          if k != env.METRICS_PORT}
+        self.target_fn = target_fn
+        self.trace_dir = trace_dir
         self.fault_plan = _load_fault_plan(self.log)
         self.obs_dir = os.path.join(ledger_dir, fleet.OBS_SUBDIR)
         self.logs_dir = os.path.join(ledger_dir, "logs")
@@ -248,6 +263,12 @@ class Autoscaler:
             child_env[ENV_TRACE_CTX] = ctx
         else:
             child_env.pop(ENV_TRACE_CTX, None)
+        if self.trace_dir:
+            # One trace file a spawn: worker span streams must not
+            # clobber each other (or the supervisor's own trace).
+            child_env[ENV_TRACE] = os.path.join(self.trace_dir,
+                                                f"worker_{wid}.jsonl")
+        child_env.update(self.extra_env)
         argv = self.spawn_argv(wid)
         os.makedirs(self.logs_dir, exist_ok=True)
         log_fh = open(os.path.join(self.logs_dir, f"{wid}.log"), "ab")
@@ -433,7 +454,9 @@ class Autoscaler:
                         self._retire(len(self.procs), led, "drain")
                         drain_since = time.monotonic()
                 else:
-                    target = decide(open_work, pol)
+                    target = self.target_fn(open_work, pol) \
+                        if self.target_fn is not None \
+                        else decide(open_work, pol)
                     live = sum(1 for w in self.procs
                                if not w["retiring"])
                     while live < target:

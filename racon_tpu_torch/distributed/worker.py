@@ -114,16 +114,21 @@ def _live_workers(ledger_dir: str) -> int:
 def record_kernel_launches(reg: Optional[obs_metrics.Registry] = None
                            ) -> None:
     """This process's CUDA kernel launches (ops/kernels.LAUNCHES) as the
-    counters ``kernel_launches_<name>``, and the consensus band
-    forward's (K1's launches less the overlap aligner's untiled groups)
-    as ``kernel_launches_band_fwd_consensus``. A worker publishes them
-    before each metric flush, so its shard shows that it ran its shards
+    counters ``kernel_launches_<name>``, the consensus band forward's
+    (K1's launches less the overlap aligner's untiled groups) as
+    ``kernel_launches_band_fwd_consensus``, and the walk's (W1's) by
+    case as ``kernel_launches_col_walk_{tiled,untiled,flat,consensus}``:
+    one walk an overlap group of either route, one in the flat layout
+    after each full-width forward (K2), and the consensus engine's
+    band-layout walks as what is left. A worker publishes them before
+    each metric flush, so its shard shows that it ran its shards
     through the kernels on the card; on the CPU nothing launches and
     nothing is recorded."""
     from racon_tpu_torch.ops import kernels, ovl_align
     reg = reg if reg is not None else obs_metrics.registry()
     launches = kernels.launches()
     untiled = ovl_align.untiled_groups()
+    tiled = ovl_align.tiled_groups()
 
     def _mutate(v):
         for name, n in launches.items():
@@ -132,6 +137,13 @@ def record_kernel_launches(reg: Optional[obs_metrics.Registry] = None
         if launches.get("band_fwd"):
             v["kernel_launches_band_fwd_consensus"] = \
                 int(launches["band_fwd"]) - int(untiled)
+        if launches.get("col_walk"):
+            flat = int(launches.get("flat_fwd", 0))
+            for case, n in (("tiled", tiled), ("untiled", untiled),
+                            ("flat", flat),
+                            ("consensus", launches["col_walk"] - tiled -
+                             untiled - flat)):
+                v[f"kernel_launches_col_walk_{case}"] = int(n)
 
     reg.apply(_mutate)
 

@@ -275,6 +275,13 @@ def record_gate(event: str, job: str, tenant: str,
                                      parent_id=int(parent_id), **attrs)
 
 
+def set_gate_fleet_target(n: int, reg: Optional[Registry] = None) -> None:
+    """The gateway's fleet sizing gauge: the worker target the service
+    policy (gateway/policy.py) chose on its latest supervisor tick."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.set("gate_fleet_target", int(n))
+
+
 # ----------------------------------------------------------- result cache
 
 _CACHE_OUTCOME_KEYS = {

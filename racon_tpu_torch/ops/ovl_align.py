@@ -87,6 +87,13 @@ def reset_stats() -> None:
         UNTILED_GROUPS.clear()
 
 
+def tiled_groups() -> int:
+    """Launch groups of the tiled route since the last reset_stats():
+    one walk (W1) each."""
+    with _STATS_LOCK:
+        return sum(g["groups"] for g in TILED_GROUPS)
+
+
 def untiled_groups() -> int:
     """Launch groups of the untiled route since the last reset_stats():
     one band forward (K1) each."""

@@ -50,9 +50,14 @@ CUDA error: the context is unusable), or with a watchdog breach that no
 injected fault caused (the dispatch runs on, abandoned), fails its jobs,
 every later job fails without running, the daemon stops admitting and
 ``main`` exits 1. An ``InjectedFault``, an injected breach or another
-``TimeoutError`` at ``serve/dispatch`` fails that batch's jobs only. ``RACON_TPU_GATE_FLEET`` armed makes ``main`` exit 1:
-the gateway's route to the ledger fleet (distributed/) is not ported
-yet.
+``TimeoutError`` at ``serve/dispatch`` fails that batch's jobs only.
+
+With ``RACON_TPU_GATE_FLEET`` armed, a job large enough (or arriving
+under queue pressure) runs on an autoscaled ledger fleet instead
+(gateway/dispatch.py): its worker processes run the CLI on the job's
+device, and the merged FASTA is committed into the job's store like a
+local result. A fleet run that fails fails its job with
+``FleetDispatchError``; it is never served locally.
 """
 
 from __future__ import annotations
@@ -93,8 +98,6 @@ class PolishServer:
     daemon's ``main`` waits on it beside its signals."""
 
     def __init__(self, state_dir: str):
-        from racon_tpu_torch.gateway.dispatch import require_local
-        require_local()
         self.state_dir = state_dir
         self.jobs_root = os.path.join(state_dir, "jobs")
         os.makedirs(self.jobs_root, exist_ok=True)
@@ -270,23 +273,60 @@ class PolishServer:
                     engine, memo=memo, on_fatal=self._on_fatal).start()
             return b
 
-    def _route(self, job: Job) -> None:
-        """The gateway routing decision for one admitted job, recorded
-        as a ``gate`` span and counter: with the fleet gate off (the
-        only state the port's daemon starts in) every job routes local,
-        reason ``fleet-disabled``."""
-        from racon_tpu_torch.gateway.dispatch import decide_route
+    def _route(self, job: Job, store):
+        """The gateway routing decision for one admitted job: in-process
+        batcher or autoscaled ledger fleet, from the job's target count
+        (or, for ``-f`` jobs, the targets file's bytes) and the current
+        admission queue depth. Recorded as a ``gate`` span and counter,
+        so the job's timeline shows the decision between submit and
+        run."""
+        from racon_tpu_torch.gateway.dispatch import (decide_route,
+                                                      fleet_enabled,
+                                                      fleet_paths,
+                                                      target_stats)
         from racon_tpu_torch.obs.metrics import record_gate
+        n_targets = target_bytes = 0
+        if fleet_enabled():
+            try:
+                n_targets, target_bytes = target_stats(job.spec.targets)
+            except Exception:
+                n_targets = target_bytes = 0  # unreadable inputs fail
+                #                               later, locally
         with self._lock:
             depth = self._queued
-        decision = decide_route(depth)
-        record_gate("route_local", job.id, job.tenant,
+        decision = decide_route(job.spec, n_targets, depth,
+                                target_bytes=target_bytes)
+        if decision.route == "fleet" and store.committed:
+            # A job that started locally (a committed prefix but no
+            # fleet run dir) finishes locally: a local store numbers
+            # every target (dropped ones included), the fleet replay
+            # numbers emitted contigs densely, and mixing the two would
+            # corrupt the resume.
+            run_dir = fleet_paths(self.state_dir,
+                                  job.spec.fingerprint()).run_dir
+            if not os.path.isdir(run_dir):
+                decision = decision._replace(
+                    route="local", reason="resume-local-prefix")
+        record_gate("route_fleet" if decision.route == "fleet"
+                    else "route_local", job.id, job.tenant,
                     trace_id=job.trace.trace_id if job.trace else "-",
                     parent_id=job.trace.parent_id if job.trace else 0,
                     decision=decision.route, reason=decision.reason,
                     n_targets=decision.n_targets,
                     queue_depth=decision.queue_depth,
                     target_bytes=decision.target_bytes)
+        return decision
+
+    def _run_fleet(self, job: Job, store) -> None:
+        """Run one fleet-routed job through the gateway's adapter, in
+        this runner thread (the supervisor makes no CUDA context; its
+        worker processes hold the card). The caller finishes it exactly
+        like a local run: the same journal states, the same cache store,
+        ``n_committed`` from the store."""
+        from racon_tpu_torch.gateway.dispatch import run_fleet_job
+        run_fleet_job(job, self.state_dir, store,
+                      trace_ctx=job.trace.encode() if job.trace else "",
+                      log=sys.stderr)
 
     def _run_job(self, job: Job) -> None:
         """The job's thread. ``job.launches`` holds its thread's kernel
@@ -355,20 +395,22 @@ class PolishServer:
 
             state, error = "done", None
             try:
-                self._route(job)
-                proxy = BatchedEngineProxy(self._batcher_for(job.spec),
-                                           job.id, job.tenant,
-                                           trace=job.trace)
+                if self._route(job, store).route == "fleet":
+                    self._run_fleet(job, store)
+                else:
+                    proxy = BatchedEngineProxy(
+                        self._batcher_for(job.spec), job.id, job.tenant,
+                        trace=job.trace)
 
-                def make_polisher():
-                    return build_polisher(job.spec, engine=proxy)
+                    def make_polisher():
+                        return build_polisher(job.spec, engine=proxy)
 
-                polish_job(
-                    make_polisher,
-                    drop_unpolished=not job.spec.include_unpolished,
-                    store=store, emit=job.emit, fill_drops=True,
-                    hooks=JobHooks(before_commit=before_commit,
-                                   after_commit=after_commit))
+                    polish_job(
+                        make_polisher,
+                        drop_unpolished=not job.spec.include_unpolished,
+                        store=store, emit=job.emit, fill_drops=True,
+                        hooks=JobHooks(before_commit=before_commit,
+                                       after_commit=after_commit))
             except JobCancelled:
                 state = "cancelled"
             except Exception as exc:
@@ -510,14 +552,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                              "dead primary's in-flight jobs), instead "
                              "of failing when one is held")
     args = parser.parse_args(argv)
-
-    from racon_tpu_torch.gateway.dispatch import (FleetDispatchError,
-                                                  require_local)
-    try:
-        require_local()
-    except FleetDispatchError as exc:
-        print(str(exc), file=sys.stderr)
-        return 1
 
     from racon_tpu_torch.obs.metrics import record_gate, registry
     from racon_tpu_torch.obs.trace import configure as configure_trace

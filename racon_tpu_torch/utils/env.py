@@ -75,11 +75,16 @@ default when the variable is unset):
   ``<state-dir>/cache``), ``RACON_TPU_CACHE_MAX_MB`` (256: the job CAS's
   byte bound), ``RACON_TPU_CACHE_WINDOWS`` ("0" or "false" turns the
   window memo off).
-- ``RACON_TPU_GATE_FLEET`` (0): the gateway's fleet route; the port has
-  the ledger fleet (distributed/) but not yet the gateway's route to it,
-  so the daemon refuses to start with it armed;
-  ``RACON_TPU_GATE_LEASE_S`` (10) and ``RACON_TPU_GATE_STANDBY_POLL_S``
-  (0.2): the state-dir lease's term and a standby's poll.
+- ``RACON_TPU_GATE_FLEET`` (0): the gateway's fleet route
+  (gateway/dispatch.py); ``RACON_TPU_GATE_FLEET_MIN_TARGETS`` (32): the
+  target count from which a job routes to the fleet;
+  ``RACON_TPU_GATE_FLEET_MIN_BYTES`` (8388608): the targets file's size
+  from which a ``-f`` job does; ``RACON_TPU_GATE_QUEUE_PRESSURE`` (8):
+  the admission-queue depth from which any job does;
+  ``RACON_TPU_GATE_WORKERS`` (2): the most workers a fleet job's
+  supervisor runs; ``RACON_TPU_GATE_LEASE_S`` (10) and
+  ``RACON_TPU_GATE_STANDBY_POLL_S`` (0.2): the state-dir lease's term
+  and a standby's poll.
 - ``RACON_TPU_AVA_COMPACT`` (unset = every 64 sealed segments, 0 = never):
   the v2 checkpoint manifest's compaction; ``RACON_TPU_AVA_SEG`` (unset:
   256 targets a segment for ``-f`` runs, v1 manifests otherwise).
@@ -168,6 +173,10 @@ CACHE_DIR = "RACON_TPU_CACHE_DIR"
 CACHE_MAX_MB = "RACON_TPU_CACHE_MAX_MB"
 CACHE_WINDOWS = "RACON_TPU_CACHE_WINDOWS"
 GATE_FLEET = "RACON_TPU_GATE_FLEET"
+GATE_FLEET_MIN_TARGETS = "RACON_TPU_GATE_FLEET_MIN_TARGETS"
+GATE_FLEET_MIN_BYTES = "RACON_TPU_GATE_FLEET_MIN_BYTES"
+GATE_QUEUE_PRESSURE = "RACON_TPU_GATE_QUEUE_PRESSURE"
+GATE_WORKERS = "RACON_TPU_GATE_WORKERS"
 GATE_LEASE_S = "RACON_TPU_GATE_LEASE_S"
 GATE_STANDBY_POLL_S = "RACON_TPU_GATE_STANDBY_POLL_S"
 AVA_COMPACT = "RACON_TPU_AVA_COMPACT"
@@ -195,8 +204,11 @@ AVA_COMPILE_BUDGET = "RACON_TPU_AVA_COMPILE_BUDGET"
 #: Gates whose unset value is not "" (the JAX package's defaults).
 _DEFAULTS = {SERVE_BATCH: "256", SERVE_BATCH_WAIT_S: "0.05",
              SERVE_QUEUE: "64", SERVE_MAX_JOBS: "4", SERVE_GRACE_S: "30",
-             CACHE_MAX_MB: "256", GATE_FLEET: "0", GATE_LEASE_S: "10",
-             GATE_STANDBY_POLL_S: "0.2", SPLIT: "1", AVA_WEIGHTED: "1"}
+             CACHE_MAX_MB: "256", GATE_FLEET: "0",
+             GATE_FLEET_MIN_TARGETS: "32", GATE_FLEET_MIN_BYTES: "8388608",
+             GATE_QUEUE_PRESSURE: "8", GATE_WORKERS: "2",
+             GATE_LEASE_S: "10", GATE_STANDBY_POLL_S: "0.2", SPLIT: "1",
+             AVA_WEIGHTED: "1"}
 _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           PIPELINE_DEPTH, WALK_ASYNC, WALK_QUEUE, STALL_S, INGEST,
           INGEST_WORKERS, FAULTS, FAULT_STALL_S, FAULT_HANG_S, RETRY,
@@ -204,10 +216,11 @@ _KNOWN = (NO_BAND, WALK_K, OVL_TILED, SCHED, ADAPTIVE, REDO, PIPELINE,
           DEADLINE_CELLS_PER_S, DEADLINE_SCALE, WATCHDOG_TERMINAL, TIMING,
           TRACE, TRACE_XPROF, SERVE_BATCH, SERVE_BATCH_WAIT_S, SERVE_QUEUE,
           SERVE_MAX_JOBS, SERVE_GRACE_S, SERVE_SPOOL_MB, CACHE, CACHE_DIR,
-          CACHE_MAX_MB, CACHE_WINDOWS, GATE_FLEET, GATE_LEASE_S,
-          GATE_STANDBY_POLL_S, AVA_COMPACT, AVA_SEG, FLIGHT_EVENTS, OBS_DIR,
-          DIST_SHARDS, DIST_POLL, DIST_AVOID, SPLIT, SPLIT_AFTER_S,
-          SPLIT_DEPTH, AUTOSCALE_MIN, AUTOSCALE_MAX, AUTOSCALE_INTERVAL_S,
+          CACHE_MAX_MB, CACHE_WINDOWS, GATE_FLEET, GATE_FLEET_MIN_TARGETS,
+          GATE_FLEET_MIN_BYTES, GATE_QUEUE_PRESSURE, GATE_WORKERS,
+          GATE_LEASE_S, GATE_STANDBY_POLL_S, AVA_COMPACT, AVA_SEG,
+          FLIGHT_EVENTS, OBS_DIR, DIST_SHARDS, DIST_POLL, DIST_AVOID,
+          SPLIT, SPLIT_AFTER_S, SPLIT_DEPTH, AUTOSCALE_MIN, AUTOSCALE_MAX, AUTOSCALE_INTERVAL_S,
           AUTOSCALE_MAX_SPAWNS, AUTOSCALE_DEADLINE_S, AUTOSCALE_FAULT_PLAN,
           OBS_FLUSH_S, STRAGGLER_FRAC, TRACE_CTX, METRICS_PORT,
           AVA_WEIGHTED, AVA_COMPILE_BUDGET)

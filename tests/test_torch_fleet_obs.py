@@ -436,6 +436,30 @@ def test_record_kernel_launches(monkeypatch):
                               "kernel_launches_band_fwd_consensus": 64}
 
 
+def test_record_kernel_launches_splits_the_walk_by_case(monkeypatch):
+    """W1's launches by case: one a tiled or untiled overlap group, one
+    a flat-layout forward (K2), the consensus engine's band walks the
+    rest; the cases add up to W1's whole count."""
+    from racon_tpu_torch.distributed.worker import record_kernel_launches
+    from racon_tpu_torch.ops import kernels, ovl_align
+    reg = obs_metrics.Registry()
+    for name, n in (("band_fwd", 30), ("flat_fwd", 5), ("col_walk", 47)):
+        monkeypatch.setitem(kernels.LAUNCHES, name, n)
+    monkeypatch.setattr(ovl_align, "TILED_GROUPS",
+                        [{"groups": 3}, {"groups": 9}])
+    monkeypatch.setattr(ovl_align, "UNTILED_GROUPS", [{"groups": 2}])
+    record_kernel_launches(reg)
+    snap = reg.snapshot()
+    walks = {k: v for k, v in snap.items()
+             if k.startswith("kernel_launches_col_walk_")}
+    assert walks == {"kernel_launches_col_walk_tiled": 12,
+                     "kernel_launches_col_walk_untiled": 2,
+                     "kernel_launches_col_walk_flat": 5,
+                     "kernel_launches_col_walk_consensus": 28}
+    assert sum(walks.values()) == snap["kernel_launches_col_walk"] == 47
+    assert snap["kernel_launches_band_fwd_consensus"] == 28
+
+
 # ------------------------------------------- span context and trace ctx
 
 def test_tracer_set_context_tags_spans(tmp_path):

@@ -7,8 +7,8 @@ killed at its second commit then restarted to the same bytes, the submit
 fault and cancel, the local route and the gateway lease, and no hidden
 fallback (a job that asks for the card on a host without one fails
 typed; a KernelError in a dispatch ends the daemon non-zero, and a real
-breach of a dispatch's deadline stops the batcher; RACON_TPU_GATE_FLEET=1
-makes main exit 1).
+breach of a dispatch's deadline stops the batcher). The fleet route is
+held in tests/test_torch_gateway.py.
 
 Inputs: tests/serve_inputs.py (tiny drafts and reads from a seed)."""
 
@@ -615,17 +615,6 @@ sys.exit(main(["--state-dir", state, "--port", "0"]))
     assert "band_fwd launch failed" in rec["error"]
 
 
-def test_fleet_gate_armed_main_exits_1(tmp_path, monkeypatch, capsys):
-    from racon_tpu_torch.gateway.dispatch import FleetDispatchError
-    from racon_tpu_torch.server import daemon
-    monkeypatch.setenv("RACON_TPU_GATE_FLEET", "1")
-    assert daemon.main(["--state-dir", str(tmp_path / "s")]) == 1
-    assert "distributed slice" in capsys.readouterr().err
-    assert not (tmp_path / "s").exists()
-    with pytest.raises(FleetDispatchError):
-        daemon.PolishServer(str(tmp_path / "s"))
-
-
 def test_jobs_route_local_and_gateway_lease(tmp_path):
     """With the fleet gate off every job routes local, reason
     fleet-disabled, as the JAX package routes it; gate/route fires
@@ -635,11 +624,12 @@ def test_jobs_route_local_and_gateway_lease(tmp_path):
     from racon_tpu_torch.gateway import dispatch as pd
     from racon_tpu_torch.gateway.ha import GatewayLease, GatewayLeaseLost
     ref = rd.decide_route(_spec(["r", "o", "t"]), 0, 3)
-    assert tuple(pd.decide_route(3)) == tuple(ref)
+    assert tuple(pd.decide_route(_spec(["r", "o", "t"]), 0, 3)) == \
+        tuple(ref)
     assert not pd.fleet_enabled() and not rd.fleet_enabled()
     PF.configure("gate/route:0")
     with pytest.raises(PF.InjectedFault):
-        pd.decide_route(0)
+        pd.decide_route(None, 0)
     PF.configure(None)
     state = str(tmp_path)
     a = GatewayLease(state, "gw-a", lease_s=30.0)
