@@ -94,8 +94,10 @@ any failure exits non-zero and prints no result):
               mmap readers), which must have run; each run prints the
               logger's "loaded ..." seconds and the ingest counters.
               The run telemetry (obs/metrics.py) of both runs, and of
-              phase 8's, against the run's own counters: ovl_* =
-              ovl_align.STATS (ovl_tiles_exec = the K3 launches),
+              phase 8's, against the run's own counters: ovl_tiles_exec
+              = the K3 launches, the align phase's step seconds
+              (ovl_card_s + ovl_host_align_s + ovl_walk_s) <=
+              align_phase_seconds,
               sched_* = the scheduler telemetry's (none under
               RACON_TPU_SCHED=0), device_dispatches = the host clock's
               rounds + repack + walk parts, adaptive rounds executed <=
@@ -1364,9 +1366,10 @@ def phase_small(device, tmp):
         try:
             kernels.reset_launches()
             ovl_align.reset_stats()
+            ovl0 = ovl_counts()
             rc_g, out_g, err_g, wall_g = run_cli(argv + ["--device", device])
             launches = dict(kernels.LAUNCHES)
-            ovl = dict(ovl_align.STATS)
+            ovl = {k: v - ovl0[k] for k, v in ovl_counts().items()}
             rc_c, out_c, err_c, wall_c = run_cli(argv + ["--device", "cpu"])
         finally:
             for k in env:
@@ -1410,6 +1413,16 @@ def phase_seconds(err: str) -> dict:
     return {name: float(sec) for name, sec in re.findall(
         r"^\[racon_tpu_torch::Polisher::\w+\] ([a-z ]+?) ([0-9.]+) s$",
         err, flags=re.M)}
+
+
+def ovl_counts() -> dict:
+    """The overlap aligner's registry counters: jobs the card took, jobs
+    sent to the host aligner, and tile launches."""
+    from racon_tpu_torch.obs.metrics import registry
+    reg = registry()
+    return {"device_jobs": reg.get("ovl_device_jobs", 0),
+            "native_jobs": reg.get("ovl_native_jobs", 0),
+            "tiles": reg.get("ovl_tiles_exec", 0)}
 
 
 def routed(err: str):
@@ -1481,7 +1494,7 @@ def main_run(device, argv, sched: bool, pipeline: bool = False,
         device_poa.set_host_clock(False)
     launches = dict(kernels.LAUNCHES)
     r = dict(rc=rc, out=out, err=err, wall=wall, launches=launches,
-             ovl=dict(ovl_align.STATS),
+             ovl=ovl_counts(),
              groups=[dict(g) for g in ovl_align.TILED_GROUPS],
              ugroups=[dict(g) for g in ovl_align.UNTILED_GROUPS],
              stages=clock.ms(), stage_launches=clock.launches(),
@@ -1604,7 +1617,9 @@ TELEMETRY = {"check_s": 0.0}
 
 def check_telemetry(name, r):
     """The run telemetry of one run of phase 4's input (phases 4 and 8)
-    against the run's own counters: ``ovl_*`` = ovl_align.STATS,
+    against the run's own counters: ``ovl_tiles_exec`` = the K3
+    launches, the align phase's step seconds at most
+    ``align_phase_seconds``,
     ``sched_*`` = the scheduler telemetry's (none without it),
     ``device_dispatches`` = the dispatches the host clock counted (the
     scheduler's unpack, rounds, repacks and pack, the fixed engine's
@@ -1612,15 +1627,16 @@ def check_telemetry(name, r):
     executed <= scheduled, ``align_phase_seconds`` <= the logger's
     "aligned overlaps" seconds, one ``h2d_transfer_s`` observation a
     transfer, and the ingest gate on. Returns the numbers read."""
-    from racon_tpu_torch.obs.metrics import SCHED_KEYS
+    from racon_tpu_torch.obs.metrics import OVL_STEP_KEYS, SCHED_KEYS
     t0 = time.perf_counter()
     c = r["counters"]
-    ovl = {"ovl_device_jobs": r["ovl"]["device_jobs"],
-           "ovl_native_jobs": r["ovl"]["native_jobs"],
-           "ovl_tiles_exec": r["ovl"]["tiles"]}
-    got_ovl = {k: c.get(k) for k in ovl}
-    if got_ovl != ovl:
-        fail(f"{name}: ovl_* {got_ovl} differ from ovl_align.STATS {ovl}")
+    if c.get("ovl_tiles_exec") != r["launches"].get("band_tile_fwd"):
+        fail(f"{name}: ovl_tiles_exec {c.get('ovl_tiles_exec')}, not the "
+             f"{r['launches'].get('band_tile_fwd')} K3 launches")
+    steps = sum(c.get(k, 0.0) for k in OVL_STEP_KEYS)
+    if not 0 < steps <= c.get("align_phase_seconds", 0.0) + 1e-6:
+        fail(f"{name}: the align phase's step seconds {steps} not in "
+             f"(0, align_phase_seconds {c.get('align_phase_seconds')}]")
     t = r["telemetry"]
     sched = {k: c.get(k) for k in SCHED_KEYS if k in c}
     if (t.as_extras() if t is not None else {}) != sched:
@@ -2925,7 +2941,7 @@ def _serve_inproc(device, tmp, small, serial):
                         "serve_batch_occupancy"),
                     windows=[d["windows"] for d in ds],
                     jobs=[d["jobs"] for d in ds],
-                    aligned_jobs=dict(ovl_align.STATS))
+                    aligned_jobs=ovl_counts())
             finally:
                 server.drain(30.0)
     rec["seconds"] = time.perf_counter() - t0

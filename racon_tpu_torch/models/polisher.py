@@ -264,11 +264,23 @@ class Polisher:
         log.phase("[racon_tpu_torch::Polisher::initialize] loaded overlaps")
         log.begin()
 
+        # Phases 4 and 5 run as ``dispatch`` spans one after the other on
+        # this thread (seq_transmute; the card route's ovl_prep, launch
+        # and ovl_collect spans; host_align; bp_walk), so a trace names
+        # the host step that holds the card idle; the steps' seconds are
+        # counted with tracing off too (obs/metrics.OVL_STEP_KEYS).
+        from racon_tpu_torch.obs.metrics import (record_align_phase,
+                                                 record_ovl_step)
+        from racon_tpu_torch.obs.trace import get_tracer
+        tracer = get_tracer()
+
         # 4. Sequence transmute: build reverse complements where some
         # overlap needs them, free what nothing references
         # (src/polisher.cpp:339-348).
-        for i, seq in enumerate(self.sequences):
-            seq.transmute(has_name[i], has_data[i], has_reverse[i])
+        with tracer.span("dispatch", "seq_transmute",
+                         sequences=len(self.sequences)):
+            for i, seq in enumerate(self.sequences):
+                seq.transmute(has_name[i], has_data[i], has_reverse[i])
 
         # 5. Breaking points; PAF/MHAP overlaps need a global alignment
         # first. On a CUDA engine they run as batched banded NW on the
@@ -276,7 +288,6 @@ class Polisher:
         # (racon_tpu_torch/ops/ovl_align.py); jobs it does not admit or
         # certify, and every job on the CPU engine, take the batched
         # native aligner (src/polisher.cpp:351-364, overlap.cpp:194-213).
-        from racon_tpu_torch.obs.metrics import record_align_phase
         t_align = time.perf_counter()
         pending = [o for o in overlaps if len(o.cigar) == 0]
         if pending and self.engine.device.type == "cuda":
@@ -284,28 +295,41 @@ class Polisher:
             # Edit-distance scoring (0, -1, -1), like edlib
             # (src/overlap.cpp:198-200) and the native aligner below, so
             # every route picks the same alignments.
+            t0 = time.perf_counter()
             pending = device_breaking_points(
                 pending, self.sequences, self.window_length, match=0,
                 mismatch=-1, gap=-1, device=self.engine.device,
                 log=sys.stderr)
+            record_ovl_step("ovl_card_s", time.perf_counter() - t0)
         if pending:
-            from racon_tpu_torch.native.aligner import NativeAligner
-            from racon_tpu_torch.ops.cigar import ops_to_cigar
-            from racon_tpu_torch.ops.encode import encode_bases
-            # Edit-distance scoring, like edlib (src/overlap.cpp:198-200).
-            aligner = NativeAligner(threads=self.threads)
-            pairs = []
-            for o in pending:
-                q, t = o.alignment_operands(self.sequences)
-                pairs.append((encode_bases(bytes(q)), encode_bases(bytes(t))))
-            for o, ops in zip(pending, aligner.align_batch(pairs)):
-                o.cigar = ops_to_cigar(ops)
-        step = len(overlaps) // 20
-        for i, o in enumerate(overlaps):
-            o.find_breaking_points(self.sequences, self.window_length)
-            # 20-tick cap as in the reference (src/polisher.cpp:359-364).
-            if step and (i + 1) % step == 0 and (i + 1) // step <= 20:
-                log.tick("[racon_tpu_torch::Polisher::initialize] aligning overlaps")
+            t0 = time.perf_counter()
+            with tracer.span("dispatch", "host_align", jobs=len(pending),
+                             threads=self.threads):
+                from racon_tpu_torch.native.aligner import NativeAligner
+                from racon_tpu_torch.ops.cigar import ops_to_cigar
+                from racon_tpu_torch.ops.encode import encode_bases
+                # Edit-distance scoring, like edlib
+                # (src/overlap.cpp:198-200).
+                aligner = NativeAligner(threads=self.threads)
+                pairs = []
+                for o in pending:
+                    q, t = o.alignment_operands(self.sequences)
+                    pairs.append((encode_bases(bytes(q)),
+                                  encode_bases(bytes(t))))
+                for o, ops in zip(pending, aligner.align_batch(pairs)):
+                    o.cigar = ops_to_cigar(ops)
+            record_ovl_step("ovl_host_align_s", time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        with tracer.span("dispatch", "bp_walk", overlaps=len(overlaps)):
+            step = len(overlaps) // 20
+            for i, o in enumerate(overlaps):
+                o.find_breaking_points(self.sequences, self.window_length)
+                # 20-tick cap as in the reference
+                # (src/polisher.cpp:359-364).
+                if step and (i + 1) % step == 0 and (i + 1) // step <= 20:
+                    log.tick("[racon_tpu_torch::Polisher::initialize] "
+                             "aligning overlaps")
+        record_ovl_step("ovl_walk_s", time.perf_counter() - t0)
         # The whole phase: the card's route, the native aligner and the
         # breaking-point walk (align_phase_seconds, summed over contigs).
         record_align_phase(time.perf_counter() - t_align)

@@ -33,7 +33,10 @@ Counter conventions:
 - ``sched_flag_pulls`` / ``sched_flag_pull_s`` — the scheduler's
   per-round flag pulls, a sync point kept out of the bandwidth keys;
 - ``device_dispatches`` — chunk, round, repack, pack and walk launches
-  of the consensus engine (one a retry-wrapped dispatch call).
+  of the consensus engine (one a retry-wrapped dispatch call);
+- ``ovl_card_s`` / ``ovl_host_align_s`` / ``ovl_walk_s`` — the align
+  phase's wall seconds by step (:data:`OVL_STEP_KEYS`), keys the JAX
+  package does not have.
 
 The JAX package's three compile-cache gauges (``jax_cache_enabled``,
 ``jax_cache_entries_start``, ``jax_cache_entries_added``) have no
@@ -432,10 +435,25 @@ def record_align_phase(seconds: float,
     reg.inc("align_phase_seconds", float(seconds))
 
 
+#: The align phase's timed steps (models/polisher.py phase 5), the port's
+#: own keys: the card's route (ops/ovl_align.device_breaking_points, its
+#: prep through its collect), the host aligner with its operand
+#: preparation, and the breaking-point walk.
+OVL_STEP_KEYS = ("ovl_card_s", "ovl_host_align_s", "ovl_walk_s")
+
+
+def record_ovl_step(key: str, seconds: float,
+                    reg: Optional[MetricsRegistry] = None) -> None:
+    """Wall seconds of one align-phase step of one job, ``key`` one of
+    :data:`OVL_STEP_KEYS`; always on, like ``ingest_wait_s``."""
+    reg = reg if reg is not None else _REGISTRY
+    reg.inc(key, float(seconds))
+
+
 def ovl_extras(reg: Optional[MetricsRegistry] = None
                ) -> Dict[str, object]:
-    """The ``ovl_*`` keys and ``align_phase_seconds``; empty when no
-    overlap alignment ran."""
+    """The ``ovl_*`` keys (the step seconds among them) and
+    ``align_phase_seconds``; empty when no overlap alignment ran."""
     reg = reg if reg is not None else _REGISTRY
     return _extras(reg, lambda k: k.startswith("ovl_") or
                    k == "align_phase_seconds")
@@ -918,7 +936,8 @@ def merge_kind(key: str) -> str:
 #: The declared metric contract: one row a registry key family,
 #: ``(pattern, merge kind, doc token)``; ``*`` in a pattern matches one
 #: runtime-named segment (site slug, stage name, phase slug). The JAX
-#: package's rows less its three ``jax_cache_*`` rows.
+#: package's rows less its three ``jax_cache_*`` rows, plus the port's
+#: :data:`OVL_STEP_KEYS`.
 METRIC_SPECS = (
     ("adaptive_early_exits", MERGE_SUM, "adaptive_early_exits"),
     ("adaptive_rounds_executed", MERGE_SUM, "adaptive_rounds_executed"),
@@ -970,10 +989,13 @@ METRIC_SPECS = (
     ("ingest_raw_bytes", MERGE_SUM, "ingest_raw_bytes"),
     ("ingest_records", MERGE_SUM, "ingest_records"),
     ("ingest_wait_s", MERGE_SUM, "ingest_wait_s"),
+    ("ovl_card_s", MERGE_SUM, "ovl_card_s"),
     ("ovl_device_fraction", MERGE_LAST, "ovl_device_fraction"),
     ("ovl_device_jobs", MERGE_SUM, "ovl_device_jobs"),
+    ("ovl_host_align_s", MERGE_SUM, "ovl_host_align_s"),
     ("ovl_native_jobs", MERGE_SUM, "ovl_native_jobs"),
     ("ovl_tiles_exec", MERGE_SUM, "ovl_tiles_exec"),
+    ("ovl_walk_s", MERGE_SUM, "ovl_walk_s"),
     ("phase_seconds_*", MERGE_SUM, "phase_seconds_"),
     ("pipe_overlap_efficiency", MERGE_LAST, "pipe_overlap_efficiency"),
     ("pipe_queue_*_get_wait_s", MERGE_SUM, "pipe_queue_"),

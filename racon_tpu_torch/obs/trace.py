@@ -8,7 +8,10 @@ by pointing ``RACON_TPU_TRACE`` at a file path, or with ``--trace
 
 Trace format (one JSON object a line):
 
-- ``{"ev": "begin", "schema": 1, "unix_time": ...}`` — first line.
+- ``{"ev": "begin", "schema": 1, "unix_time": ..., "t0_perf": ...}`` —
+  first line; ``t0_perf`` is the tracer's ``time.perf_counter()``
+  origin, so a reader in another process can put the spans on the
+  clock of a ``perf_counter``-aligned device profile.
 - ``{"ev": "span", "id": N, "parent": M|null, "kind": ..., "name": ...,
   "t0": seconds-since-begin, "dur_s": ..., ...attrs}`` — one line a
   *closed* span; children therefore appear before their parent. ``kind``
@@ -245,7 +248,7 @@ class Tracer:
         self._part = path + ".part"
         self._fh = open(self._part, "w", encoding="utf-8")
         self._write({"ev": "begin", "schema": SCHEMA_VERSION,
-                     "unix_time": time.time()})
+                     "unix_time": time.time(), "t0_perf": self._t0})
 
     # ------------------------------------------------------------- internals
 

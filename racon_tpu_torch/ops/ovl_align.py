@@ -62,15 +62,13 @@ TB = 128                      # lanes of an untiled chunk
 MAX_DIR_ELEMS = max_dir_elems(1)
 HUGE = 2 ** 30
 
-# Jobs handled on the device / sent to the host aligner, and tile
-# launches (one a tile of each group), summed over calls since the last
-# reset_stats().
-STATS = {"device_jobs": 0, "native_jobs": 0, "tiles": 0}
 # One record a bucket since the last reset_stats(), a list for each
-# route: its chunk geometry, chunks, chunks a group (G) and groups.
+# route: its chunk geometry, chunks, chunks a group (G) and groups. The
+# jobs each route took and the tile launches are the registry's
+# ``ovl_*`` counters (obs/metrics.record_ovl).
 TILED_GROUPS: List[dict] = []
 UNTILED_GROUPS: List[dict] = []
-# The three above are updated under this lock: the daemon aligns several
+# The two above are updated under this lock: the daemon aligns several
 # jobs' overlaps at once, one thread a job (server/daemon.py).
 _STATS_LOCK = threading.Lock()
 # One job's card section (its groups' planes, launches and collects) at a
@@ -82,8 +80,6 @@ _CARD_LOCKS = {}
 
 def reset_stats() -> None:
     with _STATS_LOCK:
-        for k in STATS:
-            STATS[k] = 0
         TILED_GROUPS.clear()
         UNTILED_GROUPS.clear()
 
@@ -406,7 +402,28 @@ def device_breaking_points(pending, sequences, window_length: int, *,
     on every handled overlap, so ``find_breaking_points`` then returns at
     once. ``tiers`` replaces budget.TILE_TIERS; ``group`` fixes the
     chunks a launch carries on both routes (default :func:`group_size`).
+
+    Traced as ``dispatch`` spans on the caller's thread, one after the
+    other: ``ovl_prep`` (admission, operands and their encoding, buckets,
+    groups and their inputs' copies to the device, up to the first
+    launch), the launch groups' ``ovl_chunk`` / ``ovl_tiled_chunk``, and
+    ``ovl_collect`` (each group's outputs pulled and turned into rows).
     """
+    prep = get_tracer().span("dispatch", "ovl_prep", overlaps=len(pending))
+    try:
+        return _breaking_points(pending, sequences, window_length, prep,
+                                match=match, mismatch=mismatch, gap=gap,
+                                device=device, log=log, tiers=tiers,
+                                group=group)
+    finally:
+        prep.end()                  # the early returns and errors
+
+
+def _breaking_points(pending, sequences, window_length: int, prep, *,
+                     match: int, mismatch: int, gap: int, device, log,
+                     tiers, group) -> List:
+    """The body of :func:`device_breaking_points`; ends ``prep`` at the
+    first launch."""
     device = torch.device(device)
     tiled_on = env.ovl_tiled()
     jobs = []        # (overlap, q_codes, t_codes, q_start)
@@ -438,8 +455,6 @@ def device_breaking_points(pending, sequences, window_length: int, *,
             print(f"[racon_tpu_torch::Polisher::initialize] all "
                   f"{len(pending)} overlap alignments exceed the device "
                   "length budget; using the native path", file=log)
-        with _STATS_LOCK:
-            STATS["native_jobs"] += len(fallback)
         record_ovl(device_jobs=0, native_jobs=len(fallback), tiles=0)
         return fallback
 
@@ -544,6 +559,8 @@ def device_breaking_points(pending, sequences, window_length: int, *,
             tgroups.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
                                 chunks=len(chunks), G=G,
                                 groups=len(groups)))
+        prep.add(jobs=len(jobs) + len(tiled_jobs), native=len(fallback),
+                 groups=len(untiled_calls) + len(group_calls)).end()
         outs = []
         for subs, args, kw in untiled_calls:
             with tracer.span("dispatch", "ovl_chunk",
@@ -568,29 +585,29 @@ def device_breaking_points(pending, sequences, window_length: int, *,
                   f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
             t_disp = time.perf_counter()
 
-        for sub, out in outs:
-            first_c, qi_f, last_c, qi_l, valid, fail = (
-                a.cpu().numpy() for a in out[:6])
-            for b, job in enumerate(sub):
-                o, q_start = job[0], job[3]
-                if fail[b]:
-                    fallback.append(o)
-                    n_uncert += 1
-                    continue
-                v = valid[b]
-                o.breaking_points = np.stack([
-                    o.t_begin + first_c[b][v].astype(np.int64),
-                    q_start + qi_f[b][v].astype(np.int64),
-                    o.t_begin + last_c[b][v].astype(np.int64) + 1,
-                    q_start + qi_l[b][v].astype(np.int64) + 1,
-                ], axis=1)
+        with tracer.span("dispatch", "ovl_collect", chunks=len(outs),
+                         jobs=sum(len(sub) for sub, _ in outs)) as span:
+            for sub, out in outs:
+                first_c, qi_f, last_c, qi_l, valid, fail = (
+                    a.cpu().numpy() for a in out[:6])
+                for b, job in enumerate(sub):
+                    o, q_start = job[0], job[3]
+                    if fail[b]:
+                        fallback.append(o)
+                        n_uncert += 1
+                        continue
+                    v = valid[b]
+                    o.breaking_points = np.stack([
+                        o.t_begin + first_c[b][v].astype(np.int64),
+                        q_start + qi_f[b][v].astype(np.int64),
+                        o.t_begin + last_c[b][v].astype(np.int64) + 1,
+                        q_start + qi_l[b][v].astype(np.int64) + 1,
+                    ], axis=1)
+            span.add(uncertified=n_uncert)
         if verbose:
             print(f"[racon_tpu_torch::ovl_align] collect: "
                   f"{time.perf_counter() - t_disp:.2f}s", file=sys.stderr)
     with _STATS_LOCK:
-        STATS["device_jobs"] += len(jobs) + len(tiled_jobs) - n_uncert
-        STATS["native_jobs"] += len(fallback)
-        STATS["tiles"] += n_tiles_exec
         UNTILED_GROUPS.extend(ugroups)
         TILED_GROUPS.extend(tgroups)
     record_ovl(device_jobs=len(jobs) + len(tiled_jobs) - n_uncert,

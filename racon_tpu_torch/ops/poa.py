@@ -353,25 +353,34 @@ class PoaEngine:
         rounds = self.refine_rounds + 1
         groups = sp.groups
 
-        def apply(ws, codes, covs) -> None:
-            with host_part("apply"):
-                self._apply_group(ws, codes, covs, trunc)
-
         from racon_tpu_torch.obs.trace import get_tracer
         from racon_tpu_torch.resilience.retry import RetryExhausted
         tracer = get_tracer()
+
+        # A chunk's plan and its result's apply are ``dispatch`` spans
+        # (poa_plan, poa_apply) beside its ``chunk`` span, so a trace
+        # names the host work between the chunks' rounds.
+        def apply(ws, codes, covs) -> None:
+            with host_part("apply"), tracer.span(
+                    "dispatch", "poa_apply", windows=len(ws)):
+                self._apply_group(ws, codes, covs, trunc)
+
         if env.sched_enabled():
             # The next chunk is planned and its h2d started before this
             # chunk's rounds run (the reference's order).
             sched = self._make_scheduler()
 
             def prefetch(ws: List[Window]):
-                plan = self._make_chunk_plan(sp, ws)
-                try:
-                    return plan, sched.put_chunk(plan)
-                except RetryExhausted as exc:
-                    self._degrade(ws, exc)
-                    return None
+                with tracer.span("dispatch", "poa_plan",
+                                 windows=len(ws)) as span:
+                    plan = self._make_chunk_plan(sp, ws)
+                    span.add(lanes=plan.B, jobs=plan.n_jobs)
+                    try:
+                        return plan, sched.put_chunk(plan)
+                    except RetryExhausted as exc:
+                        err = exc
+                self._degrade(ws, err)      # after the span: host work
+                return None
 
             nxt = prefetch(groups[0]) if groups else None
             for k, ws in enumerate(groups):

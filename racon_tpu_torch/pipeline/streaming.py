@@ -92,9 +92,10 @@ class IngestPrefetcher:
     One producer thread runs ``parser.reset()`` then chunked
     ``parser.parse(max_bytes)`` into a bounded queue (depth: the pipeline
     depth, at least 2). The consumer iterates :meth:`chunks`; its blocked
-    time counts as ``ingest_wait_s``, the producer's parse time as
-    ``ingest_parse_s``. A producer-side error (ParseError) re-raises in
-    the consumer.
+    time counts as ``ingest_wait_s``, and each wait is a ``dispatch``
+    span ``ingest_wait`` on the consumer's thread; the producer's parse
+    time counts as ``ingest_parse_s``. A producer-side error
+    (ParseError) re-raises in the consumer.
 
     Always ``close()`` in a finally: an abandoned consumer aborts the
     queue, which unblocks and retires the producer thread.
@@ -103,6 +104,7 @@ class IngestPrefetcher:
     def __init__(self, parser, max_bytes: int, label: str = "ingest"):
         self._parser = parser
         self._max_bytes = max_bytes
+        self._label = label
         self._q = BoundedQueue(f"ingest_{label}", max(pipeline_depth(), 2))
         self._err: List[BaseException] = []
         self._parse_s = 0.0
@@ -132,10 +134,13 @@ class IngestPrefetcher:
 
     def chunks(self) -> Iterator[Tuple[List, bool]]:
         """Yield ``(records, more)`` chunks in parse order."""
+        tracer = get_tracer()
         while True:
             t0 = time.perf_counter()
             try:
-                chunk, more = self._q.get()
+                with tracer.span("dispatch", "ingest_wait",
+                                 file=self._label):
+                    chunk, more = self._q.get()
             except QueueClosed:
                 return
             except PipelineAborted:

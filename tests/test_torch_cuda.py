@@ -1794,7 +1794,9 @@ def test_two_jobs_align_at_once_on_the_card(cuda, tmp_path, fault_plane):
         p = build_polisher(spec)
         p.initialize()
         solo.append(_layers(p))
+    from racon_tpu_torch.obs.metrics import registry
     ovl_align.reset_stats()
+    card_jobs = registry().get("ovl_device_jobs")
     got, errors = [None, None], []
     barrier = __import__("threading").Barrier(2)
 
@@ -1814,7 +1816,7 @@ def test_two_jobs_align_at_once_on_the_card(cuda, tmp_path, fault_plane):
     for t in threads:
         t.join()
     assert errors == [] and got == solo
-    assert ovl_align.STATS["device_jobs"] > 0
+    assert registry().get("ovl_device_jobs") > card_jobs
     assert len(ovl_align.UNTILED_GROUPS) + len(ovl_align.TILED_GROUPS) >= 2
 
 

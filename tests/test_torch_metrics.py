@@ -8,7 +8,8 @@ run under JAX_PLATFORMS=cpu.
   input (the adaptive exit fires), ``--pipeline-depth 2``, and ``-f`` on
   an all-vs-all set. The final metric snapshots have the same keys, less
   the reference's ``jax_cache_*`` (no meaning without JAX) and ``ovl_*``
-  (on ``--device cpu`` the port sends overlaps to the native aligner),
+  (on ``--device cpu`` the port sends overlaps to the native aligner)
+  and the port's align-phase step seconds (``OVL_STEP_KEYS``),
   the same counts, and the traces the same (kind, name) multiset over
   run, phase, chunk, transfer, round and ingest; the "scheduler" stderr
   line has the same text;
@@ -21,7 +22,8 @@ run under JAX_PLATFORMS=cpu.
 - each ``*_extras`` function against the reference's on the same
   recorded events; METRIC_SPECS and the merge kinds against the
   reference's; the fleet fold and the OpenMetrics render of a CLI
-  snapshot.
+  snapshot; the port's own rows (``OVL_STEP_KEYS``) and their merge
+  kind.
 """
 
 import collections
@@ -181,7 +183,14 @@ def _comparable_keys(snap):
 
 def test_cli_snapshot_keys_match_reference(cli_pair):
     _, ref, port = cli_pair
-    assert set(port.snap) == _comparable_keys(ref.snap)
+    steps = set(PM.OVL_STEP_KEYS) & set(port.snap)
+    assert set(port.snap) - steps == _comparable_keys(ref.snap)
+    # On --device cpu the card route does not run; the host aligner
+    # (every overlap without a CIGAR) and the walk do.
+    assert steps == {"ovl_host_align_s", "ovl_walk_s"}
+    assert all(port.snap[k] > 0 for k in steps)
+    assert sum(port.snap[k] for k in steps) <= \
+        port.snap["align_phase_seconds"]
     # The keys the port used to lack, where the case runs their code.
     for key in ("device_dispatches", "adaptive_rounds_executed",
                 "adaptive_rounds_scheduled", "walk_chain_len",
@@ -274,7 +283,10 @@ def test_cli_snapshot_keys_have_specs_and_merge_kinds(cli_pair):
     for key in port.snap:
         row = _spec_row(PM.METRIC_SPECS, key)
         assert row is not None, key
-        assert row == _spec_row(RM.METRIC_SPECS, key), key
+        if key in PM.OVL_STEP_KEYS:
+            assert row == (key, PM.MERGE_SUM, key)
+        else:
+            assert row == _spec_row(RM.METRIC_SPECS, key), key
         assert PM.merge_kind(key) == RM.merge_kind(key) == row[1], key
 
 
@@ -353,7 +365,6 @@ def test_ovl_counters_of_a_rejected_set_match_reference():
         assert PM.ovl_extras() == RM.ovl_extras() == {
             "ovl_device_fraction": 0.0, "ovl_device_jobs": 0,
             "ovl_native_jobs": 1, "ovl_tiles_exec": 0}
-        assert povl.STATS == {"device_jobs": 0, "native_jobs": 1, "tiles": 0}
 
 
 # ------------------------------------------- recorders and their extras
@@ -466,12 +477,17 @@ def test_empty_extras_match_reference():
 
 def test_metric_specs_match_reference():
     """The reference's rows less its three compile-cache rows, in its
-    order, each row's kind the merge kind of its exact keys; no
-    ``jax_cache_*`` key has a row or a gauge kind here."""
+    order, plus the port's align-phase step rows (sums), each row's kind
+    the merge kind of its exact keys; no ``jax_cache_*`` key has a row
+    or a gauge kind here."""
     want = tuple(r for r in RM.METRIC_SPECS
                  if not r[0].startswith("jax_cache_"))
-    assert PM.METRIC_SPECS == want
-    assert len(RM.METRIC_SPECS) - len(PM.METRIC_SPECS) == 3
+    own = tuple(r for r in PM.METRIC_SPECS if r[0] in PM.OVL_STEP_KEYS)
+    assert tuple(r for r in PM.METRIC_SPECS if r not in own) == want
+    assert own == tuple((k, PM.MERGE_SUM, k) for k in PM.OVL_STEP_KEYS)
+    ovl = [r[0] for r in PM.METRIC_SPECS if r[0].startswith("ovl_")]
+    assert ovl == sorted(ovl)
+    assert len(RM.METRIC_SPECS) - len(PM.METRIC_SPECS) == 3 - len(own)
     for pattern, kind, _doc in PM.METRIC_SPECS:
         if "*" not in pattern:
             assert PM.merge_kind(pattern) == RM.merge_kind(pattern) == kind

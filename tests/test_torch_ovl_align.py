@@ -573,6 +573,21 @@ def _native_rows(o):
                                       o.t_end, q_start, 500)
 
 
+def _ovl_counts():
+    """The port registry's overlap-aligner counters: jobs the card took,
+    jobs sent to the host aligner, tile launches."""
+    from racon_tpu_torch.obs.metrics import registry
+    reg = registry()
+    return {"device_jobs": reg.get("ovl_device_jobs"),
+            "native_jobs": reg.get("ovl_native_jobs"),
+            "tiles": reg.get("ovl_tiles_exec")}
+
+
+def _ovl_delta(before):
+    """The counters' change since ``before`` (an :func:`_ovl_counts`)."""
+    return {k: v - before[k] for k, v in _ovl_counts().items()}
+
+
 def _traced(trace_mod, metrics_mod, path, fn):
     """``fn()`` with the package's tracer on ``path`` and its registry
     from zero; returns (fn's result, the trace's spans, the final
@@ -619,7 +634,6 @@ def test_device_breaking_points_match_reference_and_native(tmp_path):
         pbuf.getvalue()
     assert pbuf.getvalue().replace("racon_tpu_torch", "racon_tpu") == \
         rbuf.getvalue()
-    assert povl.STATS == {"device_jobs": 5, "native_jobs": 2, "tiles": 5}
     ovl = {"ovl_device_jobs": 5, "ovl_native_jobs": 2, "ovl_tiles_exec": 5,
            "ovl_device_fraction": round(5 / 7, 4)}
     assert pmetrics.ovl_extras(_as_reg(pmetrics, psnap)) == \
@@ -628,9 +642,16 @@ def test_device_breaking_points_match_reference_and_native(tmp_path):
     def points(spans):
         return sorted((s["kind"], s["name"], s.get("index"), s.get("rows"),
                        s.get("W"), s.get("lanes")) for s in spans
-                      if s["kind"] in ("tile", "dispatch"))
+                      if s["kind"] in ("tile", "dispatch") and
+                      s["name"] not in ("ovl_prep", "ovl_collect"))
 
+    # The launch spans and tile points are the reference's; the port adds
+    # its prep and collect spans before and after them.
     assert points(pspans) == points(rspans)
+    disp = [s["name"] for s in sorted(pspans, key=lambda s: s["t0"])
+            if s["kind"] == "dispatch"]
+    assert disp == ["ovl_prep", "ovl_chunk", "ovl_tiled_chunk",
+                    "ovl_collect"]
     tiles = [s for s in pspans if s["kind"] == "tile"]
     assert [s["index"] for s in tiles] == list(range(5))
     tiled = [s for s in pspans if s["name"] == "ovl_tiled_chunk"]
@@ -664,11 +685,13 @@ def test_tiled_gate_off_routes_native(monkeypatch):
     assert pbudget.tile_plan(10_000, 10_000) is not None
     buf = io.StringIO()
     povl.reset_stats()
+    before = _ovl_counts()
     fb = povl.device_breaking_points([o], None, 500, match=0, mismatch=-1,
                                      gap=-1, device="cpu", log=buf)
     assert fb == [o]
     assert "exceed the device length budget" in buf.getvalue()
-    assert povl.STATS == {"device_jobs": 0, "native_jobs": 1, "tiles": 0}
+    assert _ovl_delta(before) == {"device_jobs": 0, "native_jobs": 1,
+                                  "tiles": 0}
     assert povl.TILED_GROUPS == []
 
 
@@ -687,10 +710,11 @@ def test_grouped_tiled_launches_give_ungrouped_rows():
     for group in (1, 3):
         ovls = [_Ovl(*s) for s in specs]
         povl.reset_stats()
+        before = _ovl_counts()
         fb = povl.device_breaking_points(ovls, None, 500, match=0,
                                          mismatch=-1, gap=-1, device="cpu",
                                          tiers=tiers, group=group)
-        runs.append(([ovls.index(o) for o in fb], ovls, dict(povl.STATS),
+        runs.append(([ovls.index(o) for o in fb], ovls, _ovl_delta(before),
                      list(povl.TILED_GROUPS)))
     (fb1, o1, st1, tg1), (fb3, o3, st3, tg3) = runs
     assert fb1 == fb3
@@ -722,10 +746,11 @@ def test_grouped_untiled_launches_give_ungrouped_rows(monkeypatch):
     for group in (1, 3):
         ovls = [_Ovl(*s) for s in specs]
         povl.reset_stats()
+        before = _ovl_counts()
         fb = povl.device_breaking_points(ovls, None, 500, match=0,
                                          mismatch=-1, gap=-1, device="cpu",
                                          group=group)
-        runs.append(([ovls.index(o) for o in fb], ovls, dict(povl.STATS),
+        runs.append(([ovls.index(o) for o in fb], ovls, _ovl_delta(before),
                      list(povl.UNTILED_GROUPS), list(povl.TILED_GROUPS)))
     (fb1, o1, st1, ug1, tg1), (fb3, o3, st3, ug3, tg3) = runs
     assert fb1 == fb3 == [20]
