@@ -35,8 +35,9 @@ Counter conventions:
 - ``device_dispatches`` — chunk, round, repack, pack and walk launches
   of the consensus engine (one a retry-wrapped dispatch call);
 - ``ovl_card_s`` / ``ovl_host_align_s`` / ``ovl_walk_s`` — the align
-  phase's wall seconds by step (:data:`OVL_STEP_KEYS`), keys the JAX
-  package does not have.
+  phase's wall seconds by step (:data:`OVL_STEP_KEYS`), and
+  ``ovl_tail_lanes`` — tiled lanes whose group ran a tile past their
+  rows (:func:`record_ovl`): keys the JAX package does not have.
 
 The JAX package's three compile-cache gauges (``jax_cache_enabled``,
 ``jax_cache_entries_start``, ``jax_cache_entries_added``) have no
@@ -406,18 +407,22 @@ def dist_extras(reg: Optional[MetricsRegistry] = None
 # ------------------------------------------- overlap-alignment counters
 
 def record_ovl(device_jobs: int, native_jobs: int, tiles: int,
+               tail_lanes: int = 0,
                reg: Optional[MetricsRegistry] = None) -> None:
     """One device_breaking_points call (ops/ovl_align.py): overlaps the
     card aligned and certified, overlaps sent to the native aligner (no
     route admits them, or uncertified), and tile launches of the tiled
     route. ``ovl_device_fraction``, the running device share, is derived
-    in the same pass."""
+    in the same pass. ``tail_lanes``, the port's own ``ovl_tail_lanes``:
+    tiled lanes whose launch group ran at least one tile past their last
+    row, written on every call beside the other three."""
     reg = reg if reg is not None else _REGISTRY
 
     def _mutate(v):
         v["ovl_device_jobs"] = v.get("ovl_device_jobs", 0) + int(device_jobs)
         v["ovl_native_jobs"] = v.get("ovl_native_jobs", 0) + int(native_jobs)
         v["ovl_tiles_exec"] = v.get("ovl_tiles_exec", 0) + int(tiles)
+        v["ovl_tail_lanes"] = v.get("ovl_tail_lanes", 0) + int(tail_lanes)
         total = v["ovl_device_jobs"] + v["ovl_native_jobs"]
         if total > 0:
             v["ovl_device_fraction"] = round(
@@ -937,7 +942,7 @@ def merge_kind(key: str) -> str:
 #: ``(pattern, merge kind, doc token)``; ``*`` in a pattern matches one
 #: runtime-named segment (site slug, stage name, phase slug). The JAX
 #: package's rows less its three ``jax_cache_*`` rows, plus the port's
-#: :data:`OVL_STEP_KEYS`.
+#: :data:`OVL_STEP_KEYS` and ``ovl_tail_lanes``.
 METRIC_SPECS = (
     ("adaptive_early_exits", MERGE_SUM, "adaptive_early_exits"),
     ("adaptive_rounds_executed", MERGE_SUM, "adaptive_rounds_executed"),
@@ -994,6 +999,7 @@ METRIC_SPECS = (
     ("ovl_device_jobs", MERGE_SUM, "ovl_device_jobs"),
     ("ovl_host_align_s", MERGE_SUM, "ovl_host_align_s"),
     ("ovl_native_jobs", MERGE_SUM, "ovl_native_jobs"),
+    ("ovl_tail_lanes", MERGE_SUM, "ovl_tail_lanes"),
     ("ovl_tiles_exec", MERGE_SUM, "ovl_tiles_exec"),
     ("ovl_walk_s", MERGE_SUM, "ovl_walk_s"),
     ("phase_seconds_*", MERGE_SUM, "phase_seconds_"),

@@ -16,7 +16,8 @@ Two routes, by length (admission rules of ops/budget.py, the reference's):
 - tiled: reads too long for that run as T-row query tiles of the
   frontier-carrying forward (K3, ``racon_band_tile_fwd``), with the band
   re-centered between tiles, a staircase escape certificate over the
-  running band clearance, and one stitched column walk.
+  running band clearance of the tiles that hold the lane's rows, and one
+  stitched column walk.
 
 The admission rules size a chunk (its lanes, W, T and walk depth are the
 reference's); the group planner (:func:`plan_groups`) sizes a launch.
@@ -30,8 +31,9 @@ ceiling on the group's planes. Lanes never interact, so each chunk's
 rows are what it gives alone.
 
 Both walks run on the CUDA column walk (W1, csrc/col_walk.cu). A lane
-whose band optimality is not certified, or whose walk saturated, goes
-back to the caller for the host aligner, as do jobs no route admits.
+whose band optimality is not certified (its edit distance passes what its
+band's clearance proves), or whose walk saturated, goes back to the
+caller for the host aligner, as do jobs no route admits.
 """
 
 from __future__ import annotations
@@ -223,7 +225,15 @@ def _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, *, match, mismatch,
                  + gap*(|lt - lq| + 2*cmin + 2)
 
     certifies banded == global; without re-centering cmin == wl and this
-    is the untiled bound.
+    is the untiled bound. A lane's cmin covers only the tiles that hold
+    its rows (i0 < lq): its paths lie in rows 0..lq, so a path leaving
+    its band crosses an edge of one of those tiles and still pays
+    |lt - lq| + 2*cmin + 2 gaps, and the walk reads klos only up to the
+    tile that holds row lq. The tiles a longer lane of the chunk adds
+    past them hold none of its rows; there the padding rows cost an edit
+    a cell, the frontier's maximum spreads into a plateau, and the
+    first-maximum re-centering walks klo to the clamp, which a cmin over
+    every tile would take for an escape. Only ``fail`` moves, 1 to 0.
 
     Returns the untiled tuple plus ``klos`` int32[n_tiles, B], the
     per-tile band origins. Walk emissions are int32 (query indices of
@@ -253,7 +263,8 @@ def _tiled_chunk_breaking_points(q, t, lq, lt, t_begin, *, match, mismatch,
     klos = torch.empty((n_tiles, B), dtype=i32, device=dev)
     for ti in range(n_tiles):
         i0 = ti * T
-        cmin = torch.minimum(cmin, torch.minimum(klo_hi - klo, klo - klo_lo))
+        cmin = torch.where(lq > i0, torch.minimum(
+            cmin, torch.minimum(klo_hi - klo, klo - klo_lo)), cmin)
         tband = band_targets(flat, base, klo, lt, W + T, origin=i0)
         *_, hl2, prev2, uc2 = kernels.fw_dirs_band_tile(
             tband, qT[i0:i0 + T], klo, lq, i0, prev, uc, hl, match=match,
@@ -531,7 +542,7 @@ def _breaking_points(pending, sequences, window_length: int, prep, *,
             ugroups.append(dict(lanes=TB, W=W, Lq=Lq, LA=LA, nxt_k=nxt_k,
                                 chunks=len(chunks), G=G,
                                 groups=len(groups)))
-        n_tiles_exec = 0
+        n_tiles_exec = n_tail = 0
         for bucket, lanes, W, T, Lq, LA, nxt_k in tiled_buckets:
             kw = dict(W=W, w_len=window_length,
                       NW=LA // window_length + 2, Lq=Lq, LA=LA, T=T,
@@ -552,9 +563,15 @@ def _breaking_points(pending, sequences, window_length: int, prep, *,
                                  Lq * W * (4 if nxt_k >= 4 else 2), mem_cap)
             for idx in groups:
                 part = [chunks[c] for c in idx]
+                # Lanes whose rows end at least a tile before the group's
+                # last tile (their certificate skips those tiles).
+                tail = sum(round_up(len(j[1]), T) < Lq
+                           for sub, _ in part for j in sub)
                 group_calls.append(([sub for sub, _ in part],
                                     _pack(part, Lq, LA, device),
-                                    dict(kw, lanes=[B for _, B in part])))
+                                    dict(kw, lanes=[B for _, B in part]),
+                                    tail))
+                n_tail += tail
             n_tiles_exec += len(groups) * (Lq // T)
             tgroups.append(dict(lanes=lanes, W=W, T=T, Lq=Lq, nxt_k=nxt_k,
                                 chunks=len(chunks), G=G,
@@ -568,10 +585,11 @@ def _breaking_points(pending, sequences, window_length: int, prep, *,
                              chunks=len(subs)):
                 outs.extend(zip(subs,
                                 _untiled_group_breaking_points(*args, **kw)))
-        for subs, args, kw in group_calls:
+        for subs, args, kw, tail in group_calls:
             with tracer.span("dispatch", "ovl_tiled_chunk",
                              lanes=sum(kw["lanes"]), W=kw["W"],
-                             tiles=kw["Lq"] // kw["T"], chunks=len(subs)):
+                             tiles=kw["Lq"] // kw["T"], chunks=len(subs),
+                             tail_lanes=tail):
                 # A ``tile`` point a tile launch of the group.
                 for ti in range(kw["Lq"] // kw["T"]):
                     tracer.point("tile", f"t{ti}", index=ti, rows=kw["T"],
@@ -611,7 +629,8 @@ def _breaking_points(pending, sequences, window_length: int, prep, *,
         UNTILED_GROUPS.extend(ugroups)
         TILED_GROUPS.extend(tgroups)
     record_ovl(device_jobs=len(jobs) + len(tiled_jobs) - n_uncert,
-               native_jobs=len(fallback), tiles=n_tiles_exec)
+               native_jobs=len(fallback), tiles=n_tiles_exec,
+               tail_lanes=n_tail)
     if log is not None and fallback:
         print(f"[racon_tpu_torch::Polisher::initialize] {len(fallback)} of "
               f"{len(pending)} overlap alignments fall back to the "

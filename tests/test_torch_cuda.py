@@ -811,6 +811,50 @@ def test_device_breaking_points_grouped_cuda_matches_cpu(cuda):
     assert sum(o.breaking_points is not None for o in g_ovl) >= 4
 
 
+@pytest.mark.parametrize("nxt_k", [2, 4])
+def test_tiled_mixed_bucket_cuda_matches_plain(cuda, nxt_k):
+    """A tiled chunk of mixed lengths (W = 128, T = 32, Lq = 256): 60-250
+    base reads at 8% error and four short lanes whose rows end one row
+    into their sixth tile with 51 more query bases than target, so the
+    padding rows past them re-center their band toward its clamp. The
+    card's run (K3, the re-centering, W1) gives the plain route's fail
+    flags, rows and per-tile origins, and keeps the short lanes, whose
+    certificate covers only their own tiles."""
+    rng = np.random.default_rng(47)
+    B, Lq, W, T = 24, 256, 128, 32
+    q = np.zeros((B, Lq), np.uint8)
+    t = np.zeros((B, Lq), np.uint8)
+    lq = np.zeros(B, np.int32)
+    lt = np.zeros(B, np.int32)
+    short = (3, 8, 13, 21)
+    for b in range(B):
+        if b in short:
+            tt = _BASES[rng.integers(0, 4, 110)]
+            qq = mutate(rng, tt, 0.10)[0]
+            pos = np.sort(rng.integers(0, len(qq) + 1, 161 - len(qq)))
+            qq = np.insert(qq, pos, _BASES[rng.integers(0, 4, len(pos))])
+        else:
+            tt = _BASES[rng.integers(0, 4, int(rng.integers(60, 240)))]
+            qq = mutate(rng, tt, 0.08)[0][:Lq]
+        q[b, :len(qq)] = encode_bases(qq.tobytes())
+        t[b, :len(tt)] = encode_bases(tt.tobytes())
+        lq[b], lt[b] = len(qq), len(tt)
+    lq[B - 1] = 250                  # a lane that fills the eighth tile
+    t_begin = rng.integers(0, 700, B).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (q, t, lq, lt, t_begin)]
+    kw = dict(match=0, mismatch=-1, gap=-1, W=W, w_len=50, NW=Lq // 50 + 2,
+              Lq=Lq, LA=Lq, T=T, nxt_k=nxt_k)
+    ref = ovl_align._tiled_chunk_breaking_points(*args, **kw)
+    n0 = kernels.LAUNCHES["band_tile_fwd"]
+    out = ovl_align._tiled_chunk_breaking_points(
+        *(a.to(cuda) for a in args), **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["band_tile_fwd"] == n0 + Lq // T
+    for r, o in zip(ref, out):
+        assert r.dtype == o.dtype and torch.equal(r, o.cpu())
+    assert not ref[5][list(short)].any()
+
+
 def test_device_breaking_points_untiled_grouped_cuda_matches_cpu(
         cuda, monkeypatch):
     """Twenty 1.0-1.6 kb untiled jobs and one uncertified pair in chunks

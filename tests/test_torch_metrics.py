@@ -22,8 +22,8 @@ run under JAX_PLATFORMS=cpu.
 - each ``*_extras`` function against the reference's on the same
   recorded events; METRIC_SPECS and the merge kinds against the
   reference's; the fleet fold and the OpenMetrics render of a CLI
-  snapshot; the port's own rows (``OVL_STEP_KEYS``) and their merge
-  kind.
+  snapshot; the port's own rows (``OVL_STEP_KEYS`` and
+  ``ovl_tail_lanes``) and their merge kind.
 """
 
 import collections
@@ -362,9 +362,11 @@ def test_ovl_counters_of_a_rejected_set_match_reference():
             assert len(ovl.device_breaking_points(
                 [_Ovl(*over_budget)], None, 500, match=0, mismatch=-1,
                 gap=-1, **kw)) == 1
-        assert PM.ovl_extras() == RM.ovl_extras() == {
-            "ovl_device_fraction": 0.0, "ovl_device_jobs": 0,
-            "ovl_native_jobs": 1, "ovl_tiles_exec": 0}
+        want = {"ovl_device_fraction": 0.0, "ovl_device_jobs": 0,
+                "ovl_native_jobs": 1, "ovl_tiles_exec": 0}
+        # The port writes its own ovl_tail_lanes on every record_ovl.
+        assert RM.ovl_extras() == want
+        assert PM.ovl_extras() == dict(want, ovl_tail_lanes=0)
 
 
 # ------------------------------------------- recorders and their extras
@@ -464,6 +466,10 @@ def test_extras_match_reference(name, monkeypatch):
     else:
         got, want = getattr(PM, name)(port), getattr(RM, name)(ref)
         assert got
+    if name in ("ovl_extras", "snapshot"):
+        # The port's own key, written by every record_ovl (none of the
+        # recorded calls had a tail lane).
+        assert got.pop("ovl_tail_lanes") == 0
     assert got == want
 
 
@@ -477,14 +483,16 @@ def test_empty_extras_match_reference():
 
 def test_metric_specs_match_reference():
     """The reference's rows less its three compile-cache rows, in its
-    order, plus the port's align-phase step rows (sums), each row's kind
+    order, plus the port's align-phase step rows and its tail-lane row
+    (sums), each row's kind
     the merge kind of its exact keys; no ``jax_cache_*`` key has a row
     or a gauge kind here."""
     want = tuple(r for r in RM.METRIC_SPECS
                  if not r[0].startswith("jax_cache_"))
-    own = tuple(r for r in PM.METRIC_SPECS if r[0] in PM.OVL_STEP_KEYS)
+    port_keys = PM.OVL_STEP_KEYS + ("ovl_tail_lanes",)
+    own = tuple(r for r in PM.METRIC_SPECS if r[0] in port_keys)
     assert tuple(r for r in PM.METRIC_SPECS if r not in own) == want
-    assert own == tuple((k, PM.MERGE_SUM, k) for k in PM.OVL_STEP_KEYS)
+    assert own == tuple((k, PM.MERGE_SUM, k) for k in sorted(port_keys))
     ovl = [r[0] for r in PM.METRIC_SPECS if r[0].startswith("ovl_")]
     assert ovl == sorted(ovl)
     assert len(RM.METRIC_SPECS) - len(PM.METRIC_SPECS) == 3 - len(own)

@@ -365,15 +365,41 @@ def test_untiled_group_size_is_one_on_cpu():
     assert povl.group_size(povl.TB, 1024, 6144, 4, "cpu", tiled=False) == 1
 
 
+def _tail_pair(rng, lq=161, lt=110, err=0.10):
+    """A short tiled lane the padding rows past it push off its band: a
+    110-base target at ``err`` error with random bases inserted through
+    the query up to 161 bases (d = lt - lq = -51: band clearance 38 at W =
+    128). At T = 32 its rows end one row into a tile, so that tile's other
+    31 rows are padding, whose plateau re-centers the band 25 slots down
+    for the next tile: a certificate over that tile reads clearance 13."""
+    tt = rng.integers(0, 4, lt).astype(np.uint8)
+    qq = _mutate_codes(rng, tt, err)
+    pos = np.sort(rng.integers(0, len(qq) + 1, lq - len(qq)))
+    ins = rng.integers(0, 4, len(pos)).astype(np.uint8)
+    return np.insert(qq, pos, ins), tt
+
+
+def _put_lane(chunk, b, qq, tt):
+    """Lane ``b`` of a chunk's padded arrays set to the pair (qq, tt)."""
+    q, t, lq, lt, _ = chunk
+    q[b], t[b] = 0, 0
+    q[b, :len(qq)], t[b, :len(tt)] = qq, tt
+    lq[b], lt[b] = len(qq), len(tt)
+
+
 def _group_chunks(seed):
-    """Three tiled chunks of 8, 8 and 4 lanes (the last a halved tail):
-    180-base reads at 5% error, and in chunk 1 one 240-base lane that
+    """Three tiled chunks of 8, 8 and 4 lanes (the last a halved tail) at
+    Lq = 256, T = 32: 180-base reads at 5% error (two tiles past their
+    last row), in each chunk one :func:`_tail_pair` lane at lane 5, 6 and
+    3 (two tiles and 31 rows past), and in chunk 1 one 240-base lane that
     drifts 40 diagonals off and back (every third base of 120 missing
     from the target, then 40 extra bases), so its band re-centers between
     tiles."""
     rng = np.random.default_rng(seed)
     Lq = LA = 256
     chunks = [_mk_chunk(rng, 180, 0.05, B, Lq, LA) for B in (8, 8, 4)]
+    for chunk, b in zip(chunks, TAIL_LANES):
+        _put_lane(chunk, b, *_tail_pair(rng))
     q, t, lq, lt, _ = chunks[1]
     qq = rng.integers(0, 4, 240).astype(np.uint8)
     tt = list(qq[:30]) + [b for i, b in enumerate(qq[30:150]) if i % 3]
@@ -381,11 +407,12 @@ def _group_chunks(seed):
         tt.append(b)
         if i % 2 and i < 80:
             tt.append(int(rng.integers(0, 4)))
-    q[2], t[2] = 0, 0
-    q[2, :240], t[2, :len(tt)] = qq, tt
-    lq[2], lt[2] = 240, len(tt)
+    _put_lane(chunks[1], 2, qq, np.array(tt, np.uint8))
     return chunks, dict(W=128, w_len=50, NW=LA // 50 + 2, Lq=Lq, LA=LA,
                         T=32)
+
+
+TAIL_LANES = (5, 6, 3)       # each chunk's _tail_pair lane in _group_chunks
 
 
 @pytest.mark.parametrize("nxt_k", [2, 4])
@@ -411,22 +438,141 @@ def test_tiled_group_matches_chunks_alone(nxt_k, scoring):
     assert not outs[0][5].any()
 
 
+def _lane_rows(out, b, t_begin):
+    """Lane ``b``'s breaking-point rows from a chunk tuple, as the collect
+    builds them (query start 0)."""
+    first_c, qi_f, last_c, qi_l, valid = (np.asarray(a)[b] for a in out[:5])
+    return np.stack([t_begin + first_c[valid], qi_f[valid],
+                     t_begin + last_c[valid] + 1, qi_l[valid] + 1],
+                    axis=1).astype(np.int64)
+
+
+def _native_lane_rows(q, t, lq, lt, t_begin, w_len):
+    """The host aligner's rows for one lane's operands."""
+    ops = NativeAligner().align_batch([(q[:lq], t[:lt])])[0]
+    return breaking_points_from_cigar(ops_to_cigar(ops), t_begin,
+                                      t_begin + lt, 0, w_len)
+
+
+def _assert_matches_reference_tiled(chunk, out, ref, w_len):
+    """A tiled chunk's port tuple against the reference's: every field
+    but ``fail`` bitwise, ``fail`` at most the reference's lane by lane,
+    and every lane the port alone certifies with the host aligner's
+    rows. Returns those lanes."""
+    assert len(ref) == len(out)
+    out = [np.asarray(a) for a in out]
+    ref = [np.asarray(a) for a in ref]
+    for i, (a, b) in enumerate(zip(ref, out)):
+        assert a.dtype == b.dtype, f"field {i} dtype"
+        if i != 5:
+            assert np.array_equal(a, b), f"field {i} differs"
+    assert (out[5] <= ref[5]).all()
+    q, t, lq, lt, t_begin = chunk
+    newly = np.flatnonzero(out[5] != ref[5])
+    for b in newly:
+        assert out[5][b] == 0
+        assert np.array_equal(
+            _lane_rows(out, b, t_begin[b]),
+            _native_lane_rows(q[b], t[b], lq[b], lt[b], t_begin[b], w_len))
+    return newly.tolist()
+
+
 def test_tiled_group_matches_reference_per_chunk():
     """The same group against the reference's tiled chunk function run on
-    each chunk alone (XLA twins on the CPU)."""
+    each chunk alone (XLA twins on the CPU): the rows, the per-tile
+    origins and the walk's fields equal, and the port certifies each
+    chunk's tail lane, which the reference fails because it takes the
+    band clearance over the tiles past the lane's rows too (every chunk
+    here runs tiles past some lane's last row)."""
     chunks, kw = _group_chunks(32)
     kw.update(match=0, mismatch=-1, gap=-1, nxt_k=2)
     tch = [tuple(torch.from_numpy(a) for a in c) for c in chunks]
     group = [torch.cat(f) for f in zip(*tch)]
     outs = povl._tiled_group_breaking_points(*group, lanes=[8, 8, 4], **kw)
-    for c, out in zip(chunks, outs):
+    for c, out, tail in zip(chunks, outs, TAIL_LANES):
+        assert (-(-c[2] // kw["T"]) * kw["T"] < kw["Lq"]).any()
         ref = rovl._tiled_chunk_breaking_points(*c, tb=c[0].shape[0], ch=4,
                                                 pallas=False, **kw)
-        assert len(ref) == len(out)
-        for i, (a, b) in enumerate(zip(ref, out)):
-            a = np.asarray(a)
-            assert a.dtype == b.numpy().dtype, f"field {i} dtype"
-            assert np.array_equal(a, b.numpy()), f"field {i} differs"
+        newly = _assert_matches_reference_tiled(c, out, ref, kw["w_len"])
+        assert tail in newly
+
+
+@pytest.mark.parametrize("tiles_past", [1, 2, 3])
+def test_tiled_tail_lane_certifies_in_longer_bucket(tiles_past):
+    """A short lane (:func:`_tail_pair`, 161 query rows: 6 tiles at T =
+    32, W = 128) beside a lane that fills a bucket 1-3 tiles longer: its
+    fail flag and rows are those it gives alone at Lq = 192, and the host
+    aligner's. The reference, whose certificate also reads the band
+    clearance of the tiles past the lane's rows, fails it in each such
+    bucket and certifies it alone; every other field of the two equals."""
+    rng = np.random.default_rng(60 + tiles_past)
+    T, w_len = 32, 50
+    short = _tail_pair(rng)
+    Lq = 192 + T * tiles_past
+    tt = rng.integers(0, 4, Lq - 9).astype(np.uint8)
+    bucket = (np.zeros((2, Lq), np.uint8), np.zeros((2, Lq), np.uint8),
+              np.ones(2, np.int32), np.ones(2, np.int32),
+              rng.integers(0, 700, 2).astype(np.int32))
+    _put_lane(bucket, 0, *short)
+    _put_lane(bucket, 1, _mutate_codes(rng, tt, 0.05), tt)
+    alone = tuple(a[:1, :192] if a.ndim == 2 else a[:1] for a in bucket)
+
+    def run(args, L):
+        kw = dict(match=0, mismatch=-1, gap=-1, W=128, w_len=w_len,
+                  NW=L // w_len + 2, Lq=L, LA=L, T=T, nxt_k=2)
+        out = povl._tiled_chunk_breaking_points(
+            *(torch.from_numpy(a) for a in args), **kw)
+        ref = rovl._tiled_chunk_breaking_points(*args, tb=len(args[2]),
+                                                ch=4, pallas=False, **kw)
+        return [a.numpy() for a in out], ref
+
+    a_out, a_ref = run(alone, 192)
+    b_out, b_ref = run(bucket, Lq)
+    assert a_out[5][0] == np.asarray(a_ref[5])[0] == 0
+    assert np.asarray(b_ref[5])[0] > 0
+    assert b_out[5][0] == 0
+    assert _assert_matches_reference_tiled(bucket, b_out, b_ref,
+                                           w_len) == [0]
+    rows = _lane_rows(b_out, 0, bucket[4][0])
+    assert np.array_equal(rows, _lane_rows(a_out, 0, bucket[4][0]))
+    assert np.array_equal(rows, _native_lane_rows(
+        short[0], short[1], len(short[0]), len(short[1]), bucket[4][0],
+        w_len))
+
+
+def test_tail_lanes_counter_and_span(tmp_path, monkeypatch):
+    """device_breaking_points on a small tier (8 lanes, W = 128, T = 32;
+    the untiled route closed so these short jobs take the tiled one):
+    three tail lanes and a 250-base lane that fills the bucket's eight
+    tiles. ``ovl_tail_lanes`` and the ``ovl_tiled_chunk`` span's
+    ``tail_lanes`` count the three, the card keeps every lane, and the
+    tail lanes' rows are the host aligner's."""
+    from racon_tpu_torch.obs import metrics as pmetrics, trace as ptrace
+    monkeypatch.setattr(povl, "untiled_admits", lambda lq, lt: False)
+    rng = np.random.default_rng(71)
+    specs = []
+    for i in range(3):
+        qq, tt = _tail_pair(rng)
+        specs.append((_BASES[qq].tobytes(), _BASES[tt].tobytes(), 61 * i))
+    tt = rng.integers(0, 4, 250).astype(np.uint8)
+    specs.append((_BASES[_mutate_codes(rng, tt, 0.03)].tobytes(),
+                  _BASES[tt].tobytes(), 7))
+    ovls = [_Ovl(*sp) for sp in specs]
+    povl.reset_stats()
+    fb, spans, snap = _traced(
+        ptrace, pmetrics, str(tmp_path / "port.jsonl"),
+        lambda: povl.device_breaking_points(
+            ovls, None, 500, match=0, mismatch=-1, gap=-1, device="cpu",
+            tiers=((8, 128, 32, 4),)))
+    assert fb == []
+    assert povl.TILED_GROUPS == [dict(lanes=8, W=128, T=32, Lq=256,
+                                      nxt_k=4, chunks=1, G=1, groups=1)]
+    assert snap["ovl_tail_lanes"] == 3
+    assert snap["ovl_device_jobs"] == 4 and snap["ovl_native_jobs"] == 0
+    assert [s["tail_lanes"] for s in spans
+            if s["name"] == "ovl_tiled_chunk"] == [3]
+    for o in ovls[:3]:
+        assert np.array_equal(_native_rows(o), o.breaking_points)
 
 
 def _untiled_group_chunks(seed):
@@ -636,8 +782,9 @@ def test_device_breaking_points_match_reference_and_native(tmp_path):
         rbuf.getvalue()
     ovl = {"ovl_device_jobs": 5, "ovl_native_jobs": 2, "ovl_tiles_exec": 5,
            "ovl_device_fraction": round(5 / 7, 4)}
+    assert rmetrics.ovl_extras(_as_reg(rmetrics, rsnap)) == ovl
     assert pmetrics.ovl_extras(_as_reg(pmetrics, psnap)) == \
-        rmetrics.ovl_extras(_as_reg(rmetrics, rsnap)) == ovl
+        dict(ovl, ovl_tail_lanes=0)
 
     def points(spans):
         return sorted((s["kind"], s["name"], s.get("index"), s.get("rows"),
